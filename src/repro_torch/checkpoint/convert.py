@@ -1,0 +1,52 @@
+"""Parameter bridge between numpy trees and the port's tensor trees.
+
+Parameters keep the JAX package's layout (nested dicts, stacked layers on
+axis 0, weights ``(in, out)``), so crossing over is a leaf-by-leaf
+conversion.  A caller holding JAX parameters passes
+``jax.tree.map(np.asarray, params)``: the port itself never sees JAX.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs import torch_dtype
+
+
+def _map(tree, fn):
+    return {k: _map(v, fn) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
+def params_from_numpy(tree, *, device="cuda", dtype=None):
+    """numpy tree -> tensor tree on ``device``.  ``dtype`` (a name such as
+    ``"float32"``) casts every leaf; None keeps each leaf's own dtype.
+    numpy has no bfloat16, so bf16 arrays (``ml_dtypes``) are read through
+    float32, which holds them exactly."""
+    device = resolve_device(device)
+    want = torch_dtype(dtype) if dtype is not None else None
+
+    def conv(a):
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16":
+            t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+        else:
+            t = torch.from_numpy(np.array(a))    # an owned, writable copy
+        if want is not None:
+            t = t.to(want)
+        return t.to(device)
+
+    return _map(tree, conv)
+
+
+def params_to_numpy(tree):
+    """tensor tree -> numpy tree on the host (bf16 leaves as float32)."""
+    def conv(t):
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        return t.numpy()
+
+    return _map(tree, conv)

@@ -1,0 +1,109 @@
+"""Architecture config dataclass + registry (port of ``repro.configs.base``,
+with the fields the ported families read; the MoE, SSM, hybrid and
+encoder-decoder fields come with those families).
+
+Dtypes are strings (``"bfloat16"``, ``"float32"``) rather than framework
+dtype objects, so a config means the same thing on both sides of the
+port; ``torch_dtype`` maps a string to the ``torch.dtype`` the code uses.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+           "float16": torch.float16}
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """``"bfloat16"`` -> ``torch.bfloat16`` (and float32 / float16)."""
+    if name not in _DTYPES:
+        raise ValueError(f"dtype {name!r}: expected one of {sorted(_DTYPES)}")
+    return _DTYPES[name]
+
+
+@dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str                       # dense | moe | ssm | hybrid | vlm | audio
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0                 # 0 -> d_model // n_heads
+    source: str = ""                  # citation (paper / model card)
+
+    # attention details
+    qkv_bias: bool = False
+    qk_norm: bool = False
+    rope_theta: float = 10_000.0
+    window: Optional[int] = None      # native sliding window
+
+    # norms / mlp family / misc
+    norm: str = "rms"                 # rms | layer
+    mlp: str = "swiglu"               # swiglu | gelu
+    tie_embeddings: bool = True
+    max_seq_len: int = 524_288
+
+    # precision (strings; see torch_dtype)
+    dtype: str = "bfloat16"
+    param_dtype: str = "float32"
+    kv_cache_dtype: str = "bfloat16"
+
+    def __post_init__(self):
+        if self.head_dim == 0:
+            object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
+        for f in ("dtype", "param_dtype", "kv_cache_dtype"):
+            torch_dtype(getattr(self, f))       # reject unknown names early
+
+    def replace(self, **kw) -> "ArchConfig":
+        return dataclasses.replace(self, **kw)
+
+    # ---- derived quantities ------------------------------------------------
+    @property
+    def attn_params(self) -> int:
+        d, nh, nkv, hd = self.d_model, self.n_heads, self.n_kv_heads, self.head_dim
+        return d * nh * hd + 2 * d * nkv * hd + nh * hd * d
+
+    @property
+    def mlp_params(self) -> int:
+        mult = 3 if self.mlp == "swiglu" else 2
+        return mult * self.d_model * self.d_ff
+
+    @property
+    def layer_params(self) -> int:
+        return self.attn_params + self.mlp_params
+
+    @property
+    def n_params(self) -> int:
+        emb = self.vocab_size * self.d_model
+        return emb * (1 if self.tie_embeddings else 2) \
+            + self.n_layers * self.layer_params
+
+    @property
+    def n_active_params(self) -> int:
+        return self.n_params
+
+
+ARCH_REGISTRY: dict[str, ArchConfig] = {}
+SMOKE_REGISTRY: dict[str, ArchConfig] = {}
+
+
+def register(cfg: ArchConfig, smoke: ArchConfig) -> None:
+    ARCH_REGISTRY[cfg.name] = cfg
+    SMOKE_REGISTRY[cfg.name] = smoke
+
+
+def get_config(name: str, smoke: bool = False) -> ArchConfig:
+    import repro_torch.configs  # noqa: F401  (triggers registration)
+    reg = SMOKE_REGISTRY if smoke else ARCH_REGISTRY
+    if name not in reg:
+        raise KeyError(f"arch {name!r} is not ported to repro_torch yet; "
+                       f"have {sorted(reg)}")
+    return reg[name]

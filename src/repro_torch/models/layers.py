@@ -1,0 +1,291 @@
+"""Core layers, dense subset (port of ``repro.models.layers``).
+
+Plain functions over tensors: every layer is an ``init_*`` returning a
+param dict plus an apply function taking ``(params, inputs, cfg)``.  The
+params keep the JAX package's layout — weights are ``(in, out)`` and
+stacked layers carry a leading ``layers`` axis — so parameters carry
+across as a straight conversion (``checkpoint/convert.py``).
+
+Compute dtype is ``cfg.dtype``; weights are cast to it at each use, as in
+the JAX package.  ``models.api.prepare_params`` may cast the >= 2-D layer
+weights once ahead of time; the per-use cast is then a no-op with the same
+numbers.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs import torch_dtype
+
+Params = dict  # nested dict[str, torch.Tensor]
+
+NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# initializers
+# ---------------------------------------------------------------------------
+
+def dense_init(generator, shape, in_axis_size, dtype, device):
+    """Scaled-normal init: N(0, 1/fan_in)."""
+    std = 1.0 / math.sqrt(max(in_axis_size, 1))
+    x = torch.randn(shape, generator=generator, device=device,
+                    dtype=torch.float32) * std
+    return x.to(dtype)
+
+
+def embed_init(generator, shape, dtype, device):
+    x = torch.randn(shape, generator=generator, device=device,
+                    dtype=torch.float32) * 0.02
+    return x.to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# RMSNorm
+# ---------------------------------------------------------------------------
+
+def init_rmsnorm(d: int, dtype, device, lead=()) -> Params:
+    return {"scale": torch.ones((*lead, d), dtype=dtype, device=device)}
+
+
+def rms_norm(params: Params, x: torch.Tensor, eps: float = 1e-6):
+    dtype = x.dtype
+    x32 = x.float()
+    var = x32.square().mean(dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * params["scale"].float()).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings (split-half)
+# ---------------------------------------------------------------------------
+
+def rope_frequencies(head_dim: int, theta: float, device) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10000.0) -> torch.Tensor:
+    """x: (..., seq, heads, head_dim); positions: (..., seq)."""
+    head_dim = x.shape[-1]
+    freqs = rope_frequencies(head_dim, theta, x.device)            # (hd/2,)
+    angles = positions[..., :, None].float() * freqs               # (.., s, hd/2)
+    cos = torch.cos(angles)[..., :, None, :]                       # (.., s, 1, hd/2)
+    sin = torch.sin(angles)[..., :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention (GQA, qk-norm, causal / sliding window)
+# ---------------------------------------------------------------------------
+
+def init_attention(generator, cfg, device, lead=()) -> Params:
+    d, nh, nkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    pdt = torch_dtype(cfg.param_dtype)
+    p: Params = {
+        "wq": dense_init(generator, (*lead, d, nh * hd), d, pdt, device),
+        "wk": dense_init(generator, (*lead, d, nkv * hd), d, pdt, device),
+        "wv": dense_init(generator, (*lead, d, nkv * hd), d, pdt, device),
+        "wo": dense_init(generator, (*lead, nh * hd, d), nh * hd, pdt,
+                         device),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((*lead, nh * hd), dtype=pdt, device=device)
+        p["bk"] = torch.zeros((*lead, nkv * hd), dtype=pdt, device=device)
+        p["bv"] = torch.zeros((*lead, nkv * hd), dtype=pdt, device=device)
+    if cfg.qk_norm:
+        p["q_norm"] = init_rmsnorm(hd, pdt, device, lead)
+        p["k_norm"] = init_rmsnorm(hd, pdt, device, lead)
+    return p
+
+
+def _project_qkv(params: Params, x: torch.Tensor, cfg):
+    nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    dt = x.dtype
+    q = x @ params["wq"].to(dt)
+    k = x @ params["wk"].to(dt)
+    v = x @ params["wv"].to(dt)
+    if cfg.qkv_bias:
+        q = q + params["bq"].to(dt)
+        k = k + params["bk"].to(dt)
+        v = v + params["bv"].to(dt)
+    q = q.reshape(*x.shape[:-1], nh, hd)
+    k = k.reshape(*x.shape[:-1], nkv, hd)
+    v = v.reshape(*x.shape[:-1], nkv, hd)
+    if cfg.qk_norm:                 # per head, after the reshape
+        q = rms_norm(params["q_norm"], q)
+        k = rms_norm(params["k_norm"], k)
+    return q, k, v
+
+
+# above this many score elements per (b, h) row-block, sdpa walks query
+# chunks so the (sq, skv) score matrix is never materialized whole
+_SDPA_CHUNK_ELEMS = 4096 * 4096
+_SDPA_Q_CHUNK = 1024
+
+
+def _sdpa_dense(q, k, v, scale, qpos, kpos, causal, window):
+    """q: (b, sq, nkv, g, hd) grouped; k/v: (b, skv, nkv, hd)."""
+    logits = torch.einsum("bqkgh,bskh->bkgqs", q.float(), k.float()) * scale
+    mask = torch.ones((qpos.shape[0], kpos.shape[0]), dtype=torch.bool,
+                      device=q.device)
+    if causal:
+        mask &= kpos[None, :] <= qpos[:, None]
+    if window is not None:
+        mask &= kpos[None, :] > qpos[:, None] - window
+    logits = torch.where(mask[None, None, None], logits,
+                         torch.full_like(logits, NEG_INF))
+    probs = torch.softmax(logits, dim=-1)
+    return torch.einsum("bkgqs,bskh->bqkgh", probs, v.float())
+
+
+def sdpa(q, k, v, *, causal: bool, window: Optional[int] = None,
+         q_positions: Optional[torch.Tensor] = None,
+         kv_positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Scaled dot-product attention with GQA broadcast (plain products).
+
+    q: (b, sq, nh, hd); k/v: (b, skv, nkv, hd).  nh % nkv == 0."""
+    b, sq, nh, hd = q.shape
+    skv, nkv = k.shape[1], k.shape[2]
+    groups = nh // nkv
+    qg = q.reshape(b, sq, nkv, groups, hd)
+    scale = 1.0 / math.sqrt(hd)
+    qpos = (q_positions if q_positions is not None
+            else torch.arange(sq, device=q.device))
+    kpos = (kv_positions if kv_positions is not None
+            else torch.arange(skv, device=q.device))
+    if sq * skv <= _SDPA_CHUNK_ELEMS or sq % _SDPA_Q_CHUNK != 0:
+        out = _sdpa_dense(qg, k, v, scale, qpos, kpos, causal, window)
+        return out.reshape(b, sq, nh, hd).to(q.dtype)
+    outs = [_sdpa_dense(qg[:, i:i + _SDPA_Q_CHUNK], k, v, scale,
+                        qpos[i:i + _SDPA_Q_CHUNK], kpos, causal, window)
+            for i in range(0, sq, _SDPA_Q_CHUNK)]
+    return torch.cat(outs, dim=1).reshape(b, sq, nh, hd).to(q.dtype)
+
+
+def attention(params: Params, x: torch.Tensor, cfg, kv_cache: dict, *,
+              positions: torch.Tensor, window: Optional[int] = None):
+    """Causal self-attention over a contiguous KV cache (the serving
+    branch of the JAX ``attention``; the cache-free training branch comes
+    with the training slice).  Returns (out, kv_cache).
+
+    kv_cache: {"k": (b, max_s, nkv, hd), "v": ..., "index": int} — this
+    chunk's rows are written at ``index`` IN PLACE (where the JAX package
+    returns an updated copy) and attention runs over the filled prefix;
+    the returned cache has ``index`` advanced."""
+    b, sq, _ = x.shape
+    q, k, v = _project_qkv(params, x, cfg)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    idx = int(kv_cache["index"])
+    ck, cv = kv_cache["k"], kv_cache["v"]
+    ck[:, idx:idx + sq] = k.to(ck.dtype)
+    cv[:, idx:idx + sq] = v.to(cv.dtype)
+    kvpos = torch.arange(ck.shape[1], device=x.device)
+    qpos = idx + torch.arange(sq, device=x.device)
+    # unwritten slots are masked by the causal predicate (kvpos <= qpos)
+    out = sdpa(q, ck, cv, causal=True, window=window,
+               q_positions=qpos, kv_positions=kvpos)
+    out = out.reshape(b, sq, cfg.n_heads * cfg.head_dim)
+    return out @ params["wo"].to(x.dtype), \
+        {"k": ck, "v": cv, "index": idx + sq}
+
+
+def _scatter_kv_rows(pages: dict, blk, off, k, v) -> None:
+    """Write K/V rows through the block table into one layer's pages, IN
+    PLACE (the JAX package donates the pages and gets an updated copy).
+    pages: {"k","v"} of (P, bs, nkv, hd); blk/off index rows; k/v are the
+    new rows.  Duplicate (blk, off) pairs — inactive lanes all aim at the
+    garbage block — land in an unspecified order, which is harmless."""
+    pages["k"][blk, off] = k.to(pages["k"].dtype)
+    pages["v"][blk, off] = v.to(pages["v"].dtype)
+
+
+def paged_attention_decode(params: Params, x: torch.Tensor, cfg, *,
+                           pages: dict, tables: torch.Tensor,
+                           lengths: torch.Tensor,
+                           window: Optional[int] = None, impl=None):
+    """One-token attention block over a paged KV cache (one layer's pages).
+
+    x: (n, 1, d) *normed* hidden states, one decode lane per row.
+    pages: {"k","v"} of (P, bs, nkv, hd) physical blocks; tables: (n, B)
+    int32 block ids (unused entries name the pool's garbage block);
+    lengths: (n,) int32 rows already written, i.e. this token's row index.
+
+    Writes this step's K/V row through the block table in place and
+    attends to the ``[0, lengths]`` logical prefix through
+    ``kernels.ops.paged_attention``.  Returns ``out`` (n, 1, d)."""
+    from repro_torch.kernels import ops as kops
+    n = x.shape[0]
+    q, k, v = _project_qkv(params, x, cfg)
+    positions = lengths[:, None]                        # (n, 1)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    bs = pages["k"].shape[1]
+    lens = lengths.long()
+    blk = tables[torch.arange(n, device=x.device), lens // bs].long()
+    _scatter_kv_rows(pages, blk, lens % bs, k[:, 0], v[:, 0])
+    out = kops.paged_attention(q[:, 0].contiguous(), pages["k"], pages["v"],
+                               tables, lengths + 1, window=window, impl=impl)
+    out = out.reshape(n, 1, cfg.n_heads * cfg.head_dim)
+    return out @ params["wo"].to(x.dtype)
+
+
+def init_kv_cache(cfg, batch: int, max_seq: int, device,
+                  n_layers: Optional[int] = None, dtype=None) -> dict:
+    """Stacked (layers-first) KV cache for decode."""
+    L = n_layers if n_layers is not None else cfg.n_layers
+    dtype = dtype if dtype is not None else torch_dtype(cfg.kv_cache_dtype)
+    shape = (L, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "index": 0}
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+def init_swiglu(generator, cfg, device, lead=()) -> Params:
+    d, f = cfg.d_model, cfg.d_ff
+    pdt = torch_dtype(cfg.param_dtype)
+    return {
+        "w_gate": dense_init(generator, (*lead, d, f), d, pdt, device),
+        "w_up": dense_init(generator, (*lead, d, f), d, pdt, device),
+        "w_down": dense_init(generator, (*lead, f, d), f, pdt, device),
+    }
+
+
+def swiglu(params: Params, x: torch.Tensor) -> torch.Tensor:
+    dt = x.dtype
+    g = x @ params["w_gate"].to(dt)
+    u = x @ params["w_up"].to(dt)
+    return (F.silu(g) * u) @ params["w_down"].to(dt)
+
+
+# ---------------------------------------------------------------------------
+# Embedding / LM head
+# ---------------------------------------------------------------------------
+
+def init_embedding(generator, vocab: int, d: int, dtype, device) -> Params:
+    return {"table": embed_init(generator, (vocab, d), dtype, device)}
+
+
+def embed(params: Params, tokens: torch.Tensor, dtype) -> torch.Tensor:
+    # gather-then-cast: the same numbers as the JAX cast-then-gather,
+    # without a compute-dtype copy of the whole table
+    return params["table"][tokens].to(dtype)
+
+
+def unembed(params: Params, x: torch.Tensor) -> torch.Tensor:
+    """Tied LM head: logits in f32."""
+    return x.float() @ params["table"].float().t()

@@ -1,0 +1,74 @@
+"""Capability-driven family registry: one ``FamilySpec`` per model family
+(port of ``repro.models.registry``).
+
+Execution layers ask ``spec(cfg)`` what a family can do instead of
+testing family names.  Only the ``dense`` family is ported so far; other
+families raise ``KeyError`` naming what is available.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from importlib import import_module
+from types import ModuleType
+from typing import Any, Callable, Optional
+
+
+class CapabilityFallbackWarning(UserWarning):
+    """A requested serving feature is not in the family's declared
+    capabilities; execution fell back to the closest supported mode."""
+
+
+@dataclass(frozen=True)
+class FamilySpec:
+    """One model family's declared surface + capabilities + cost model."""
+
+    family: str
+    module: ModuleType
+    # -- capabilities the ported code reads ----------------------------------
+    batched_prefill: bool = False   # whole prompt chunk in ONE decode_step
+    paging: bool = False            # decode state can live in paged KV blocks
+    servable: bool = True           # InferenceEngine can serve this family
+    # capability -> one-line reason it is absent
+    notes: dict = field(default_factory=dict)
+    # -- cost fns (admission control charges these against the ledger) ------
+    decode_state_cost: Optional[Callable[[Any, int, int], int]] = None
+    kv_block_cost: Optional[Callable[[Any, int], int]] = None
+
+    def decode_state_bytes(self, cfg, batch: int, max_seq: int) -> int:
+        """Residency bytes of one decode state."""
+        return self.decode_state_cost(cfg, batch, max_seq)
+
+    def kv_block_bytes(self, cfg, block_size: int, kv_dtype=None) -> int:
+        """Residency bytes of ONE physical KV block across all layers."""
+        if kv_dtype not in (None, "fp"):
+            raise ValueError(f"{self.family}: kv_dtype={kv_dtype!r} "
+                             f"unsupported — {self.why_not('kv_quant')}")
+        return self.kv_block_cost(cfg, block_size)
+
+    def why_not(self, capability: str) -> str:
+        return self.notes.get(capability, "not declared by the family spec")
+
+
+_REGISTRY: dict[str, FamilySpec] = {}
+
+# family -> module that registers it (lazy import on first lookup)
+_FAMILY_MODULES = {"dense": "repro_torch.models.transformer"}
+
+
+def register(spec: FamilySpec) -> FamilySpec:
+    if not spec.family:
+        raise ValueError("FamilySpec.family must be a non-empty name")
+    _REGISTRY[spec.family] = spec
+    return spec
+
+
+def spec(family_or_cfg) -> FamilySpec:
+    """Look up the FamilySpec for a family name or an ArchConfig."""
+    family = getattr(family_or_cfg, "family", family_or_cfg)
+    if family not in _REGISTRY and family in _FAMILY_MODULES:
+        import_module(_FAMILY_MODULES[family])      # registration side effect
+    if family not in _REGISTRY:
+        raise KeyError(f"model family {family!r} is not ported to "
+                       f"repro_torch yet (have {sorted(_FAMILY_MODULES)})")
+    return _REGISTRY[family]

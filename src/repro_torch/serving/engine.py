@@ -1,0 +1,508 @@
+"""Continuous-batching inference engine over the paged decode backend
+(port of ``repro.serving.engine``).
+
+One engine serves one loaded model on one device.  Per tick (``step()``):
+
+  1. retire finished requests (the backend releases lanes + KV bytes),
+  2. apply overload pressure (``serving/slo.py``: shed the lowest waiting
+     tier at hard overload) and, when the queue head strictly outranks a
+     running request, preempt one victim,
+  3. admit queued requests in POLICY order (EDF + priority tiers +
+     starvation aging by default; strict FIFO with ``policy="fifo"``)
+     while the backend's byte budget allows — each group of same-length
+     prompts is prefilled in ONE batched call
+     (``make_prefill_into_cache``) and handed to the backend
+     (``write_prefill``); preempted requests resume with prefill skipped,
+  4. run ONE pooled decode step so every active request advances a token.
+
+Outputs are token-identical to running each request alone.  ``submit``
+and ``cancel`` behave as in the JAX package (streams, SLO fields, cancel
+of queued / running / preempted requests).
+
+Not ported yet (each raises ``NotImplementedError`` naming the later
+slice): the slot and speculative backends, length-bucketed prefill
+(``bucket_sizes``), shard-resident weights (``param_source``) and
+host-DRAM KV tiering (``tiered_kv``).
+"""
+
+from __future__ import annotations
+
+import math
+import time
+from collections import deque
+from typing import Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.models import api
+from repro_torch.models.registry import spec as family_spec
+from repro_torch.serving.backends import make_backend
+from repro_torch.serving.queue import RequestQueue
+from repro_torch.serving.request import Request, Status
+from repro_torch.serving.slo import SLO, OverloadedError, make_policy
+from repro_torch.training.train_loop import make_prefill_into_cache
+
+_LATER = "is ported in a later slice of the PyTorch port"
+
+
+class InferenceEngine:
+    def __init__(self, cfg, params, *, capacity: int = 8,
+                 max_seq: int = 256, kv_budget_bytes: Optional[int] = None,
+                 window: Optional[int] = None,
+                 model_name: Optional[str] = None,
+                 bucket_sizes: Optional[Sequence[int]] = None,
+                 backend: str = "paged", block_size: int = 16,
+                 n_blocks: Optional[int] = None, ledger=None,
+                 paged_impl: Optional[str] = None,
+                 prefix_share: bool = True, kv_dtype: Optional[str] = None,
+                 completed_cap: Optional[int] = None,
+                 policy: Union[str, object] = "slo",
+                 default_slo: Optional[SLO] = None,
+                 tiered_kv: bool = False, param_source=None,
+                 tok_seconds_prior: Optional[float] = None,
+                 clock=time.perf_counter, device="cuda"):
+        """``params``: the model's parameter tree (JAX layout, any device);
+        it is moved to ``device`` and its >= 2-D layer weights are held in
+        ``cfg.dtype`` (``api.prepare_params``).  ``device`` defaults to
+        CUDA and raises where there is none; pass ``device="cpu"`` to
+        serve on the CPU through the plain attention."""
+        if bucket_sizes is not None:
+            raise NotImplementedError(f"length-bucketed prefill {_LATER}")
+        if param_source is not None:
+            raise NotImplementedError(f"shard-resident weights {_LATER}")
+        if tiered_kv:
+            raise NotImplementedError(f"host-DRAM KV tiering {_LATER}")
+        spec = family_spec(cfg)
+        if not spec.servable:
+            raise ValueError(
+                f"{cfg.name} ({cfg.family}): not servable through "
+                f"InferenceEngine — {spec.why_not('servable')}")
+        if capacity < 1:
+            raise ValueError("capacity must be >= 1")
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.params = api.prepare_params(cfg, params, self.device)
+        self.model_name = model_name or cfg.name
+        self.clock = clock
+        self.capacity = capacity
+        self.max_seq = max_seq
+        self.queue = RequestQueue(clock=clock)
+        self.slot_bytes = spec.decode_state_bytes(cfg, 1, max_seq)
+        self._prefill = make_prefill_into_cache(cfg, window=window)
+        self.requested_backend = backend
+        self.backend = make_backend(
+            backend, cfg, capacity, max_seq, window=window,
+            kv_budget_bytes=kv_budget_bytes, ledger=ledger,
+            block_size=block_size, n_blocks=n_blocks,
+            paged_impl=paged_impl, prefix_share=prefix_share,
+            kv_dtype=kv_dtype, device=self.device)
+        self._active: dict[int, Request] = {}       # lane -> request
+        self._tokens = np.zeros((capacity, 1, 1), np.int32)
+        self.completed: deque[Request] = deque(maxlen=completed_cap)
+        self.completed_cap = completed_cap
+        self.retired_total = 0
+        self._recent_metrics: deque[dict] = deque(maxlen=32)
+        self.decode_steps = 0
+        self.decode_tokens = 0       # tokens from decode steps (not prefill)
+        self.prefill_calls = 0
+        self.prefill_tokens = 0
+        self.decode_s = 0.0
+        self.prefill_s = 0.0
+        self.peak_concurrency = 0
+        self._tok_s_ema: Optional[float] = None     # per-token decode seconds
+        self._tok_s_prior = tok_seconds_prior
+        # "slo" with no SLOs declared degrades EXACTLY to FIFO
+        self.policy = (make_policy(policy) if isinstance(policy, str)
+                       else policy)
+        self.default_slo = default_slo.validate() if default_slo else None
+        self.n_preempted = 0
+        self.n_resumed = 0
+        self.n_shed = 0
+        self.peak_live_requests = 0
+
+    # -- backend introspection ------------------------------------------------
+    @property
+    def paged(self) -> bool:
+        return self.backend.name == "paged"
+
+    @property
+    def pool(self):
+        return self.backend.pool
+
+    @property
+    def budget(self):
+        return self.backend.budget
+
+    @property
+    def ledger(self):
+        return self.backend.ledger
+
+    @property
+    def block_size(self):
+        return self.backend.block_size
+
+    @property
+    def paged_impl(self):
+        return self.backend.paged_impl
+
+    # -- submission ---------------------------------------------------------
+    def submit(self, prompt, max_new_tokens: int, *,
+               request_id: str = "", eos_id: Optional[int] = None,
+               arrival_time: Optional[float] = None,
+               deadline_ms: Optional[float] = None,
+               priority: Optional[str] = None,
+               max_ttft_ms: Optional[float] = None,
+               stream: bool = False) -> Request:
+        slo = SLO(deadline_ms=deadline_ms,
+                  priority=priority if priority is not None else "normal",
+                  max_ttft_ms=max_ttft_ms).merged(self.default_slo)
+        req = Request(prompt=prompt, max_new_tokens=max_new_tokens,
+                      request_id=request_id, eos_id=eos_id,
+                      model=self.model_name, arrival_time=arrival_time,
+                      slo=slo)
+        # rows written: plen at prefill + one per decode step; the final
+        # generated token is sampled but never fed back into the cache
+        if req.prompt_len + req.max_new_tokens - 1 > self.max_seq:
+            raise ValueError(
+                f"prompt+generation exceeds engine max_seq={self.max_seq}")
+        self.backend.admission_check(req, req.prompt_len)
+        if self.policy.pressure(self.queued_seconds()) >= 2 \
+                and hasattr(self.policy, "shed_tier"):
+            waiting = [r for r in self.queue if not r.done]
+            shed = self.policy.shed_tier(waiting + [req])
+            if shed is not None and req.slo.tier >= shed:
+                req.status = Status.REJECTED
+                req.shed_reason = (
+                    "hard overload: queued work exceeds "
+                    f"{self.policy.hard_overload_s:.4g}s; "
+                    f"{req.slo.priority!r} is the lowest waiting tier")
+                self.n_shed += 1
+                self._finish(req)
+                raise OverloadedError(
+                    f"{req.request_id}: {req.shed_reason}",
+                    payload={"request_id": req.request_id,
+                             "model": self.model_name,
+                             "priority": req.slo.priority,
+                             "queued_seconds":
+                                 round(self.queued_seconds(), 3),
+                             "reason": req.shed_reason})
+        if stream:
+            from repro_torch.serving.stream import TokenStream
+            req.stream = TokenStream(req.request_id)
+        return self.queue.push(req)
+
+    # -- cancellation -------------------------------------------------------
+    def cancel(self, request_id: str) -> bool:
+        """Withdraw a request by id, wherever it lives (queued, preempted
+        or running); lane and KV bytes release within one tick.  False
+        when no live request has that id."""
+        req = self.queue.find(request_id)
+        if req is not None and req.status in (Status.QUEUED,
+                                              Status.PREEMPTED):
+            req.status = Status.CANCELLED
+            return True
+        for req in self._active.values():
+            if req.request_id == request_id \
+                    and req.status is Status.RUNNING:
+                req.status = Status.CANCELLED
+                return True
+        return False
+
+    def cancel_all_queued(self) -> int:
+        n = 0
+        for req in self.queue:
+            if req.status in (Status.QUEUED, Status.PREEMPTED):
+                req.status = Status.CANCELLED
+                n += 1
+        return n
+
+    # -- introspection ------------------------------------------------------
+    def active_requests(self) -> Sequence[Request]:
+        return list(self._active.values())
+
+    def queued_requests(self) -> Sequence[Request]:
+        return list(self.queue)
+
+    def has_work(self) -> bool:
+        return bool(self._active or self.queue)
+
+    @property
+    def n_free_lanes(self) -> int:
+        return self.backend.free_lanes
+
+    def tok_seconds_estimate(self) -> float:
+        """Measured per-token decode seconds (EMA); the prior (or the
+        analytic 2e-10·params constant) until the first step."""
+        if self._tok_s_ema is not None:
+            return self._tok_s_ema
+        if self._tok_s_prior is not None:
+            return self._tok_s_prior
+        return 2e-10 * max(self.cfg.n_active_params, 1)
+
+    def remaining_seconds(self) -> float:
+        rem = sum(r.remaining_tokens() for r in self._active.values())
+        rem += sum(r.remaining_tokens()
+                   + (0 if r.status is Status.PREEMPTED else r.prompt_len)
+                   for r in self.queue if not r.done)
+        return rem * self.tok_seconds_estimate()
+
+    def queued_seconds(self) -> float:
+        rem = sum(r.remaining_tokens()
+                  + (0 if r.status is Status.PREEMPTED else r.prompt_len)
+                  for r in self.queue if not r.done)
+        return rem * self.tok_seconds_estimate()
+
+    def min_slack_seconds(self, now: Optional[float] = None
+                          ) -> Optional[float]:
+        """Tightest deadline slack across live requests, or None when
+        nothing declares a deadline."""
+        now = self.clock() if now is None else now
+        tok_s = self.tok_seconds_estimate()
+        best: Optional[float] = None
+        for r in list(self._active.values()) + list(self.queue):
+            if r.done:
+                continue
+            arrival = r.arrival_time if r.arrival_time is not None else now
+            dl = (r.slo.deadline_abs(arrival)
+                  if r.status is Status.RUNNING
+                  else r.slo.admission_deadline(arrival))
+            if not math.isfinite(dl):
+                continue
+            est = r.remaining_tokens() * tok_s
+            if r.status is Status.QUEUED:
+                est += r.prompt_len * tok_s
+            slack = dl - now - est
+            best = slack if best is None else min(best, slack)
+        return best
+
+    # -- engine tick --------------------------------------------------------
+    def _finish(self, req: Request) -> None:
+        req.finish_time = self.clock()
+        self.completed.append(req)
+        self.retired_total += 1
+        self._recent_metrics.append(req.metrics())
+        if req.stream is not None:
+            req.stream.close(req.status)
+
+    def _retire_finished(self) -> None:
+        for lane, req in list(self._active.items()):
+            if req.done:
+                if req.status is not Status.CANCELLED:
+                    req.status = Status.FINISHED
+                self.backend.release(req)
+                req.slot = None
+                del self._active[lane]
+                self._finish(req)
+
+    def _sweep_terminal_queued(self) -> None:
+        """Retire queued entries that went terminal in place (cancelled or
+        shed); a cancelled PREEMPTED request's snapshot is discarded."""
+        for req in [r for r in self.queue
+                    if r.status in (Status.CANCELLED, Status.REJECTED)]:
+            self.queue.remove(req)
+            self.backend.discard_preempted(req)
+            self._finish(req)
+
+    def _admit(self) -> list[Request]:
+        self._sweep_terminal_queued()
+        admitted: list[Request] = []
+        now = self.clock()
+        # policy-ordered walk; stop at the first request that cannot take
+        # a lane — skipping past a blocked head would starve it
+        for req in self.policy.order(list(self.queue), now):
+            if not self.backend.free_lanes:
+                break
+            if req.status is Status.PREEMPTED:
+                # resume: the KV snapshot re-attaches, prefill is skipped,
+                # decode restarts from the last generated token (its KV row
+                # was never written)
+                if not self.backend.resume(req):
+                    break
+                self.queue.remove(req)
+                req.status = Status.RUNNING
+                req.resume_generated = len(req.generated)
+                self.n_resumed += 1
+                self._tokens[req.slot, 0, 0] = req.generated[-1]
+                self._active[req.slot] = req
+                continue
+            if not self.backend.reserve(req, req.prompt_len):
+                break
+            self.queue.remove(req)
+            req.admit_time = self.clock()
+            req.status = Status.RUNNING
+            admitted.append(req)
+        if not admitted:
+            return admitted
+        # one batched prefill per same-length group
+        by_len: dict[int, list[Request]] = {}
+        for req in admitted:
+            by_len.setdefault(req.prompt_len, []).append(req)
+        for plen, group in sorted(by_len.items()):
+            states = self.backend.fresh_states(len(group), plen)
+            t0 = self.clock()
+            tokens = torch.from_numpy(
+                np.stack([r.prompt for r in group]).astype(np.int64)
+            ).to(self.device)
+            logits, states = self._prefill(self.params, states, tokens)
+            first = torch.argmax(logits, dim=-1).cpu().numpy()  # syncs
+            self.prefill_s += self.clock() - t0
+            self.prefill_calls += 1
+            self.prefill_tokens += sum(r.prompt_len for r in group)
+            self.backend.write_prefill(group, states)
+            now = self.clock()
+            for i, req in enumerate(group):
+                tok = int(first[i])
+                req.generated.append(tok)
+                req.first_token_time = now
+                if req.stream is not None:
+                    req.stream.put(tok)
+                self._tokens[req.slot, 0, 0] = tok
+                self._active[req.slot] = req
+        return admitted
+
+    def _maybe_preempt(self) -> None:
+        """Deschedule one running victim when the queue head strictly
+        outranks it and is blocked on a lane, not on bytes."""
+        if self.backend.free_lanes or not self.queue:
+            return
+        if not getattr(self.policy, "preempt", False):
+            return
+        now = self.clock()
+        waiting = [r for r in self.queue if not r.done]
+        if not waiting:
+            return
+        head = self.policy.order(waiting, now)[0]
+        if head.status is not Status.PREEMPTED \
+                and not self.backend.can_admit_bytes(head, head.prompt_len):
+            return
+        running = [r for r in self._active.values()
+                   if r.status is Status.RUNNING and not r.done]
+        victim = self.policy.pick_victim(head, running, now)
+        if victim is None:
+            return
+        lane = victim.slot
+        self.backend.preempt(victim)
+        del self._active[lane]
+        victim.slot = None
+        victim.status = Status.PREEMPTED
+        victim.preemptions += 1
+        self.n_preempted += 1
+        # rejoins the queue with its ORIGINAL arrival time/seq
+        self.queue.push(victim)
+
+    def _apply_pressure(self) -> None:
+        """Hard overload: reject the lowest-priority WAITING tier (worst
+        ranked first, stopping as soon as pressure clears)."""
+        if self.policy.pressure(self.queued_seconds()) < 2 \
+                or not hasattr(self.policy, "shed_tier"):
+            return
+        waiting = [r for r in self.queue if r.status is Status.QUEUED]
+        shed = self.policy.shed_tier(waiting)
+        if shed is None:
+            return
+        now = self.clock()
+        for req in reversed(self.policy.order(waiting, now)):
+            if req.slo.tier != shed:
+                continue
+            if self.policy.pressure(self.queued_seconds()) < 2:
+                break
+            req.status = Status.REJECTED
+            req.shed_reason = (
+                "hard overload: queued work exceeds "
+                f"{self.policy.hard_overload_s:.4g}s; shed lowest waiting "
+                f"tier ({req.slo.priority!r})")
+            self.n_shed += 1
+
+    def step(self) -> bool:
+        """One engine tick; returns True while there is work left."""
+        self._retire_finished()
+        self._apply_pressure()
+        self._maybe_preempt()        # a freed lane is re-used this tick
+        self._admit()
+        self._retire_finished()      # single-token requests finish at prefill
+        self.peak_concurrency = max(self.peak_concurrency, len(self._active))
+        parked = sum(1 for r in self.queue if r.status is Status.PREEMPTED)
+        self.peak_live_requests = max(self.peak_live_requests,
+                                      len(self._active) + parked)
+        if self._active:
+            t0 = self.clock()
+            ntoks = self.backend.decode(self.params, self._tokens,
+                                        self._active)      # syncs
+            dt = self.clock() - t0
+            self.decode_s += dt
+            self.decode_steps += 1
+            self.decode_tokens += len(self._active)
+            per_tok = dt / max(len(self._active), 1)
+            self._tok_s_ema = (per_tok if self._tok_s_ema is None
+                               else 0.8 * self._tok_s_ema + 0.2 * per_tok)
+            self._tokens = ntoks
+            for lane, req in self._active.items():
+                tok = int(ntoks[lane, 0, 0])
+                req.generated.append(tok)
+                if req.stream is not None:
+                    req.stream.put(tok)
+                self.backend.advance(lane)
+        return self.has_work()
+
+    def run(self, max_steps: Optional[int] = None) -> list[Request]:
+        """Drive to completion; returns requests completed during the call."""
+        done_before = self.retired_total
+        steps = 0
+        while self.step():
+            steps += 1
+            if max_steps is not None and steps >= max_steps:
+                break
+        self._retire_finished()
+        return self.completed_since(done_before)
+
+    def completed_since(self, retired_before: int) -> list[Request]:
+        n = self.retired_total - retired_before
+        if n <= 0:
+            return []
+        n = min(n, len(self.completed))
+        return list(self.completed)[len(self.completed) - n:]
+
+    def drain_completed(self) -> list[Request]:
+        out = list(self.completed)
+        self.completed.clear()
+        return out
+
+    def recent_metrics(self) -> list[dict]:
+        return list(self._recent_metrics)
+
+    # -- metrics ------------------------------------------------------------
+    def summary(self) -> dict:
+        out = {
+            "model": self.model_name,
+            "device": str(self.device),
+            "capacity": self.capacity,
+            "max_seq": self.max_seq,
+            "backend": self.backend.name,
+            "requested_backend": self.requested_backend,
+            "paged": self.paged,
+            "policy": self.policy.name,
+            "preemptible": self.backend.preemptible,
+            "n_preempted": self.n_preempted,
+            "n_resumed": self.n_resumed,
+            "n_shed": self.n_shed,
+            "bucket_sizes": None,
+            "slot_bytes": self.slot_bytes,
+            "kv_budget_bytes": self.backend.budget.budget_bytes,
+            "kv_reserved_bytes": self.backend.budget.reserved_bytes,
+            "kv_peak_bytes": self.backend.budget.peak_bytes,
+            "free_lanes": self.backend.free_lanes,
+            "peak_concurrency": self.peak_concurrency,
+            "peak_live_requests": self.peak_live_requests,
+            "n_completed": self.retired_total,
+            "decode_steps": self.decode_steps,
+            "prefill_calls": self.prefill_calls,
+            "prefill_tok_per_s": round(
+                self.prefill_tokens / self.prefill_s, 1)
+                if self.prefill_s else None,
+            "decode_tok_per_s": round(self.decode_tokens / self.decode_s, 1)
+                if self.decode_s else None,
+        }
+        out.update(self.backend.summary())
+        return out

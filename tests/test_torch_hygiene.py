@@ -1,0 +1,108 @@
+"""Boundaries of the PyTorch port.
+
+* It imports no JAX and nothing of the JAX package: importing every
+  ``repro_torch`` module leaves no ``jax``/``repro``/``hydra`` in
+  ``sys.modules``, and no source file (nor ``chip_smoke.py``) names them
+  in an import statement.
+* It never quietly runs on the CPU: without a CUDA device, the default
+  device of an entry point raises, and asking for the CUDA kernel on CPU
+  tensors raises.
+"""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+PORT = REPO / "src" / "repro_torch"
+FORBIDDEN = {"jax", "jaxlib", "repro", "hydra"}
+
+
+def test_importing_every_module_pulls_in_no_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import repro_torch\n"
+        "mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,"
+        " 'repro_torch.')]\n"
+        "for m in mods:\n"
+        "    importlib.import_module(m)\n"
+        f"bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+        f"{sorted(FORBIDDEN)!r})\n"
+        "assert not bad, bad\n"
+        "print(len(mods))\n")
+    env = {"PYTHONPATH": str(REPO / "src"), "PATH": "/usr/bin:/bin"}
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert int(res.stdout.strip()) >= 20      # every module was walked
+
+
+def _imported_roots(path):
+    tree = ast.parse(path.read_text(), str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
+                         + [REPO / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_no_source_imports_jax_or_the_jax_package(path):
+    assert not FORBIDDEN & set(_imported_roots(path))
+
+
+def test_default_device_raises_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.serving.engine import InferenceEngine
+    cfg = get_config("qwen3-0.6b", smoke=True)
+    params = api.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        InferenceEngine(cfg, params)
+    with pytest.raises(RuntimeError, match="cuda"):
+        api.init_params(cfg, torch.Generator().manual_seed(0))
+
+
+def test_cuda_impl_on_cpu_tensors_raises():
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(0)
+    q = torch.from_numpy(rng.standard_normal((2, 4, 16), np.float32))
+    pages = torch.from_numpy(rng.standard_normal((3, 4, 2, 16), np.float32))
+    tables = torch.tensor([[1, 2], [0, 0]], dtype=torch.int32)
+    lengths = torch.tensor([5, 1], dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.paged_attention(q, pages, pages, tables, lengths, impl="cuda")
+    with pytest.raises(ValueError, match="impl"):
+        ops.paged_attention(q, pages, pages, tables, lengths, impl="pallas")
+
+
+@pytest.mark.parametrize("kw,match", [
+    ({"backend": "slot"}, "later slice"),
+    ({"backend": "spec"}, "later slice"),
+    ({"bucket_sizes": (8, 16)}, "later slice"),
+    ({"tiered_kv": True}, "later slice"),
+])
+def test_unported_serving_options_raise(kw, match):
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.serving.engine import InferenceEngine
+    cfg = get_config("qwen3-0.6b", smoke=True)
+    params = api.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    with pytest.raises(NotImplementedError, match=match):
+        InferenceEngine(cfg, params, device="cpu", **kw)
+
+
+def test_unported_config_raises_key_error():
+    from repro_torch.configs import get_config
+    with pytest.raises(KeyError, match="not ported"):
+        get_config("yi-34b")
