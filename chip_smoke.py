@@ -8,26 +8,49 @@ Phases (any failure exits non-zero before the result line):
 
 1. environment — torch / CUDA versions, the card's name and power limit;
 2. build — every CUDA kernel of the port, from ``src/repro_torch/kernels/
-   csrc``, with nvcc for sm_90a (one nvcc per source, in parallel);
-3. kernel vs plain — the paged-attention kernel against its plain PyTorch
-   version at the serving shapes of qwen3-0.6b (16 heads, 8 KV heads,
-   head_dim 128, block 16; 8 and 32 lanes; ragged lengths 1..4096 with
-   block boundaries; one inactive lane on the garbage block; one sliding-
-   window case) in bf16 (tolerance 2e-2) and f32 (2e-5), with CUDA-event
-   times of the kernel, the plain version and ``scaled_dot_product_attention``
-   over pre-gathered K/V (the library yardstick; the port never calls it);
+   csrc`` (``paged_attention.cu``: the fp and int8 decode kernels;
+   ``paged_verify.cu``: the verify kernel), with nvcc for sm_90a, one
+   nvcc per source, in parallel;
+3. kernel vs plain — each kernel against its plain PyTorch version at the
+   serving shapes of qwen3-0.6b (16 heads, 8 KV heads, head_dim 128,
+   block 16; 8 and 32 lanes; ragged lengths up to 4096 with block
+   boundaries; one lane on the garbage block; one sliding-window case):
+   the paged-attention kernel in bf16 (tolerance 2e-2) and f32 (2e-5); the
+   verify kernel at k = 1, 4, 8 in bf16 and f32; the int8 kernel with bf16
+   q over int8 pages (2e-2).  Each with CUDA-event times of the kernel,
+   the plain version and ``scaled_dot_product_attention`` over K/V
+   gathered (and for int8 dequantized) ahead with an explicit mask — the
+   library yardstick, which the port never calls;
 4. serve — full-width qwen3-0.6b (bf16 compute, f32 params seeded on the
    card) through ``InferenceEngine(backend="paged")``: 8 requests with
    prompts of 64..1024 tokens, two sharing a 256-token prefix (one also a
    partial boundary block, so aliasing and copy-on-write both run), 32
-   tokens each, 8 lanes, block 16.  The kernel's launch count over this
-   run must equal decode_steps x n_layers;
+   tokens each, 8 lanes, block 16.  The paged-attention kernel's launch
+   count over this run must equal decode_steps x n_layers;
 5. one decode step of the phase-4 engine state both ways — kernel and
    plain attention, both bf16 — each held against the same step in f32
    compute: the kernel's logits may be at most 2x as far from the f32
    step as the plain bf16 path's (bf16 noise over 28 layers, not the
-   kernel, dominates); a small float32 engine served both ways must give
-   identical tokens; and one profiled decode step (device busy share).
+   kernel, dominates); and one profiled decode step (device busy share);
+6. speculative serve — the same requests through ``backend="spec",
+   spec_inner="paged"``, draft_k 4: (a) with the target's own parameters
+   as the draft, (b) with a random 4-layer qwen3-0.6b draft (seed 1), so
+   rollback runs every round.  The verify kernel must launch spec_rounds
+   x n_layers times, and the pool and the ledger must be empty after; one
+   verify round both ways, gated as in phase 5; one draft chain and one
+   verify forward profiled, for each draft;
+7. int8 serve — the same requests through ``backend="paged",
+   kv_dtype="int8"``: the int8 kernel must launch decode_steps x n_layers
+   times and a block cost 2·28·16·8·(128+4) B; one int8 decode step both
+   ways, gated as in phase 5, and one profiled;
+8. small float32 engines — paged decode through the kernel and the plain
+   version, speculative decode through the verify kernel against plain
+   paged greedy, and int8 pages through the int8 kernel and the plain
+   version must each give identical tokens.
+
+Each kernel's launch count is zeroed just before the serve run of its own
+path and read just after; the kernel line reports it with the kernel's
+numbers at that path's inputs.
 
 The second-to-last lines are a JSON object of per-kernel numbers and the
 card's ``nvidia-smi`` name/power line; the last line is
@@ -43,6 +66,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM, NVIDIA data sheet
@@ -51,7 +75,7 @@ PEAK_FLOPS = {"float32": 67e12,     # f32 outside the tensor cores
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 LOGIT_REL = 2.0     # kernel vs f32 step, relative to plain bf16 vs f32
 NH, NKV, HD, BS = 16, 8, 128, 16
-GEN, CAPACITY = 32, 8
+GEN, CAPACITY, DRAFT_K = 32, 8, 4
 
 
 def fail(msg: str) -> None:
@@ -71,11 +95,16 @@ def nvidia_smi_line() -> str:
     return out[0]
 
 
+SPIN_CYCLES = 1_000_000     # ~0.5 ms of device time at the H100's clocks
+
+
 def cuda_ms(fn, iters: int = 20, flush=None) -> float:
     """Median device time of ``fn`` by CUDA events, after one warm-up;
     ``flush`` (a large buffer) is rewritten before each launch so the
     inputs come from HBM, as they do on the serving path, where each
-    layer's pages were last touched a whole decode step earlier."""
+    layer's pages were last touched a whole decode step earlier.  A spin
+    kernel ahead of the start event keeps the stream busy while the host
+    enqueues ``fn``, so a slow host adds no idle gap to the time."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -83,6 +112,7 @@ def cuda_ms(fn, iters: int = 20, flush=None) -> float:
     for _ in range(iters):
         if flush is not None:
             flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
@@ -226,6 +256,256 @@ def phase_kernel_sweep(flush):
 
 
 # ---------------------------------------------------------------------------
+# phase 3b: the verify kernel against its plain version
+# ---------------------------------------------------------------------------
+
+def verify_bytes_flops(lengths, kq, tables_width, dtype_bytes, q_bytes, n,
+                       window):
+    """Least bytes a verify launch must move — q read, out written, each
+    lane's K/V rows [lo, lengths + k) once, tables, lengths — and its flops
+    (q.k and p.v of every query row over the rows it attends), from these
+    inputs."""
+    cap = tables_width * BS
+    rows = qk_rows = 0
+    for le in lengths:
+        le = int(le)
+        lo = max(0, le - window + 1) if window else 0
+        rows += max(0, min(le + kq, cap) - lo)
+        for i in range(kq):
+            lo_i = max(0, le + i - window + 1) if window else 0
+            qk_rows += max(0, min(le + i + 1, cap) - lo_i)
+    nbytes = (rows * NKV * HD * 2 * dtype_bytes
+              + 2 * n * kq * NH * HD * q_bytes + 4 * n * tables_width + 4 * n)
+    return nbytes, 4 * qk_rows * NH * HD
+
+
+def verify_mask(lengths, kq, S, window, device):
+    """(n, 1, k, S) rows each query attends, for the library yardstick."""
+    import torch
+    pos = torch.arange(S, device=device)[None, None, :]
+    lim = lengths.long()[:, None, None] \
+        + torch.arange(kq, device=device)[None, :, None]
+    mask = pos <= lim
+    if window:
+        mask &= pos > lim - window
+    return mask[:, None]
+
+
+def measure_verify(q, kp, vp, tables, lengths, window, dtype_name, flush,
+                   lanes=None):
+    """Verify kernel vs plain on one set of inputs: error (over ``lanes``,
+    default all), times, bound; SDPA over K/V gathered and head-expanded
+    ahead, with an explicit mask, is the library yardstick."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+
+    out = ops.paged_verify(q, kp, vp, tables, lengths, window=window,
+                           impl="cuda")
+    exp = ref.paged_verify_ref(q, kp, vp, tables, lengths, window=window)
+    torch.cuda.synchronize()
+    sel = slice(None) if lanes is None else lanes
+    diff = (out[sel].float() - exp[sel].float()).abs()
+    tol = TOL[dtype_name]
+    ok = bool((diff <= tol + tol * exp[sel].float().abs()).all())
+    finite = bool(torch.isfinite(out[sel]).all())
+    n, B = tables.shape
+    kq = q.shape[1]
+    S = B * BS
+    g = NH // NKV
+    tl = tables.long()
+    k = kp[tl].reshape(n, S, NKV, HD).repeat_interleave(g, 2).transpose(1, 2)
+    v = vp[tl].reshape(n, S, NKV, HD).repeat_interleave(g, 2).transpose(1, 2)
+    mask = verify_mask(lengths, kq, S, window, q.device)
+    qh = q.transpose(1, 2)
+
+    def lib():
+        return F.scaled_dot_product_attention(qh, k, v, attn_mask=mask)
+
+    lib_err = (lib().transpose(1, 2)[sel].float()
+               - exp[sel].float()).abs().max()
+    res = {
+        "max_abs_err": float(diff.max()),
+        "library_max_abs_err": float(lib_err),
+        "within_tol": ok and finite,
+        "ms": cuda_ms(lambda: ops.paged_verify(
+            q, kp, vp, tables, lengths, window=window, impl="cuda"),
+            flush=flush),
+        "plain_ms": cuda_ms(lambda: ref.paged_verify_ref(
+            q, kp, vp, tables, lengths, window=window), iters=5,
+            flush=flush),
+        "library_ms": cuda_ms(lib, flush=flush),
+    }
+    nbytes, flops = verify_bytes_flops(
+        lengths.tolist(), kq, B, kp.element_size(), q.element_size(), n,
+        window)
+    res["bound_ms"], res["bound_by"] = bound_ms(nbytes, flops, dtype_name)
+    res["bytes"], res["flops"] = nbytes, flops
+    del k, v
+    return res
+
+
+def verify_sweep_inputs(n, kq, dtype, seed, max_len=4096):
+    """Committed lengths 0..max_len-k with block edges (a round's queries
+    straddling one), distinct random physical blocks per lane, the last
+    lane on the garbage block as the spec backend leaves lanes outside a
+    round (its length is not reset)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    top = max_len - kq
+    edge = [min(e, top) for e in (0, BS - 1, BS - kq // 2, BS, top, 2 * BS,
+                                  1000, top - 1)]
+    lengths = rng.integers(0, top + 1, n)
+    lengths[:min(n - 1, len(edge))] = edge[:min(n - 1, len(edge))]
+    lengths[-1] = 37
+    B = -(-max_len // BS)
+    need = [-(-(int(x) + kq) // BS) for x in lengths[:-1]]
+    P = sum(need) + 1
+    perm = rng.permutation(P - 1) + 1
+    tables = np.zeros((n, B), np.int32)
+    at = 0
+    for i, nb in enumerate(need):
+        tables[i, :nb] = perm[at:at + nb]
+        at += nb
+    dev = "cuda"
+    q = torch.randn(n, kq, NH, HD, device=dev).to(dtype)
+    kp = torch.randn(P, BS, NKV, HD, device=dev).to(dtype)
+    vp = torch.randn(P, BS, NKV, HD, device=dev).to(dtype)
+    return (q, kp, vp, torch.from_numpy(tables).to(dev),
+            torch.from_numpy(lengths.astype(np.int32)).to(dev))
+
+
+def phase_verify_sweep(flush):
+    import torch
+    cases = [("bfloat16", 8, 1, None), ("bfloat16", 8, 4, None),
+             ("bfloat16", 32, 8, None), ("float32", 8, 4, None),
+             ("float32", 32, 8, None), ("bfloat16", 32, 4, 512)]
+    rows = []
+    for i, (dt, n, kq, window) in enumerate(cases):
+        torch.manual_seed(100 + i)
+        args = verify_sweep_inputs(n, kq, getattr(torch, dt), seed=100 + i)
+        r = measure_verify(*args, window, dt, flush)
+        r.update(dtype=dt, lanes=n, k=kq, window=window,
+                 lengths=args[4].tolist())
+        rows.append(r)
+        log(f"[kernel] paged_verify {dt} lanes={n} k={kq} window={window}: "
+            f"max_abs_err={r['max_abs_err']:.3g} (tol {TOL[dt]}) "
+            f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+            f"library_ms={r['library_ms']:.4f} bound_ms={r['bound_ms']:.4f}")
+        if not r["within_tol"]:
+            fail(f"paged_verify kernel disagrees with its plain version "
+                 f"({dt}, {n} lanes, k={kq}, window={window}): max abs err "
+                 f"{r['max_abs_err']}")
+        del args
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 3c: the int8 kernel against its plain version
+# ---------------------------------------------------------------------------
+
+def quant_bytes_flops(lengths, tables_width, q_bytes, n, window):
+    """Least bytes an int8 launch must move — q, out, the attended rows'
+    int8 K/V (hd bytes each) and f32 scales (4 bytes each), tables,
+    lengths — and its flops (q.k, p.v and the dequantizing products)."""
+    rows = sum(int(le) - (max(0, int(le) - window) if window else 0)
+               for le in lengths)
+    nbytes = (rows * NKV * (HD + 4) * 2
+              + 2 * n * NH * HD * q_bytes + 4 * n * tables_width + 4 * n)
+    return nbytes, 4 * rows * NH * HD + 2 * rows * NKV * HD
+
+
+def measure_quant(q, kq8, vq8, ks, vs, tables, lengths, window, flush):
+    """int8 kernel vs plain on one set of inputs; the library yardstick is
+    SDPA over K/V gathered, dequantized to q's dtype and head-expanded
+    ahead, with an explicit mask."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+
+    args = (q, kq8, vq8, ks, vs, tables, lengths)
+    out = ops.paged_attention_quant(*args, window=window, impl="cuda")
+    exp = ref.paged_attention_quant_ref(*args, window=window)
+    torch.cuda.synchronize()
+    diff = (out.float() - exp.float()).abs()
+    tol = TOL["bfloat16"]
+    ok = bool((diff <= tol + tol * exp.float().abs()).all())
+    finite = bool(torch.isfinite(out).all())
+    n, B = tables.shape
+    S = B * BS
+    g = NH // NKV
+    tl = tables.long()
+
+    def deq(p8, sc):
+        x = ref.dequantize_kv(p8[tl].reshape(n, S, NKV, HD),
+                              sc[tl].reshape(n, S, NKV)).to(q.dtype)
+        return x.repeat_interleave(g, 2).transpose(1, 2)
+
+    k, v = deq(kq8, ks), deq(vq8, vs)
+    pos = torch.arange(S, device=q.device)[None, :]
+    le = lengths.long()[:, None]
+    mask = pos < le
+    if window:
+        mask &= pos > le - 1 - window
+    mask = mask[:, None, None, :]
+    qh = q[:, :, None, :]
+
+    def lib():
+        return F.scaled_dot_product_attention(qh, k, v, attn_mask=mask)
+
+    lib_err = (lib()[:, :, 0].float() - exp.float()).abs().max()
+    res = {
+        "max_abs_err": float(diff.max()),
+        "library_max_abs_err": float(lib_err),
+        "within_tol": ok and finite,
+        "ms": cuda_ms(lambda: ops.paged_attention_quant(
+            *args, window=window, impl="cuda"), flush=flush),
+        "plain_ms": cuda_ms(lambda: ref.paged_attention_quant_ref(
+            *args, window=window), iters=5, flush=flush),
+        "library_ms": cuda_ms(lib, flush=flush),
+    }
+    nbytes, flops = quant_bytes_flops(lengths.tolist(), B, q.element_size(),
+                                      n, window)
+    res["bound_ms"], res["bound_by"] = bound_ms(nbytes, flops, "bfloat16")
+    res["bytes"], res["flops"] = nbytes, flops
+    del k, v
+    return res
+
+
+def phase_quant_sweep(flush):
+    import torch
+
+    from repro_torch.kernels import ref
+    cases = [(8, None), (32, None), (32, 512)]
+    rows = []
+    for i, (n, window) in enumerate(cases):
+        torch.manual_seed(200 + i)
+        q, kp, vp, tables, lengths = sweep_inputs(n, torch.float32,
+                                                  seed=200 + i)
+        kq8, ks = ref.quantize_kv(kp)
+        vq8, vs = ref.quantize_kv(vp)
+        del kp, vp
+        r = measure_quant(q.to(torch.bfloat16), kq8, vq8, ks, vs, tables,
+                          lengths, window, flush)
+        r.update(dtype="bfloat16 q, int8 pages", lanes=n, window=window,
+                 lengths=lengths.tolist())
+        rows.append(r)
+        log(f"[kernel] paged_attention_quant bf16/int8 lanes={n} "
+            f"window={window}: max_abs_err={r['max_abs_err']:.3g} (tol "
+            f"{TOL['bfloat16']}) ms={r['ms']:.4f} plain_ms="
+            f"{r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} "
+            f"bound_ms={r['bound_ms']:.4f}")
+        if not r["within_tol"]:
+            fail(f"paged_attention_quant kernel disagrees with its plain "
+                 f"version ({n} lanes, window={window}): max abs err "
+                 f"{r['max_abs_err']}")
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # phase 4-5: serve full-width qwen3-0.6b, then one step both ways
 # ---------------------------------------------------------------------------
 
@@ -243,50 +523,84 @@ def serve_prompts(vocab, seed=0):
     return prompts
 
 
-def phase_serve(cfg, params):
+def paged_snapshot(eng):
+    """The paged backend's state between two decode steps: pages (cloned),
+    block tables, lengths and the lanes' next input tokens."""
+    be = eng.backend
+    return {"pages": {k: v.clone() for k, v in be.pool.pages.items()},
+            "tables": be._tables.copy(), "lengths": be._lengths.copy(),
+            "tokens": eng._tokens[:, 0, :].copy()}
+
+
+def drive_serve(cfg, eng, prompts, counter, label, snap_step=None):
+    """Submit every prompt, zero the kernel's launch count, drive the
+    engine to the end (snapshotting the paged state at decode step
+    ``snap_step``), check every request got exactly GEN tokens, and
+    return (snapshot, result) with the count read just after the run."""
+    import torch
+    for i, p in enumerate(prompts):
+        eng.submit(p, GEN, request_id=f"r{i}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counter.launches = 0                 # count this path's run only
+    t0 = time.perf_counter()
+    snap = None
+    while eng.step():
+        if snap_step is not None and eng.decode_steps == snap_step \
+                and snap is None:
+            snap = paged_snapshot(eng)
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counter.launches
+    summary = eng.summary()
+    done = {r.request_id: r for r in eng.completed}
+    if len(done) != len(prompts):
+        fail(f"{label}: served {len(done)} of {len(prompts)} requests")
+    for rid, r in done.items():
+        if len(r.generated) != GEN or r.status.value != "finished":
+            fail(f"{label} {rid}: {len(r.generated)} tokens, status "
+                 f"{r.status}")
+    res = {
+        "requests": len(done), "gen": GEN, "wall_s": wall,
+        "prompt_lens": [len(p) for p in prompts],
+        "launches": launches,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        **{k: summary.get(k) for k in (
+            "backend", "decode_steps", "prefill_calls", "prefill_tok_per_s",
+            "decode_tok_per_s", "kv_page_peak_bytes", "kv_peak_bytes",
+            "kv_reserved_bytes", "shared_block_hits", "cow_copies",
+            "peak_concurrency", "paged_impl", "n_blocks", "block_bytes",
+            "kv_dtype")},
+        "prefill_s": eng.prefill_s, "decode_s": eng.decode_s,
+        "tokens": {rid: r.generated for rid, r in done.items()},
+    }
+    return snap, res, summary
+
+
+def phase_serve(cfg, params, prompts):
     import torch
 
     from repro_torch.kernels.paged_attention import paged_attention_lanes
     from repro_torch.serving.engine import InferenceEngine
 
-    prompts = serve_prompts(cfg.vocab_size)
     max_seq = max(len(p) for p in prompts) + GEN
     # warm-up engine (cuBLAS handles, kernel library load): not measured
     warm = InferenceEngine(cfg, params, capacity=2, max_seq=128,
-                           block_size=BS, device="cuda")
+                           backend="paged", block_size=BS, device="cuda")
     for p in prompts[2:4]:
         warm.submit(p[:64], 4)
     warm.run()
     del warm
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
 
     eng = InferenceEngine(cfg, params, capacity=CAPACITY, max_seq=max_seq,
-                          block_size=BS, device="cuda")
-    for i, p in enumerate(prompts):
-        eng.submit(p, GEN, request_id=f"r{i}")
-    paged_attention_lanes.launches = 0          # count the main path only
-    t0 = time.perf_counter()
-    snap = None
-    while eng.step():
-        if eng.decode_steps == 8 and snap is None:
-            be = eng.backend
-            snap = {"pages": {k: v.clone() for k, v in be.pool.pages.items()},
-                    "tables": be._tables.copy(),
-                    "lengths": be._lengths.copy(),
-                    "tokens": eng._tokens[:, 0, :].copy()}
-    eng.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = paged_attention_lanes.launches
-    summary = eng.summary()
-    done = {r.request_id: r for r in eng.completed}
-    if len(done) != len(prompts):
-        fail(f"served {len(done)} of {len(prompts)} requests")
-    for rid, r in done.items():
-        if len(r.generated) != GEN or r.status.value != "finished":
-            fail(f"{rid}: {len(r.generated)} tokens, status {r.status}")
+                          backend="paged", block_size=BS, device="cuda")
+    snap, res, summary = drive_serve(cfg, eng, prompts,
+                                     paged_attention_lanes, "serve",
+                                     snap_step=8)
+    launches = res["launches"]
     expect = summary["decode_steps"] * cfg.n_layers
     if launches != expect:
         fail(f"paged_attention launched {launches} times on the serve "
@@ -294,20 +608,7 @@ def phase_serve(cfg, params):
     if summary["shared_block_hits"] < 16 or summary["cow_copies"] < 1:
         fail(f"prefix sharing did not run: {summary['shared_block_hits']} "
              f"shared blocks, {summary['cow_copies']} copy-on-write copies")
-    res = {
-        "requests": len(done), "gen": GEN, "wall_s": wall,
-        "prompt_lens": [len(p) for p in prompts],
-        "launches": launches,
-        "max_memory_allocated": torch.cuda.max_memory_allocated(),
-        **{k: summary[k] for k in (
-            "decode_steps", "prefill_calls", "prefill_tok_per_s",
-            "decode_tok_per_s", "kv_page_peak_bytes", "kv_peak_bytes",
-            "shared_block_hits", "cow_copies", "peak_concurrency",
-            "paged_impl", "n_blocks", "block_bytes")},
-        "prefill_s": eng.prefill_s, "decode_s": eng.decode_s,
-        "sample": done["r0"].generated[:8],
-    }
-    log(f"[serve] qwen3-0.6b full width: {len(done)} requests x {GEN} "
+    log(f"[serve] qwen3-0.6b full width: {res['requests']} requests x {GEN} "
         f"tokens, prefill {res['prefill_tok_per_s']} tok/s, decode "
         f"{res['decode_tok_per_s']} tok/s, decode_steps "
         f"{res['decode_steps']}, kernel launches {launches}, "
@@ -315,6 +616,155 @@ def phase_serve(cfg, params):
         f"max_memory_allocated {res['max_memory_allocated']}, "
         f"shared_block_hits {res['shared_block_hits']}, cow_copies "
         f"{res['cow_copies']}")
+    return eng, snap, res
+
+
+def phase_spec_serve(cfg, params, prompts, draft_cfg, draft_params, label,
+                     snap_round=3):
+    """Full-width speculative serve over the paged inner: the engine's
+    verify forward is wrapped to snapshot one round's inputs (pages,
+    tables, lengths, tokens) for the both-ways check and the kernel's
+    numbers at the serve inputs.  Checks: every request gets exactly GEN
+    tokens, the verify kernel runs once per layer per round, and the pool
+    and the ledger are empty afterwards."""
+    import torch
+
+    from repro_torch.kernels.paged_verify import paged_verify_lanes
+    from repro_torch.serving.engine import InferenceEngine
+
+    from repro_torch.models import api
+    from repro_torch.serving.paging import blocks_for_rows
+
+    max_seq = max(len(p) for p in prompts) + GEN
+    # the draft state's bytes are charged to the paged inner's ledger, as
+    # in the JAX package: budget the worst-case target pages plus every
+    # lane's draft state, so all CAPACITY lanes can run at once
+    budget = (CAPACITY * blocks_for_rows(max_seq + DRAFT_K, BS)
+              * api.kv_block_bytes(cfg, BS)
+              + CAPACITY * api.decode_state_bytes(draft_cfg, 1,
+                                                   max_seq + DRAFT_K))
+    eng = InferenceEngine(cfg, params, capacity=CAPACITY, max_seq=max_seq,
+                          backend="spec", spec_inner="paged",
+                          draft_cfg=draft_cfg, draft_params=draft_params,
+                          draft_k=DRAFT_K, block_size=BS,
+                          kv_budget_bytes=budget, device="cuda")
+    be = eng.backend
+    verify = be._verify
+    snap = {}
+
+    def snooping_verify(p, pages, tables, lengths, tokens):
+        if be.spec_rounds == snap_round and not snap:
+            snap.update(pages={k: v.clone() for k, v in pages.items()},
+                        tables=tables.clone(), lengths=lengths.clone(),
+                        tokens=tokens.clone())
+        return verify(p, pages, tables, lengths, tokens)
+
+    # host wall time of every round and of its two forwards, during the
+    # run itself (each already ends in a device sync: the draft chain and
+    # the round copy their tokens to the host; verify gets its own sync,
+    # which the round's copy of the greedy tokens would do anyway)
+    times = {"round": [], "draft_chain": [], "verify": []}
+
+    def timed(key, fn, sync=False):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            if sync:
+                torch.cuda.synchronize()
+            times[key].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return run
+
+    be._verify = timed("verify", snooping_verify, sync=True)
+    be._draft_chain = timed("draft_chain", be._draft_chain)
+    be._spec_round = timed("round", be._spec_round)
+    _, res, summary = drive_serve(cfg, eng, prompts, paged_verify_lanes,
+                                  label)
+    res["round_host_ms"] = {k: statistics.median(v) if v else None
+                            for k, v in times.items()}
+    expect = summary["spec_rounds"] * cfg.n_layers
+    if res["launches"] != expect:
+        fail(f"{label}: paged_verify launched {res['launches']} times; "
+             f"expected spec_rounds x layers = {expect}")
+    if eng.pool.n_used != 0 or eng.ledger.kv_reserved_bytes != 0:
+        fail(f"{label}: {eng.pool.n_used} blocks still allocated and "
+             f"{eng.ledger.kv_reserved_bytes} B still reserved after the "
+             "run")
+    if not snap:
+        fail(f"{label}: the run ended before verify round {snap_round}")
+    if summary["peak_concurrency"] != CAPACITY:
+        fail(f"{label}: peak concurrency {summary['peak_concurrency']}, "
+             f"expected all {CAPACITY} lanes busy")
+    for k in ("spec_rounds", "target_steps", "spec_tokens",
+              "accepted_tokens_per_target_step", "draft_accept_rate",
+              "verify_impl", "draft_slot_bytes"):
+        res[k] = summary[k]
+    rt = res["round_host_ms"]
+    log(f"[spec] {label}: per round, median of {len(times['round'])}: "
+        f"round {rt['round']:.2f} ms = draft chain {rt['draft_chain']:.2f} ms "
+        f"+ verify {rt['verify']:.2f} ms + the rest (host wall time)")
+    # where a round's time goes: its draft chain (run on the draft state
+    # the serve left behind: same shapes, whatever the lanes' indices) and
+    # its verify forward on the snapshot round's inputs
+    t_last = snap["tokens"][:, 0].cpu().numpy()
+    res["profile_draft_chain"] = profiled(
+        f"{label}: one draft chain ({DRAFT_K} draft steps, "
+        f"{CAPACITY} lanes)", lambda: be._draft_chain(t_last))
+    pages = {k: v.clone() for k, v in snap["pages"].items()}
+    res["profile_verify"] = profiled(
+        f"{label}: one verify forward ({CAPACITY} lanes x {DRAFT_K})",
+        lambda: api.paged_verify_step(
+            cfg, eng.params, pages, snap["tables"], snap["lengths"],
+            snap["tokens"].long(), impl=be.verify_impl))
+    del pages
+    log(f"[spec] {label}: {res['requests']} requests x {GEN} tokens, "
+        f"draft {draft_cfg.name} ({draft_cfg.n_layers} layers), k "
+        f"{DRAFT_K}: spec_rounds {res['spec_rounds']}, target_steps "
+        f"{res['target_steps']}, spec_tokens {res['spec_tokens']}, "
+        f"accepted_tokens_per_target_step "
+        f"{res['accepted_tokens_per_target_step']}, draft_accept_rate "
+        f"{res['draft_accept_rate']}, decode {res['decode_tok_per_s']} "
+        f"tok/s, prefill {res['prefill_tok_per_s']} tok/s, verify kernel "
+        f"launches {res['launches']}, max_memory_allocated "
+        f"{res['max_memory_allocated']}")
+    return snap, res
+
+
+def phase_int8_serve(cfg, params, prompts, fp_res):
+    """Full-width serve from an int8 paged pool: the dequantizing kernel
+    runs once per layer per decode step; a block costs rows * (hd + 4)."""
+    from repro_torch.kernels.paged_attention import \
+        paged_attention_quant_lanes
+    from repro_torch.serving.engine import InferenceEngine
+
+    max_seq = max(len(p) for p in prompts) + GEN
+    eng = InferenceEngine(cfg, params, capacity=CAPACITY, max_seq=max_seq,
+                          backend="paged", kv_dtype="int8", block_size=BS,
+                          device="cuda")
+    snap, res, summary = drive_serve(cfg, eng, prompts,
+                                     paged_attention_quant_lanes, "int8",
+                                     snap_step=8)
+    expect = summary["decode_steps"] * cfg.n_layers
+    if res["launches"] != expect:
+        fail(f"paged_attention_quant launched {res['launches']} times on "
+             f"the int8 serve path; expected decode_steps x layers = "
+             f"{expect}")
+    want = 2 * cfg.n_layers * BS * NKV * (HD + 4)
+    if summary["block_bytes"] != want:
+        fail(f"int8 block_bytes {summary['block_bytes']}, expected {want}")
+    res["block_ratio_vs_fp"] = summary["block_bytes"] / fp_res["block_bytes"]
+    res["kv_page_peak_ratio_vs_fp"] = (res["kv_page_peak_bytes"]
+                                       / fp_res["kv_page_peak_bytes"])
+    same = sum(res["tokens"][r] == fp_res["tokens"][r] for r in res["tokens"])
+    res["requests_token_identical_to_fp"] = same
+    log(f"[int8] paged int8 KV: {res['requests']} requests x {GEN} tokens, "
+        f"block_bytes {summary['block_bytes']} "
+        f"({res['block_ratio_vs_fp']:.4f} x fp), kv_page_peak_bytes "
+        f"{res['kv_page_peak_bytes']} vs fp {fp_res['kv_page_peak_bytes']}, "
+        f"decode {res['decode_tok_per_s']} tok/s, decode_steps "
+        f"{res['decode_steps']}, kernel launches {res['launches']}, "
+        f"max_memory_allocated {res['max_memory_allocated']}, requests "
+        f"token-identical to the bf16 pool {same} of {res['requests']}")
     return eng, snap, res
 
 
@@ -346,63 +796,27 @@ def phase_both_ways(cfg, eng, snap, params):
                 c, p, pages, tables, lengths, tokens, impl=impl).float()
             del pages
     torch.cuda.synchronize()
-    a, b, f = logits["cuda"], logits["ref"], logits["f32"]
-    err_k = float((a - f).abs().max())
-    err_p = float((b - f).abs().max())
-    res = {"max_abs_logit_diff_kernel_vs_plain": float((a - b).abs().max()),
-           "max_abs_err_kernel_vs_f32": err_k,
-           "max_abs_err_plain_vs_f32": err_p,
-           "mean_abs_err_kernel_vs_f32": float((a - f).abs().mean()),
-           "mean_abs_err_plain_vs_f32": float((b - f).abs().mean()),
-           "max_abs_logit": float(f.abs().max()),
-           "argmax_flips_kernel_vs_plain": int(
-               (a.argmax(-1) != b.argmax(-1)).sum()),
-           "argmax_flips_kernel_vs_f32": int(
-               (a.argmax(-1) != f.argmax(-1)).sum()),
-           "argmax_flips_plain_vs_f32": int(
-               (b.argmax(-1) != f.argmax(-1)).sum()),
-           "lanes": int(a.shape[0])}
-    res["within_tol"] = (err_k <= LOGIT_REL * err_p
-                         and bool(torch.isfinite(a).all()))
-    log(f"[both-ways] one decode step: kernel vs plain max abs logit diff "
-        f"{res['max_abs_logit_diff_kernel_vs_plain']:.4g}; vs the f32 step "
-        f"kernel {err_k:.4g}, plain {err_p:.4g} (gate: kernel <= "
-        f"{LOGIT_REL} x plain; max |logit| {res['max_abs_logit']:.3g}); "
-        f"argmax flips kernel/plain {res['argmax_flips_kernel_vs_plain']}, "
-        f"kernel/f32 {res['argmax_flips_kernel_vs_f32']}, plain/f32 "
-        f"{res['argmax_flips_plain_vs_f32']} of {res['lanes']}")
-    if not res["within_tol"]:
-        fail("decode-step logits through the kernel are farther from the "
-             f"f32 step ({err_k}) than {LOGIT_REL} x the plain bf16 "
-             f"path's ({err_p})")
-    return res
+    return logit_gate("one decode step", logits)
 
 
-def phase_profile(cfg, eng, snap):
-    """One decode step of the snapshot state under torch.profiler: device
-    time summed over CUDA kernels against the step's wall time (the
-    device's busy share), kernel launches, and the top kernels."""
+def profiled(label, fn):
+    """One call of ``fn`` under torch.profiler, after one warm call: its
+    wall time, the device time summed over CUDA kernels, the device's busy
+    share of the wall time, the kernel launches and the top kernels.  The
+    profiler inflates the host side, so the busy share is a lower bound."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.models import api
-
-    dev = "cuda"
-    args = (torch.from_numpy(snap["tables"]).to(dev),
-            torch.from_numpy(snap["lengths"]).to(dev),
-            torch.from_numpy(snap["tokens"]).long().to(dev))
-    pages = {k: v.clone() for k, v in snap["pages"].items()}
     with torch.no_grad():
-        api.paged_decode_step(cfg, eng.params, pages, *args)   # warm
+        fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            api.paged_decode_step(cfg, eng.params, pages, *args)
+            fn()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-    del pages
 
     def dev_us(e):
         return getattr(e, "self_device_time_total",
@@ -418,18 +832,132 @@ def phase_profile(cfg, eng, snap):
            "top": [{"name": e.key[:80], "count": e.count,
                     "ms": dev_us(e) / 1e3}
                    for e in sorted(kern, key=dev_us, reverse=True)[:8]]}
-    log(f"[profile] one decode step (8 lanes, profiler on): wall "
-        f"{res['wall_ms']:.2f} ms, device {res['device_ms']} ms, busy "
-        f"share {res['device_busy_share']}, {res['kernel_launches']} "
-        f"kernel launches")
+    log(f"[profile] {label} (profiler on): wall {res['wall_ms']:.2f} ms, "
+        f"device {res['device_ms']} ms, busy share "
+        f"{res['device_busy_share']}, {res['kernel_launches']} kernel "
+        "launches")
     for t in res["top"]:
         log(f"[profile]   {t['ms']:.3f} ms x{t['count']} {t['name']}")
     return res
 
 
+def phase_profile(cfg, eng, snap, label="one decode step (8 lanes)"):
+    """One decode step of the snapshot state under the profiler."""
+    import torch
+
+    from repro_torch.models import api
+
+    dev = "cuda"
+    args = (torch.from_numpy(snap["tables"]).to(dev),
+            torch.from_numpy(snap["lengths"]).to(dev),
+            torch.from_numpy(snap["tokens"]).long().to(dev))
+    pages = {k: v.clone() for k, v in snap["pages"].items()}
+    res = profiled(label, lambda: api.paged_decode_step(
+        cfg, eng.params, pages, *args))
+    del pages
+    return res
+
+
+def logit_gate(label, logits):
+    """The both-ways gate over {"cuda", "ref", "f32"} logits: the kernel's
+    logits may be at most LOGIT_REL times as far (max abs) from the f32
+    run as the plain bf16 path's are."""
+    import torch
+    a, b, f = logits["cuda"], logits["ref"], logits["f32"]
+    err_k = float((a - f).abs().max())
+    err_p = float((b - f).abs().max())
+    res = {"max_abs_logit_diff_kernel_vs_plain": float((a - b).abs().max()),
+           "max_abs_err_kernel_vs_f32": err_k,
+           "max_abs_err_plain_vs_f32": err_p,
+           "mean_abs_err_kernel_vs_f32": float((a - f).abs().mean()),
+           "mean_abs_err_plain_vs_f32": float((b - f).abs().mean()),
+           "max_abs_logit": float(f.abs().max()),
+           "argmax_flips_kernel_vs_plain": int(
+               (a.argmax(-1) != b.argmax(-1)).sum()),
+           "argmax_flips_kernel_vs_f32": int(
+               (a.argmax(-1) != f.argmax(-1)).sum()),
+           "argmax_flips_plain_vs_f32": int(
+               (b.argmax(-1) != f.argmax(-1)).sum()),
+           "positions": int(a.numel() // a.shape[-1])}
+    res["within_tol"] = (err_k <= LOGIT_REL * err_p
+                         and bool(torch.isfinite(a).all()))
+    log(f"[both-ways] {label}: kernel vs plain max abs logit diff "
+        f"{res['max_abs_logit_diff_kernel_vs_plain']:.4g}; vs f32 kernel "
+        f"{err_k:.4g}, plain {err_p:.4g} (gate: kernel <= {LOGIT_REL} x "
+        f"plain; max |logit| {res['max_abs_logit']:.3g}); argmax flips "
+        f"kernel/plain {res['argmax_flips_kernel_vs_plain']}, kernel/f32 "
+        f"{res['argmax_flips_kernel_vs_f32']}, plain/f32 "
+        f"{res['argmax_flips_plain_vs_f32']} of {res['positions']}")
+    if not res["within_tol"]:
+        fail(f"{label}: logits through the kernel are farther from the f32 "
+             f"run ({err_k}) than {LOGIT_REL} x the plain bf16 path's "
+             f"({err_p})")
+    return res
+
+
+def phase_verify_both_ways(cfg, snap, params, bf16_params):
+    """One verify round of the spec run's snapshot through the kernel and
+    through the plain path (both bf16), each against the same round in
+    f32 compute; only the lanes in the round are compared (the others
+    write into the garbage block in an unspecified order)."""
+    import torch
+
+    from repro_torch.models import api
+
+    dev = "cuda"
+    lanes = (snap["tables"] != 0).any(dim=1)
+    cfg32 = cfg.replace(dtype="float32")
+    runs = {"cuda": (cfg, bf16_params, "cuda"),
+            "ref": (cfg, bf16_params, "ref"),
+            "f32": (cfg32, api.prepare_params(cfg32, params, dev), "ref")}
+    logits = {}
+    with torch.no_grad():
+        for key, (c, p, impl) in runs.items():
+            pages = {k: v.clone() for k, v in snap["pages"].items()}
+            logits[key] = api.paged_verify_step(
+                c, p, pages, snap["tables"], snap["lengths"],
+                snap["tokens"].long(), impl=impl)[lanes].float()
+            del pages
+    torch.cuda.synchronize()
+    res = logit_gate(f"one verify round ({int(lanes.sum())} lanes x "
+                     f"{DRAFT_K} positions)", logits)
+    res["lanes_in_round"] = int(lanes.sum())
+    return res
+
+
+def phase_int8_both_ways(cfg, snap, params, bf16_params):
+    """One decode step of the int8 run's snapshot through the int8 kernel
+    and through the plain int8 path (both bf16), each against the same
+    step in f32 compute over the same int8 pages."""
+    import torch
+
+    from repro_torch.models import api
+
+    dev = "cuda"
+    tables = torch.from_numpy(snap["tables"]).to(dev)
+    lengths = torch.from_numpy(snap["lengths"]).to(dev)
+    tokens = torch.from_numpy(snap["tokens"]).long().to(dev)
+    cfg32 = cfg.replace(dtype="float32")
+    runs = {"cuda": (cfg, bf16_params, "cuda"),
+            "ref": (cfg, bf16_params, "ref"),
+            "f32": (cfg32, api.prepare_params(cfg32, params, dev), "ref")}
+    logits = {}
+    with torch.no_grad():
+        for key, (c, p, impl) in runs.items():
+            pages = {k: v.clone() for k, v in snap["pages"].items()}
+            logits[key] = api.paged_decode_step(
+                c, p, pages, tables, lengths, tokens, impl=impl).float()
+            del pages
+    torch.cuda.synchronize()
+    return logit_gate("one int8 decode step", logits)
+
+
 def phase_small_f32():
-    """A small float32 engine served through the kernel and through the
-    plain attention must give identical tokens."""
+    """Small float32 engines: paged decode through the kernel and through
+    the plain attention give identical tokens; speculative decode over the
+    paged inner (verify through the kernel, a random draft) gives plain
+    paged greedy's tokens; int8 pages through the int8 kernel and through
+    the plain int8 path give identical tokens."""
     import numpy as np
     import torch
 
@@ -441,24 +969,61 @@ def phase_small_f32():
         dtype="float32", kv_cache_dtype="float32")
     params = api.init_params(cfg, torch.Generator("cuda").manual_seed(3),
                              "cuda")
+    draft = api.init_params(cfg, torch.Generator("cuda").manual_seed(7),
+                            "cuda")
     rng = np.random.default_rng(3)
     prompts = [rng.integers(0, cfg.vocab_size, n, dtype=np.int32)
                for n in (5, 17, 32, 9)]
-    out = {}
-    for impl in ("cuda", "ref"):
+
+    def serve(**kw):
         eng = InferenceEngine(cfg, params, capacity=2, max_seq=64,
-                              block_size=8, paged_impl=impl, device="cuda")
+                              block_size=8, device="cuda", **kw)
         for i, p in enumerate(prompts):
             eng.submit(p, 12, request_id=f"s{i}")
         eng.run()
-        out[impl] = {r.request_id: r.generated for r in eng.completed}
-    same = out["cuda"] == out["ref"] and len(out["cuda"]) == len(prompts)
-    log(f"[small-f32] smoke engine, kernel vs plain attention: tokens "
-        f"identical = {same}")
-    if not same:
+        return eng, {r.request_id: r.generated for r in eng.completed}
+
+    out = {impl: serve(backend="paged", paged_impl=impl)[1]
+           for impl in ("cuda", "ref")}
+    spec_eng, out["spec"] = serve(backend="spec", spec_inner="paged",
+                                  draft_cfg=cfg, draft_params=draft,
+                                  draft_k=3)
+    for impl in ("cuda", "ref"):
+        out[f"int8_{impl}"] = serve(backend="paged", kv_dtype="int8",
+                                    paged_impl=impl)[1]
+    res = {"identical_tokens": out["cuda"] == out["ref"]
+           and len(out["cuda"]) == len(prompts),
+           "spec_identical_to_plain": out["spec"] == out["ref"],
+           "spec_verify_impl": spec_eng.backend.verify_impl,
+           "spec_draft_accept_rate":
+               spec_eng.summary()["draft_accept_rate"],
+           "int8_identical_kernel_vs_plain":
+               out["int8_cuda"] == out["int8_ref"]
+               and len(out["int8_cuda"]) == len(prompts)}
+    log(f"[small-f32] smoke engines, tokens identical: paged kernel vs "
+        f"plain {res['identical_tokens']}; spec (verify "
+        f"{res['spec_verify_impl']}, draft accept rate "
+        f"{res['spec_draft_accept_rate']}) vs plain paged "
+        f"{res['spec_identical_to_plain']}; int8 kernel vs plain int8 "
+        f"{res['int8_identical_kernel_vs_plain']}")
+    if not res["identical_tokens"]:
         fail("small f32 engine: kernel and plain attention gave different "
              "tokens")
-    return {"identical_tokens": same}
+    if not res["spec_identical_to_plain"] or res["spec_verify_impl"] != "cuda":
+        fail("small f32 engine: speculative decode through the verify "
+             "kernel did not give plain greedy's tokens")
+    if not res["int8_identical_kernel_vs_plain"]:
+        fail("small f32 engine: int8 pages through the kernel and through "
+             "the plain version gave different tokens")
+    return res
+
+
+def kernel_entry(name, source, replaces, launches, m):
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": m["max_abs_err"], "ms": m["ms"],
+            "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+            "bound_by": m["bound_by"], "library_ms": m["library_ms"]}
 
 
 def main() -> None:
@@ -493,12 +1058,14 @@ def main() -> None:
     report["env"] = {"torch": torch.__version__, "cuda": torch.version.cuda,
                      "device": name, "nvidia_smi": smi}
 
-    # 2. build
+    # 2. build: paged_attention.cu (fp and int8 entry points) and
+    #    paged_verify.cu, one nvcc each, in parallel
     t0 = time.perf_counter()
     kernels.build_all()
     build_s = time.perf_counter() - t0
-    log(f"[build] {', '.join(kernels.KERNELS)} built in {build_s:.2f} s "
-        f"(nvcc {_build.nvcc_path()}, sm_90a)")
+    log(f"[build] {', '.join(kernels.KERNELS)} (paged_attention_lanes, "
+        f"paged_attention_quant_lanes, paged_verify_lanes) built in "
+        f"{build_s:.2f} s (nvcc {_build.nvcc_path()}, sm_90a)")
     for k, text in _build.build_logs.items():
         for line in text.strip().splitlines():
             if "registers" in line or "spill" in line or "error" in line:
@@ -507,14 +1074,17 @@ def main() -> None:
 
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
 
-    # 3. kernel vs plain over the sweep
+    # 3. each kernel against its plain version over its sweep
     report["sweep"] = phase_kernel_sweep(flush)
+    report["verify_sweep"] = phase_verify_sweep(flush)
+    report["quant_sweep"] = phase_quant_sweep(flush)
 
-    # 4. serve full-width qwen3-0.6b
+    # 4. serve full-width qwen3-0.6b on the paged backend
     cfg = get_config("qwen3-0.6b")
     params = api.init_params(cfg, torch.Generator("cuda").manual_seed(0),
                              "cuda")
-    eng, snap, report["serve"] = phase_serve(cfg, params)
+    prompts = serve_prompts(cfg.vocab_size)
+    eng, snap, report["serve"] = phase_serve(cfg, params, prompts)
 
     # the kernel's numbers at the serve path's own inputs (layer 0 pages
     # and the lanes' lengths at the snapshot step)
@@ -535,26 +1105,100 @@ def main() -> None:
              "the serve path's inputs")
     report["main_path_kernel"] = main_path
 
-    # 5. one step both ways, and a small f32 engine both ways
+    # 5. one step both ways, and one profiled step
     report["both_ways"] = phase_both_ways(cfg, eng, snap, params)
     report["profile"] = phase_profile(cfg, eng, snap)
-    del eng, snap, params
+    bf16_params = eng.params
+    del eng, snap
+    torch.cuda.empty_cache()
+
+    # 6. speculative serve over the paged inner: (a) the target's own
+    #    parameters as the draft (every round accepts k), (b) a random
+    #    4-layer qwen3-0.6b draft from seed 1 (rollback every round)
+    _, report["spec_self"] = phase_spec_serve(
+        cfg, params, prompts, cfg, params, "spec (a) self-draft")
+    dcfg = cfg.replace(n_layers=4)
+    dparams = api.init_params(dcfg, torch.Generator("cuda").manual_seed(1),
+                              "cuda")
+    vsnap, report["spec_random"] = phase_spec_serve(
+        cfg, params, prompts, dcfg, dparams, "spec (b) random 4-layer draft")
+    del dparams
+    for key in ("spec_self", "spec_random"):
+        r = report[key]
+        r["requests_token_identical_to_paged"] = sum(
+            r["tokens"][k] == report["serve"]["tokens"][k]
+            for k in r["tokens"])
+    lanes = (vsnap["tables"] != 0).any(dim=1)
+    qv = torch.randn(CAPACITY, DRAFT_K, NH, HD,
+                     device="cuda").to(torch.bfloat16)
+    verify_path = measure_verify(qv, vsnap["pages"]["k"][0],
+                                 vsnap["pages"]["v"][0], vsnap["tables"],
+                                 vsnap["lengths"], None, "bfloat16", flush,
+                                 lanes=lanes)
+    verify_path["lengths"] = vsnap["lengths"].tolist()
+    verify_path["lanes_in_round"] = int(lanes.sum())
+    log(f"[kernel] paged_verify at the spec serve path's inputs (k "
+        f"{DRAFT_K}, lengths {verify_path['lengths']}, "
+        f"{verify_path['lanes_in_round']} lanes in the round): "
+        f"ms={verify_path['ms']:.4f} plain_ms={verify_path['plain_ms']:.4f} "
+        f"library_ms={verify_path['library_ms']:.4f} "
+        f"bound_ms={verify_path['bound_ms']:.4f} "
+        f"max_abs_err={verify_path['max_abs_err']:.3g}")
+    if not verify_path["within_tol"]:
+        fail("paged_verify kernel disagrees with its plain version at the "
+             "spec serve path's inputs")
+    report["verify_path_kernel"] = verify_path
+    report["verify_both_ways"] = phase_verify_both_ways(cfg, vsnap, params,
+                                                        bf16_params)
+    del vsnap
+    torch.cuda.empty_cache()
+
+    # 7. serve from an int8 paged pool
+    ieng, isnap, report["int8_serve"] = phase_int8_serve(
+        cfg, params, prompts, report["serve"])
+    del ieng
+    qq = torch.randn(CAPACITY, NH, HD, device="cuda").to(torch.bfloat16)
+    pg = isnap["pages"]
+    quant_path = measure_quant(
+        qq, pg["k"][0], pg["v"][0], pg["k_scale"][0], pg["v_scale"][0],
+        torch.from_numpy(isnap["tables"]).cuda(),
+        torch.from_numpy(isnap["lengths"] + 1).cuda(), None, flush)
+    quant_path["lengths"] = (isnap["lengths"] + 1).tolist()
+    log(f"[kernel] paged_attention_quant at the int8 serve path's inputs "
+        f"(lengths {quant_path['lengths']}): ms={quant_path['ms']:.4f} "
+        f"plain_ms={quant_path['plain_ms']:.4f} "
+        f"library_ms={quant_path['library_ms']:.4f} "
+        f"bound_ms={quant_path['bound_ms']:.4f} "
+        f"max_abs_err={quant_path['max_abs_err']:.3g}")
+    if not quant_path["within_tol"]:
+        fail("paged_attention_quant kernel disagrees with its plain version "
+             "at the int8 serve path's inputs")
+    report["quant_path_kernel"] = quant_path
+    report["int8_both_ways"] = phase_int8_both_ways(cfg, isnap, params,
+                                                    bf16_params)
+    report["int8_profile"] = phase_profile(
+        cfg, SimpleNamespace(params=bf16_params), isnap,
+        "one int8 decode step (8 lanes)")
+    del isnap, bf16_params, params
+    torch.cuda.empty_cache()
+
+    # 8. small float32 engines both ways
     report["small_f32"] = phase_small_f32()
     report["total_s"] = time.perf_counter() - t_start
 
-    kernel_line = {"kernels": [{
-        "name": "paged_attention_lanes",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
-        "replaces": "src/repro/kernels/paged_attention.py:76",
-        "launches": report["serve"]["launches"],
-        "max_abs_err": main_path["max_abs_err"],
-        "ms": main_path["ms"],
-        "plain_ms": main_path["plain_ms"],
-        "bound_ms": main_path["bound_ms"],
-        "bound_by": main_path["bound_by"],
-        "library_ms": main_path["library_ms"],
-    }]}
+    src = "src/repro_torch/kernels/csrc/"
+    kernel_line = {"kernels": [
+        kernel_entry("paged_attention_lanes", src + "paged_attention.cu",
+                     "src/repro/kernels/paged_attention.py:76",
+                     report["serve"]["launches"], main_path),
+        kernel_entry("paged_verify_lanes", src + "paged_verify.cu",
+                     "src/repro/kernels/paged_verify.py:81",
+                     report["spec_random"]["launches"], verify_path),
+        kernel_entry("paged_attention_quant_lanes",
+                     src + "paged_attention.cu",
+                     "src/repro/kernels/paged_attention.py:164",
+                     report["int8_serve"]["launches"], quant_path),
+    ]}
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))

@@ -38,10 +38,25 @@
 //    barrier inside the loop; at the end the warps' states are merged
 //    through shared memory, rescaling each by exp(m_w - max_w m_w).
 // The kernel allocates nothing: the caller passes the output buffer.
+//
+// int8 pages (`paged_attention_quant_fwd`) replace the TPU kernel
+// `paged_attention_quant_lanes` / `_paged_quant_kernel` in the same file of
+// the JAX package, and compute repro_torch.kernels.ref.
+// paged_attention_quant_ref: each K/V value is int8 * scale[row, kv_head]
+// (f32 per-row scales of shape (P, bs, nkv)).  The same kernel body runs
+// with TKV = int8_t: a lane's DPL dims of a row are one DPL-byte load (4 B
+// at head_dim 128, so a warp still reads a row whole in one coalesced
+// 128-B access), the row's two scales are loaded by the lane that loads
+// its table entry and broadcast by shuffles, and every value is
+// dequantized in registers before use — no f32 copy of the cache exists.
+// A row costs hd + 4 bytes of K (and of V) against 2 * hd in bf16, so the
+// byte floor at the same lengths is (hd + 4) / (2 * hd) of bf16's.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -53,6 +68,9 @@ constexpr float kNegInf = -1e30f;        // the TPU kernel's mask value
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_f32(int8_t x) {
+  return static_cast<float>(x);
 }
 
 template <typename T>
@@ -88,17 +106,21 @@ __device__ __forceinline__ void load_f32(const T* __restrict__ p,
 
 // DPL: head dimensions per lane (head_dim <= 32 * DPL, a multiple of DPL);
 // lane i holds dims [i*DPL, i*DPL + DPL).  kRows: rows per warp batch.
+// TKV = int8_t reads k/v_scales (P, bs, nkv); other types ignore them.
 template <typename TQ, typename TKV, int DPL>
 __global__ void __launch_bounds__(kThreads)
 paged_attention_kernel(const TQ* __restrict__ q,             // (n, nh, hd)
                        const TKV* __restrict__ k_pages,      // (P, bs, nkv, hd)
                        const TKV* __restrict__ v_pages,      // (P, bs, nkv, hd)
+                       const float* __restrict__ k_scales,   // (P, bs, nkv)
+                       const float* __restrict__ v_scales,   // (P, bs, nkv)
                        const int32_t* __restrict__ tables,   // (n, n_table)
                        const int32_t* __restrict__ lengths,  // (n,)
                        TQ* __restrict__ out,                 // (n, nh, hd)
                        int nkv, int hd, int bs, int n_table, int groups,
                        int window, float scale) {
   constexpr int kRows = DPL >= 8 ? 4 : 8;
+  constexpr bool kQuant = std::is_same<TKV, int8_t>::value;
   extern __shared__ float smem[];
   const int kvh = blockIdx.x;
   const int seq = blockIdx.y;
@@ -139,6 +161,12 @@ paged_attention_kernel(const TQ* __restrict__ q,             // (n, nh, hd)
     // past the end); shuffles broadcast it
     const int my_row = base + (lane < kRows ? lane : 0);
     const int my_phys = my_row < hi ? table[my_row / bs] : 0;
+    float my_ks = 1.f, my_vs = 1.f;       // this lane's row scales (int8)
+    if constexpr (kQuant) {
+      const size_t srow = ((size_t)my_phys * bs + my_row % bs) * nkv + kvh;
+      my_ks = k_scales[srow];
+      my_vs = v_scales[srow];
+    }
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
       const int row = base + r;
@@ -148,6 +176,15 @@ paged_attention_kernel(const TQ* __restrict__ q,             // (n, nh, hd)
                          head_off + dim0;
       load_f32<TKV, DPL>(k_pages + off, kf[r]);
       load_f32<TKV, DPL>(v_pages + off, vf[r]);
+      if constexpr (kQuant) {             // dequantize in registers
+        const float ks = __shfl_sync(0xffffffffu, my_ks, r);
+        const float vs = __shfl_sync(0xffffffffu, my_vs, r);
+#pragma unroll
+        for (int j = 0; j < DPL; ++j) {
+          kf[r][j] *= ks;
+          vf[r][j] *= vs;
+        }
+      }
       if (!(valid[r] && lane_on)) {
 #pragma unroll
         for (int j = 0; j < DPL; ++j) kf[r][j] = vf[r][j] = 0.f;
@@ -222,6 +259,7 @@ paged_attention_kernel(const TQ* __restrict__ q,             // (n, nh, hd)
 
 template <typename TQ, typename TKV, int DPL>
 cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
+                   const float* k_scales, const float* v_scales,
                    const int32_t* tables, const int32_t* lengths, void* out,
                    int n, int nh, int nkv, int hd, int bs, int n_table,
                    int window, cudaStream_t stream) {
@@ -230,7 +268,7 @@ cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
   const dim3 grid(nkv, n);
   paged_attention_kernel<TQ, TKV, DPL><<<grid, kThreads, smem, stream>>>(
       static_cast<const TQ*>(q), static_cast<const TKV*>(k_pages),
-      static_cast<const TKV*>(v_pages), tables, lengths,
+      static_cast<const TKV*>(v_pages), k_scales, v_scales, tables, lengths,
       static_cast<TQ*>(out), nkv, hd, bs, n_table, groups, window,
       1.0f / sqrtf((float)hd));
   return cudaGetLastError();
@@ -238,6 +276,7 @@ cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
 
 template <typename TQ, typename TKV>
 cudaError_t dispatch(const void* q, const void* k_pages, const void* v_pages,
+                     const float* k_scales, const float* v_scales,
                      const int32_t* tables, const int32_t* lengths, void* out,
                      int n, int nh, int nkv, int hd, int bs, int n_table,
                      int window, cudaStream_t stream) {
@@ -245,17 +284,21 @@ cudaError_t dispatch(const void* q, const void* k_pages, const void* v_pages,
       (hd > 32 && hd % (hd <= 64 ? 2 : hd <= 128 ? 4 : 8) != 0))
     return cudaErrorInvalidValue;
   if (hd <= 32)
-    return launch<TQ, TKV, 1>(q, k_pages, v_pages, tables, lengths, out, n,
-                              nh, nkv, hd, bs, n_table, window, stream);
+    return launch<TQ, TKV, 1>(q, k_pages, v_pages, k_scales, v_scales,
+                              tables, lengths, out, n, nh, nkv, hd, bs,
+                              n_table, window, stream);
   if (hd <= 64)
-    return launch<TQ, TKV, 2>(q, k_pages, v_pages, tables, lengths, out, n,
-                              nh, nkv, hd, bs, n_table, window, stream);
+    return launch<TQ, TKV, 2>(q, k_pages, v_pages, k_scales, v_scales,
+                              tables, lengths, out, n, nh, nkv, hd, bs,
+                              n_table, window, stream);
   if (hd <= 128)
-    return launch<TQ, TKV, 4>(q, k_pages, v_pages, tables, lengths, out, n,
-                              nh, nkv, hd, bs, n_table, window, stream);
+    return launch<TQ, TKV, 4>(q, k_pages, v_pages, k_scales, v_scales,
+                              tables, lengths, out, n, nh, nkv, hd, bs,
+                              n_table, window, stream);
   if (hd <= 256)
-    return launch<TQ, TKV, 8>(q, k_pages, v_pages, tables, lengths, out, n,
-                              nh, nkv, hd, bs, n_table, window, stream);
+    return launch<TQ, TKV, 8>(q, k_pages, v_pages, k_scales, v_scales,
+                              tables, lengths, out, n, nh, nkv, hd, bs,
+                              n_table, window, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -273,19 +316,46 @@ extern "C" int paged_attention_fwd(const void* q, const void* k_pages,
   const int32_t* l = static_cast<const int32_t*>(lengths);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (q_dtype == 0 && kv_dtype == 0)
-    return dispatch<float, float>(q, k_pages, v_pages, t, l, out, n, nh, nkv,
-                                  hd, bs, n_table, window, s);
+    return dispatch<float, float>(q, k_pages, v_pages, nullptr, nullptr, t, l,
+                                  out, n, nh, nkv, hd, bs, n_table, window,
+                                  s);
   if (q_dtype == 1 && kv_dtype == 1)
     return dispatch<__nv_bfloat16, __nv_bfloat16>(
-        q, k_pages, v_pages, t, l, out, n, nh, nkv, hd, bs, n_table, window,
-        s);
+        q, k_pages, v_pages, nullptr, nullptr, t, l, out, n, nh, nkv, hd, bs,
+        n_table, window, s);
   if (q_dtype == 0 && kv_dtype == 1)
-    return dispatch<float, __nv_bfloat16>(q, k_pages, v_pages, t, l, out, n,
-                                          nh, nkv, hd, bs, n_table, window,
-                                          s);
+    return dispatch<float, __nv_bfloat16>(q, k_pages, v_pages, nullptr,
+                                          nullptr, t, l, out, n, nh, nkv, hd,
+                                          bs, n_table, window, s);
   if (q_dtype == 1 && kv_dtype == 0)
-    return dispatch<__nv_bfloat16, float>(q, k_pages, v_pages, t, l, out, n,
-                                          nh, nkv, hd, bs, n_table, window,
-                                          s);
+    return dispatch<__nv_bfloat16, float>(q, k_pages, v_pages, nullptr,
+                                          nullptr, t, l, out, n, nh, nkv, hd,
+                                          bs, n_table, window, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// int8 pages with f32 per-row scales (P, bs, nkv); q_dtype as above.
+// Returns the cudaError_t of the launch (0 on success).
+extern "C" int paged_attention_quant_fwd(const void* q, const void* k_pages,
+                                         const void* v_pages,
+                                         const void* k_scales,
+                                         const void* v_scales,
+                                         const void* tables,
+                                         const void* lengths, void* out,
+                                         int n, int nh, int nkv, int hd,
+                                         int bs, int n_table, int window,
+                                         int q_dtype, void* stream) {
+  const int32_t* t = static_cast<const int32_t*>(tables);
+  const int32_t* l = static_cast<const int32_t*>(lengths);
+  const float* ks = static_cast<const float*>(k_scales);
+  const float* vs = static_cast<const float*>(v_scales);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (q_dtype == 0)
+    return dispatch<float, int8_t>(q, k_pages, v_pages, ks, vs, t, l, out, n,
+                                   nh, nkv, hd, bs, n_table, window, s);
+  if (q_dtype == 1)
+    return dispatch<__nv_bfloat16, int8_t>(q, k_pages, v_pages, ks, vs, t, l,
+                                           out, n, nh, nkv, hd, bs, n_table,
+                                           window, s);
   return (int)cudaErrorInvalidValue;
 }

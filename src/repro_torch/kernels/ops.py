@@ -11,7 +11,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.paged_attention import paged_attention_lanes
+from repro_torch.kernels.paged_attention import (paged_attention_lanes,
+                                                 paged_attention_quant_lanes)
+from repro_torch.kernels.paged_verify import paged_verify_lanes
 
 IMPLS = ("cuda", "ref")
 
@@ -32,15 +34,50 @@ def paged_attention(q, k_pages, v_pages, tables, lengths, *, window=None,
     token.  ``impl``: 'cuda' | 'ref' | None (by device).  'cuda' on CPU
     tensors raises: there is no kernel to run there.
     """
-    impl = impl or default_paged_impl(q.device)
-    if impl == "ref":
+    if _impl("paged_attention", impl, q) == "ref":
         return ref.paged_attention_ref(q, k_pages, v_pages, tables, lengths,
                                        window=window)
-    if impl != "cuda":
-        raise ValueError(f"paged_attention impl={impl!r}: expected one of "
-                         f"{IMPLS}")
-    if q.device.type != "cuda":
-        raise ValueError("paged_attention impl='cuda' needs CUDA tensors; "
-                         f"got {q.device} (use impl='ref' on the CPU)")
     return paged_attention_lanes(q, k_pages, v_pages, tables, lengths,
                                  window=window)
+
+
+def paged_verify(q, k_pages, v_pages, tables, lengths, *, window=None,
+                 impl=None):
+    """Multi-query (speculative verify) attention through a block table.
+
+    q: (n, k, nh, hd) — all k draft positions per lane, their K/V rows
+    already written; tables as ``paged_attention``; lengths: (n,) rows
+    committed BEFORE the round (query ``i`` attends through logical row
+    ``lengths + i``).  ``impl``: 'cuda' | 'ref' | None (by device)."""
+    if _impl("paged_verify", impl, q) == "ref":
+        return ref.paged_verify_ref(q, k_pages, v_pages, tables, lengths,
+                                    window=window)
+    return paged_verify_lanes(q, k_pages, v_pages, tables, lengths,
+                              window=window)
+
+
+def paged_attention_quant(q, k_pages, v_pages, k_scales, v_scales, tables,
+                          lengths, *, window=None, impl=None):
+    """int8-KV single-token attention: pages are int8 with per-row f32
+    scales (the ``ref.quantize_kv`` layout), dequantized inside the kernel
+    (or on the gathered rows by the plain version).  Otherwise as
+    ``paged_attention``."""
+    if _impl("paged_attention_quant", impl, q) == "ref":
+        return ref.paged_attention_quant_ref(
+            q, k_pages, v_pages, k_scales, v_scales, tables, lengths,
+            window=window)
+    return paged_attention_quant_lanes(q, k_pages, v_pages, k_scales,
+                                       v_scales, tables, lengths,
+                                       window=window)
+
+
+def _impl(op: str, impl, q) -> str:
+    """Resolve ``impl`` for ``op`` on ``q``'s device; 'cuda' on CPU
+    tensors raises: there is no kernel to run there."""
+    impl = impl or default_paged_impl(q.device)
+    if impl not in IMPLS:
+        raise ValueError(f"{op} impl={impl!r}: expected one of {IMPLS}")
+    if impl == "cuda" and q.device.type != "cuda":
+        raise ValueError(f"{op} impl='cuda' needs CUDA tensors; got "
+                         f"{q.device} (use impl='ref' on the CPU)")
+    return impl

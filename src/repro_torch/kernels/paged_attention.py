@@ -1,17 +1,20 @@
-"""Paged attention for one decode token per lane: the wrapper around the
-hand-written Hopper kernel ``csrc/paged_attention.cu``.
+"""Paged attention for one decode token per lane: the wrappers around the
+hand-written Hopper kernel ``csrc/paged_attention.cu``, over fp pages
+(``paged_attention_lanes``) and over int8 pages with per-row scales
+(``paged_attention_quant_lanes``).
 
-Replaces the TPU kernel ``paged_attention_lanes`` in
-``src/repro/kernels/paged_attention.py``.  What bounds it on an H100 is
-the bytes: a launch reads ``sum_lanes ceil(len/bs)·bs·nkv·hd·2·itemsize``
-bytes of K/V pages and does a handful of flops per byte, so its floor is
-those bytes over 3.35 TB/s; at full width and short contexts the launch
-latency matters as much as the bytes.  The design notes are in the CUDA
-source.
+Replace the TPU kernels ``paged_attention_lanes`` and
+``paged_attention_quant_lanes`` in ``src/repro/kernels/paged_attention.py``.
+What bounds them on an H100 is the bytes: a launch reads
+``sum_lanes ceil(len/bs)·bs·nkv·row_bytes·2`` bytes of K/V pages
+(``row_bytes`` = ``hd·itemsize``, or ``hd + 4`` for an int8 row and its
+scale) and does a handful of flops per byte, so its floor is those bytes
+over 3.35 TB/s; at full width and short contexts the launch latency
+matters as much as the bytes.  The design notes are in the CUDA source.
 
-For a CUDA tensor the wrapper launches the kernel or raises; it never
-falls back.  For a tensor on the CPU, where no kernel exists, it runs the
-plain version ``ref.paged_attention_ref``.
+For a CUDA tensor a wrapper launches the kernel or raises; it never falls
+back.  For a tensor on the CPU, where no kernel exists, it runs the plain
+version (``ref.paged_attention_ref`` / ``ref.paged_attention_quant_ref``).
 """
 
 from __future__ import annotations
@@ -21,7 +24,8 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import paged_attention_ref
+from repro_torch.kernels.ref import (paged_attention_quant_ref,
+                                     paged_attention_ref)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _WARPS = 8                  # kWarps in the CUDA source
@@ -29,8 +33,15 @@ _MAX_GROUPS = 8             # kMaxGroups
 _SMEM_LIMIT = 48 * 1024
 
 
-def _lib():
+def _lib(quant=False):
     lib = _build.load("paged_attention")
+    if quant:
+        fn = lib.paged_attention_quant_fwd
+        if fn.argtypes is None:
+            fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 \
+                + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        return fn
     fn = lib.paged_attention_fwd
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 \
@@ -60,6 +71,45 @@ def _check(q, k_pages, v_pages, tables, lengths, window):
     return n, nh, hd, bs, nkv
 
 
+def on_cpu(named: dict) -> bool:
+    """True when every operand lies on the CPU: the one case a kernel
+    wrapper runs its plain version."""
+    return {t.device for t in named.values()} == {torch.device("cpu")}
+
+
+def check_cuda_operands(kernel: str, named: dict) -> None:
+    """Raise unless every operand lies on one CUDA device, is contiguous,
+    and the tables / lengths are int32."""
+    devices = {t.device for t in named.values()}
+    if len(devices) != 1 or next(iter(devices)).type != "cuda":
+        raise ValueError(f"{kernel}: tensors on {devices}; expected all on "
+                         "one CUDA device (or all on the CPU for the plain "
+                         "version)")
+    if named["tables"].dtype != torch.int32 \
+            or named["lengths"].dtype != torch.int32:
+        raise TypeError(f"{kernel}: tables and lengths must be int32")
+    for name, t in named.items():
+        if not t.is_contiguous():
+            raise ValueError(f"{kernel}: {name} is not contiguous")
+
+
+def _check_launch_shape(kernel, nh, nkv, hd, k_pages, v_pages) -> None:
+    groups = nh // nkv
+    smem = 4 * _WARPS * groups * (hd + 2)     # the warps' merge buffers
+    dpl = next(d for d in (1, 2, 4, 8, 16) if hd <= 32 * d)  # dims per lane
+    if hd > 256 or hd % dpl or groups > _MAX_GROUPS or smem > _SMEM_LIMIT:
+        raise ValueError(f"{kernel}: head_dim {hd} with {groups} query "
+                         f"heads per KV head is not what the kernel takes "
+                         f"(head_dim <= 256 and a multiple of {dpl}, groups "
+                         f"<= {_MAX_GROUPS}, {_SMEM_LIMIT} B of shared "
+                         "memory)")
+    for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
+        if t.data_ptr() % (dpl * t.element_size()):
+            raise ValueError(f"{kernel}: {name} is not aligned to "
+                             f"{dpl * t.element_size()} bytes (the kernel's "
+                             "vector loads)")
+
+
 def paged_attention_lanes(q, k_pages, v_pages, tables, lengths, *,
                           window=None):
     """q: (n, nh, hd); k/v_pages: (P, bs, nkv, hd); tables: (n, B) int32
@@ -69,40 +119,19 @@ def paged_attention_lanes(q, k_pages, v_pages, tables, lengths, *,
     each call is one kernel launch, counted in
     ``paged_attention_lanes.launches``."""
     n, nh, hd, bs, nkv = _check(q, k_pages, v_pages, tables, lengths, window)
-    devices = {t.device for t in (q, k_pages, v_pages, tables, lengths)}
-    if devices == {torch.device("cpu")}:
+    named = {"q": q, "k_pages": k_pages, "v_pages": v_pages,
+             "tables": tables, "lengths": lengths}
+    if on_cpu(named):
         return paged_attention_ref(q, k_pages, v_pages, tables, lengths,
                                    window=window)
-    if len(devices) != 1 or q.device.type != "cuda":
-        raise ValueError(f"paged_attention_lanes: tensors on {devices}; "
-                         "expected all on one CUDA device (or all on the "
-                         "CPU for the plain version)")
+    check_cuda_operands("paged_attention_lanes", named)
     if q.dtype not in _DTYPE_CODES or k_pages.dtype not in _DTYPE_CODES \
             or v_pages.dtype != k_pages.dtype:
         raise TypeError(f"paged_attention_lanes: q {q.dtype}, pages "
                         f"{k_pages.dtype}/{v_pages.dtype}; the kernel takes "
                         "float32 or bfloat16")
-    if tables.dtype != torch.int32 or lengths.dtype != torch.int32:
-        raise TypeError("tables and lengths must be int32")
-    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
-                    ("tables", tables), ("lengths", lengths)):
-        if not t.is_contiguous():
-            raise ValueError(f"paged_attention_lanes: {name} is not "
-                             "contiguous")
-    groups = nh // nkv
-    smem = 4 * _WARPS * groups * (hd + 2)     # the warps' merge buffers
-    dpl = next(d for d in (1, 2, 4, 8, 16) if hd <= 32 * d)  # dims per lane
-    if hd > 256 or hd % dpl or groups > _MAX_GROUPS or smem > _SMEM_LIMIT:
-        raise ValueError(f"paged_attention_lanes: head_dim {hd} with "
-                         f"{groups} query heads per KV head is not what the "
-                         f"kernel takes (head_dim <= 256 and a multiple of "
-                         f"{dpl}, groups <= {_MAX_GROUPS}, {_SMEM_LIMIT} B "
-                         "of shared memory)")
-    for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
-        if t.data_ptr() % (dpl * t.element_size()):
-            raise ValueError(f"paged_attention_lanes: {name} is not aligned "
-                             f"to {dpl * t.element_size()} bytes (the "
-                             "kernel's vector loads)")
+    _check_launch_shape("paged_attention_lanes", nh, nkv, hd, k_pages,
+                        v_pages)
     out = torch.empty_like(q)
     if n == 0:
         return out
@@ -122,3 +151,57 @@ def paged_attention_lanes(q, k_pages, v_pages, tables, lengths, *,
 
 
 paged_attention_lanes.launches = 0
+
+
+def paged_attention_quant_lanes(q, k_pages, v_pages, k_scales, v_scales,
+                                tables, lengths, *, window=None):
+    """int8-KV twin of ``paged_attention_lanes``: k/v_pages are (P, bs,
+    nkv, hd) int8 and k/v_scales (P, bs, nkv) float32 per-row scales
+    (``ref.quantize_kv``), dequantized in registers inside the kernel.
+    Returns (n, nh, hd) in q's dtype.  On CUDA tensors each call is one
+    kernel launch, counted in ``paged_attention_quant_lanes.launches``."""
+    n, nh, hd, bs, nkv = _check(q, k_pages, v_pages, tables, lengths, window)
+    P = k_pages.shape[0]
+    for name, t in (("k_scales", k_scales), ("v_scales", v_scales)):
+        if tuple(t.shape) != (P, bs, nkv):
+            raise ValueError(f"paged_attention_quant_lanes: {name} "
+                             f"{tuple(t.shape)}; expected {(P, bs, nkv)}")
+    named = {"q": q, "k_pages": k_pages, "v_pages": v_pages,
+             "k_scales": k_scales, "v_scales": v_scales, "tables": tables,
+             "lengths": lengths}
+    if on_cpu(named):
+        return paged_attention_quant_ref(q, k_pages, v_pages, k_scales,
+                                         v_scales, tables, lengths,
+                                         window=window)
+    check_cuda_operands("paged_attention_quant_lanes", named)
+    if q.dtype not in _DTYPE_CODES or k_pages.dtype != torch.int8 \
+            or v_pages.dtype != torch.int8 \
+            or k_scales.dtype != torch.float32 \
+            or v_scales.dtype != torch.float32:
+        raise TypeError(f"paged_attention_quant_lanes: q {q.dtype}, pages "
+                        f"{k_pages.dtype}/{v_pages.dtype}, scales "
+                        f"{k_scales.dtype}/{v_scales.dtype}; the kernel "
+                        "takes float32 or bfloat16 q over int8 pages with "
+                        "float32 scales")
+    _check_launch_shape("paged_attention_quant_lanes", nh, nkv, hd, k_pages,
+                        v_pages)
+    out = torch.empty_like(q)
+    if n == 0:
+        return out
+    fn = _lib(quant=True)
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                 k_scales.data_ptr(), v_scales.data_ptr(),
+                 tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+                 n, nh, nkv, hd, bs, tables.shape[1],
+                 0 if window is None else int(window),
+                 _DTYPE_CODES[q.dtype],
+                 torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"paged_attention_quant kernel launch failed: "
+                           f"CUDA error {err}")
+    paged_attention_quant_lanes.launches += 1
+    return out
+
+
+paged_attention_quant_lanes.launches = 0

@@ -5,6 +5,8 @@ from __future__ import annotations
 
 from typing import Optional
 
+import torch
+
 from repro_torch import resolve_device
 from repro_torch.configs import torch_dtype
 from repro_torch.models import registry
@@ -55,13 +57,34 @@ def decode_step(cfg, params, state, tokens, *, window: Optional[int] = None):
 # serving helpers
 # ---------------------------------------------------------------------------
 
-def init_kv_pages(cfg, n_blocks: int, block_size: int, device="cuda"):
+def init_kv_pages(cfg, n_blocks: int, block_size: int, device="cuda",
+                  kv_dtype=None):
     """Physical KV block pool: {"k","v"} of (L, n_blocks, block_size,
     n_kv_heads, head_dim) in ``cfg.kv_cache_dtype`` — the contiguous
-    cache's layout with the block axis where batch was."""
+    cache's layout with the block axis where batch was.
+
+    ``kv_dtype='int8'`` allocates the quantized pool instead: int8 pages
+    plus per-row f32 {"k_scale","v_scale"} planes of (L, n_blocks,
+    block_size, n_kv_heads).  Rows are quantized on write
+    (``kernels.ref.quantize_kv``) and dequantized inside the attention
+    kernel, so no f32 copy of the cache exists."""
     from repro_torch.models import layers as nn
-    pages = nn.init_kv_cache(cfg, n_blocks, block_size,
-                             resolve_device(device))
+    if kv_dtype not in (None, "fp", "int8"):
+        raise ValueError(f"kv_dtype={kv_dtype!r}: expected None, 'fp', "
+                         "or 'int8'")
+    device = resolve_device(device)
+    if kv_dtype == "int8":
+        spec = registry.spec(cfg)
+        if not spec.kv_quant:
+            raise ValueError(f"{cfg.name} ({cfg.family}): "
+                             f"{spec.why_not('kv_quant')}")
+        shape = (cfg.n_layers, n_blocks, block_size, cfg.n_kv_heads,
+                 cfg.head_dim)
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(shape[:-1], device=device),
+                "v_scale": torch.zeros(shape[:-1], device=device)}
+    pages = nn.init_kv_cache(cfg, n_blocks, block_size, device)
     return {"k": pages["k"], "v": pages["v"]}
 
 
@@ -78,6 +101,47 @@ def paged_decode_step(cfg, params, pages, tables, lengths, tokens, *,
     if not spec.paging:
         raise ValueError(f"{cfg.name} ({cfg.family}): {spec.why_not('paging')}")
     return spec.module.paged_decode_step(
+        cfg, params, pages, tables, lengths, tokens, window=window,
+        impl=impl)
+
+
+def _require_spec_draftable(cfg) -> registry.FamilySpec:
+    spec = registry.spec(cfg)
+    if not spec.spec_draftable:
+        raise ValueError(
+            f"{cfg.name} ({cfg.family}): {spec.why_not('spec_draftable')}; "
+            "serve this family without speculative decoding")
+    return spec
+
+
+def verify_step(cfg, params, state, tokens, *, window: Optional[int] = None):
+    """Multi-token speculative verify: score k draft positions against the
+    contiguous decode cache in ONE forward.  tokens ``(b, k)`` -> ``(logits
+    (b, k, V), new state)`` with the cache advanced k rows; the caller
+    rolls back past the accept point (``rollback_decode_state``)."""
+    spec = _require_spec_draftable(cfg)
+    return spec.module.verify_step(cfg, params, state, tokens,
+                                   window=window)
+
+
+def rollback_decode_state(cfg, state, delta):
+    """Rewind a decode state's write index by ``delta`` rows (per-lane
+    tensor or int) — the KV-rollback half of speculative decoding."""
+    spec = _require_spec_draftable(cfg)
+    return spec.module.rollback_decode_state(cfg, state, delta)
+
+
+def paged_verify_step(cfg, params, pages, tables, lengths, tokens, *,
+                      window: Optional[int] = None, impl=None):
+    """Speculative verify reading K/V through per-lane block tables:
+    tokens ``(n, k)`` -> logits ``(n, k, V)``; the pages are written in
+    place."""
+    spec = _require_spec_draftable(cfg)
+    if not spec.paging:
+        raise ValueError(
+            f"{cfg.name} ({cfg.family}): {spec.why_not('paging')}; verify "
+            "through the slot backend instead")
+    return spec.module.paged_verify_step(
         cfg, params, pages, tables, lengths, tokens, window=window,
         impl=impl)
 

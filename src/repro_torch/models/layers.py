@@ -134,15 +134,17 @@ _SDPA_Q_CHUNK = 1024
 
 
 def _sdpa_dense(q, k, v, scale, qpos, kpos, causal, window):
-    """q: (b, sq, nkv, g, hd) grouped; k/v: (b, skv, nkv, hd)."""
+    """q: (b, sq, nkv, g, hd) grouped; k/v: (b, skv, nkv, hd); qpos: (sq,)
+    shared by the batch, or (b, sq) per lane."""
     logits = torch.einsum("bqkgh,bskh->bkgqs", q.float(), k.float()) * scale
-    mask = torch.ones((qpos.shape[0], kpos.shape[0]), dtype=torch.bool,
-                      device=q.device)
+    qp = qpos if qpos.dim() == 2 else qpos[None]              # (1|b, sq)
+    mask = torch.ones((qp.shape[0], qp.shape[1], kpos.shape[0]),
+                      dtype=torch.bool, device=q.device)
     if causal:
-        mask &= kpos[None, :] <= qpos[:, None]
+        mask &= kpos[None, None, :] <= qp[:, :, None]
     if window is not None:
-        mask &= kpos[None, :] > qpos[:, None] - window
-    logits = torch.where(mask[None, None, None], logits,
+        mask &= kpos[None, None, :] > qp[:, :, None] - window
+    logits = torch.where(mask[:, None, None], logits,
                          torch.full_like(logits, NEG_INF))
     probs = torch.softmax(logits, dim=-1)
     return torch.einsum("bkgqs,bskh->bqkgh", probs, v.float())
@@ -153,7 +155,8 @@ def sdpa(q, k, v, *, causal: bool, window: Optional[int] = None,
          kv_positions: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Scaled dot-product attention with GQA broadcast (plain products).
 
-    q: (b, sq, nh, hd); k/v: (b, skv, nkv, hd).  nh % nkv == 0."""
+    q: (b, sq, nh, hd); k/v: (b, skv, nkv, hd).  nh % nkv == 0.
+    ``q_positions`` is (sq,), or (b, sq) when each lane has its own."""
     b, sq, nh, hd = q.shape
     skv, nkv = k.shape[1], k.shape[2]
     groups = nh // nkv
@@ -167,7 +170,7 @@ def sdpa(q, k, v, *, causal: bool, window: Optional[int] = None,
         out = _sdpa_dense(qg, k, v, scale, qpos, kpos, causal, window)
         return out.reshape(b, sq, nh, hd).to(q.dtype)
     outs = [_sdpa_dense(qg[:, i:i + _SDPA_Q_CHUNK], k, v, scale,
-                        qpos[i:i + _SDPA_Q_CHUNK], kpos, causal, window)
+                        qpos[..., i:i + _SDPA_Q_CHUNK], kpos, causal, window)
             for i in range(0, sq, _SDPA_Q_CHUNK)]
     return torch.cat(outs, dim=1).reshape(b, sq, nh, hd).to(q.dtype)
 
@@ -178,20 +181,32 @@ def attention(params: Params, x: torch.Tensor, cfg, kv_cache: dict, *,
     branch of the JAX ``attention``; the cache-free training branch comes
     with the training slice).  Returns (out, kv_cache).
 
-    kv_cache: {"k": (b, max_s, nkv, hd), "v": ..., "index": int} — this
-    chunk's rows are written at ``index`` IN PLACE (where the JAX package
-    returns an updated copy) and attention runs over the filled prefix;
-    the returned cache has ``index`` advanced."""
+    kv_cache: {"k": (b, max_s, nkv, hd), "v": ..., "index": int or (b,)
+    int64 tensor} — this chunk's rows are written at ``index`` IN PLACE
+    (where the JAX package returns an updated copy) and attention runs
+    over the filled prefix; the returned cache has ``index`` advanced.  A
+    tensor index gives every lane its own write row and causal limit (the
+    JAX package's per-slot ``vmap``); like its ``dynamic_update_slice``,
+    the write start is clamped so the chunk fits the cache."""
     b, sq, _ = x.shape
     q, k, v = _project_qkv(params, x, cfg)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    idx = int(kv_cache["index"])
+    idx = kv_cache["index"]
     ck, cv = kv_cache["k"], kv_cache["v"]
-    ck[:, idx:idx + sq] = k.to(ck.dtype)
-    cv[:, idx:idx + sq] = v.to(cv.dtype)
+    steps = torch.arange(sq, device=x.device)
+    if isinstance(idx, torch.Tensor):
+        rows = torch.clamp(idx, max=ck.shape[1] - sq)[:, None] + steps
+        lane = torch.arange(b, device=x.device)[:, None]
+        ck[lane, rows] = k.to(ck.dtype)
+        cv[lane, rows] = v.to(cv.dtype)
+        qpos = idx[:, None] + steps                          # (b, sq)
+    else:
+        idx = int(idx)
+        ck[:, idx:idx + sq] = k.to(ck.dtype)
+        cv[:, idx:idx + sq] = v.to(cv.dtype)
+        qpos = idx + steps                                   # (sq,)
     kvpos = torch.arange(ck.shape[1], device=x.device)
-    qpos = idx + torch.arange(sq, device=x.device)
     # unwritten slots are masked by the causal predicate (kvpos <= qpos)
     out = sdpa(q, ck, cv, causal=True, window=window,
                q_positions=qpos, kv_positions=kvpos)
@@ -203,9 +218,19 @@ def attention(params: Params, x: torch.Tensor, cfg, kv_cache: dict, *,
 def _scatter_kv_rows(pages: dict, blk, off, k, v) -> None:
     """Write K/V rows through the block table into one layer's pages, IN
     PLACE (the JAX package donates the pages and gets an updated copy).
-    pages: {"k","v"} of (P, bs, nkv, hd); blk/off index rows; k/v are the
+    pages: {"k","v"} of (P, bs, nkv, hd) — plus {"k_scale","v_scale"} of
+    (P, bs, nkv) when the pool is int8, in which case the rows are
+    quantized per row on write (``ref.quantize_kv``) and the scales land
+    at the same table-addressed slots.  blk/off index rows; k/v are the
     new rows.  Duplicate (blk, off) pairs — inactive lanes all aim at the
     garbage block — land in an unspecified order, which is harmless."""
+    if "k_scale" in pages:
+        from repro_torch.kernels.ref import quantize_kv
+        for name, rows in (("k", k), ("v", v)):
+            q8, scale = quantize_kv(rows)
+            pages[name][blk, off] = q8
+            pages[f"{name}_scale"][blk, off] = scale
+        return
     pages["k"][blk, off] = k.to(pages["k"].dtype)
     pages["v"][blk, off] = v.to(pages["v"].dtype)
 
@@ -217,13 +242,15 @@ def paged_attention_decode(params: Params, x: torch.Tensor, cfg, *,
     """One-token attention block over a paged KV cache (one layer's pages).
 
     x: (n, 1, d) *normed* hidden states, one decode lane per row.
-    pages: {"k","v"} of (P, bs, nkv, hd) physical blocks; tables: (n, B)
-    int32 block ids (unused entries name the pool's garbage block);
-    lengths: (n,) int32 rows already written, i.e. this token's row index.
+    pages: {"k","v"} of (P, bs, nkv, hd) physical blocks (+ per-row
+    {"k_scale","v_scale"} when int8); tables: (n, B) int32 block ids
+    (unused entries name the pool's garbage block); lengths: (n,) int32
+    rows already written, i.e. this token's row index.
 
     Writes this step's K/V row through the block table in place and
     attends to the ``[0, lengths]`` logical prefix through
-    ``kernels.ops.paged_attention``.  Returns ``out`` (n, 1, d)."""
+    ``kernels.ops.paged_attention`` (``paged_attention_quant`` for int8
+    pools).  Returns ``out`` (n, 1, d)."""
     from repro_torch.kernels import ops as kops
     n = x.shape[0]
     q, k, v = _project_qkv(params, x, cfg)
@@ -234,9 +261,54 @@ def paged_attention_decode(params: Params, x: torch.Tensor, cfg, *,
     lens = lengths.long()
     blk = tables[torch.arange(n, device=x.device), lens // bs].long()
     _scatter_kv_rows(pages, blk, lens % bs, k[:, 0], v[:, 0])
-    out = kops.paged_attention(q[:, 0].contiguous(), pages["k"], pages["v"],
-                               tables, lengths + 1, window=window, impl=impl)
+    if "k_scale" in pages:
+        out = kops.paged_attention_quant(
+            q[:, 0].contiguous(), pages["k"], pages["v"], pages["k_scale"],
+            pages["v_scale"], tables, lengths + 1, window=window, impl=impl)
+    else:
+        out = kops.paged_attention(q[:, 0].contiguous(), pages["k"],
+                                   pages["v"], tables, lengths + 1,
+                                   window=window, impl=impl)
     out = out.reshape(n, 1, cfg.n_heads * cfg.head_dim)
+    return out @ params["wo"].to(x.dtype)
+
+
+def paged_attention_verify(params: Params, x: torch.Tensor, cfg, *,
+                           pages: dict, tables: torch.Tensor,
+                           lengths: torch.Tensor,
+                           window: Optional[int] = None, impl=None):
+    """k-token attention block over a paged KV cache (speculative verify).
+
+    The multi-token twin of ``paged_attention_decode``: x is ``(n, k, d)``
+    *normed* hidden states — the last committed token followed by k-1
+    draft tokens per lane.  Writes all k K/V rows through the block table
+    in place (rows ``lengths + [0, k)``; lanes whose table names only the
+    garbage block park their rows there harmlessly), then attends each of
+    the k query positions to its own causal prefix ``[0, lengths + i]``
+    through ``kernels.ops.paged_verify``.  int8 pools take the gathered
+    ``ref.paged_verify_quant_ref`` whatever ``impl`` says, as the JAX
+    package does: draft depths are too small to earn a quant verify
+    kernel.  Returns ``out`` (n, k, d)."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref as kref
+    n, kk, _ = x.shape
+    q, k, v = _project_qkv(params, x, cfg)
+    positions = lengths.long()[:, None] \
+        + torch.arange(kk, device=x.device)[None, :]            # (n, k)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    bs = pages["k"].shape[1]
+    col = torch.clamp(positions // bs, max=tables.shape[1] - 1)
+    blk = torch.gather(tables.long(), 1, col)                   # (n, k)
+    _scatter_kv_rows(pages, blk, positions % bs, k, v)
+    if "k_scale" in pages:
+        out = kref.paged_verify_quant_ref(
+            q, pages["k"], pages["v"], pages["k_scale"], pages["v_scale"],
+            tables, lengths, window=window)
+    else:
+        out = kops.paged_verify(q.contiguous(), pages["k"], pages["v"],
+                                tables, lengths, window=window, impl=impl)
+    out = out.reshape(n, kk, cfg.n_heads * cfg.head_dim).to(x.dtype)
     return out @ params["wo"].to(x.dtype)
 
 

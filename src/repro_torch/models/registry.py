@@ -29,24 +29,38 @@ class FamilySpec:
     batched_prefill: bool = False   # whole prompt chunk in ONE decode_step
     paging: bool = False            # decode state can live in paged KV blocks
     servable: bool = True           # InferenceEngine can serve this family
+    spec_draftable: bool = False    # multi-token verify + KV rollback work:
+    #   the family can be the target (or draft) of speculative decoding
+    kv_quant: bool = False          # paged KV pool can be int8-quantized
+    #   (per-row scales stored beside the pages; requires paging)
     # capability -> one-line reason it is absent
     notes: dict = field(default_factory=dict)
     # -- cost fns (admission control charges these against the ledger) ------
     decode_state_cost: Optional[Callable[[Any, int, int], int]] = None
-    kv_block_cost: Optional[Callable[[Any, int], int]] = None
+    kv_block_cost: Optional[Callable[..., int]] = None
 
     def decode_state_bytes(self, cfg, batch: int, max_seq: int) -> int:
         """Residency bytes of one decode state."""
         return self.decode_state_cost(cfg, batch, max_seq)
 
     def kv_block_bytes(self, cfg, block_size: int, kv_dtype=None) -> int:
-        """Residency bytes of ONE physical KV block across all layers."""
-        if kv_dtype not in (None, "fp"):
-            raise ValueError(f"{self.family}: kv_dtype={kv_dtype!r} "
-                             f"unsupported — {self.why_not('kv_quant')}")
-        return self.kv_block_cost(cfg, block_size)
+        """Residency bytes of ONE physical KV block across all layers.
+        ``kv_dtype='int8'`` prices the quantized pool (pages + per-row
+        scale planes) and requires the ``kv_quant`` capability."""
+        if kv_dtype in (None, "fp"):
+            return self.kv_block_cost(cfg, block_size)
+        if not self.kv_quant:
+            raise ValueError(
+                f"{self.family}: kv_dtype={kv_dtype!r} unsupported — "
+                f"{self.why_not('kv_quant')}")
+        return self.kv_block_cost(cfg, block_size, kv_dtype)
 
     def why_not(self, capability: str) -> str:
+        if capability == "kv_quant" and "kv_quant" not in self.notes:
+            return ("int8 KV quantizes paged blocks on write; " +
+                    ("the family has not declared a quantized page "
+                     "layout + cost model" if self.paging
+                     else self.why_not("paging")))
         return self.notes.get(capability, "not declared by the family spec")
 
 

@@ -58,11 +58,20 @@ def layer_slices(stacked: dict, n_layers: int) -> list[dict]:
     return [take(stacked, i) for i in range(n_layers)]
 
 
+def _chunk_positions(index, b: int, sq: int, device) -> torch.Tensor:
+    """(b, sq) positions of a chunk written at ``index`` (an int shared by
+    the batch, or a (b,) tensor with one write index per lane)."""
+    steps = torch.arange(sq, device=device)
+    if isinstance(index, torch.Tensor):
+        return index[:, None] + steps[None, :]
+    return (index + steps)[None, :].expand(b, sq)
+
+
 def apply_layer_decode(cfg, lp, x, cache, *, window=None):
     """One pre-norm block in decode mode; ``cache`` is one layer's
     {"k","v","index"} and is written in place."""
-    positions = cache["index"] + torch.arange(x.shape[1], device=x.device)
-    positions = positions[None, :].expand(x.shape[0], x.shape[1])
+    positions = _chunk_positions(cache["index"], x.shape[0], x.shape[1],
+                                 x.device)
     h, new_cache = nn.attention(
         lp["attn"], nn.rms_norm(lp["attn_norm"], x), cfg, cache,
         positions=positions,
@@ -80,7 +89,10 @@ def init_decode_state(cfg, batch: int, max_seq: int, device="cuda"):
 def decode_step(cfg, params, state, tokens, *, window=None):
     """One decode step over a contiguous cache: tokens (b, s) -> logits
     (b, s, V), new state.  The cache planes are written in place; the
-    returned state shares them with ``state`` and has the index advanced."""
+    returned state shares them with ``state`` and has the index advanced.
+    The index is an int for a batch that shares one (prefill), or a (b,)
+    int64 tensor with one per lane (the slot pool, where the JAX package
+    vmaps the step over batch-1 states)."""
     _require_dense_rms_swiglu(cfg)
     x = nn.embed(params["embed"], tokens, torch_dtype(cfg.dtype))
     kv = state["kv"]
@@ -95,26 +107,78 @@ def decode_step(cfg, params, state, tokens, *, window=None):
     return logits, new_state
 
 
+def _paged_layers(cfg, params, pages, tokens, attend):
+    """Embed ``tokens``, run every layer with ``attend(lp, normed x,
+    layer pages)`` as its attention block, and unembed.  Each layer's
+    pages are views of the stacked planes (k, v and, for int8 pools,
+    k_scale, v_scale), written in place."""
+    _require_dense_rms_swiglu(cfg)
+    x = nn.embed(params["embed"], tokens, torch_dtype(cfg.dtype))
+    for i, lp in enumerate(layer_slices(params["layers"], cfg.n_layers)):
+        pg = {name: plane[i] for name, plane in pages.items()}
+        x = x + attend(lp["attn"], nn.rms_norm(lp["attn_norm"], x), pg)
+        x = x + nn.swiglu(lp["mlp"], nn.rms_norm(lp["mlp_norm"], x))
+    x = nn.rms_norm(params["final_norm"], x)
+    return nn.unembed(params["embed"], x)
+
+
 def paged_decode_step(cfg, params, pages, tables, lengths, tokens, *,
                       window=None, impl=None):
     """One decode step over a paged KV cache shared by all lanes.
 
-    tokens: (n, 1); pages: {"k","v"} of (L, P, bs, nkv, hd), written in
+    tokens: (n, 1); pages: {"k","v"} of (L, P, bs, nkv, hd) — plus per-row
+    {"k_scale","v_scale"} of (L, P, bs, nkv) for an int8 pool — written in
     place (this step's row per lane); tables: (n, B) int32 physical block
     ids per lane; lengths: (n,) int32 rows already written (this token's
     row index).  ``impl`` routes the attention (``kernels.ops``).  Returns
     logits (n, 1, V)."""
-    _require_dense_rms_swiglu(cfg)
-    x = nn.embed(params["embed"], tokens, torch_dtype(cfg.dtype))
     win = window if window is not None else cfg.window
-    for i, lp in enumerate(layer_slices(params["layers"], cfg.n_layers)):
-        pg = {"k": pages["k"][i], "v": pages["v"][i]}
-        x = x + nn.paged_attention_decode(
-            lp["attn"], nn.rms_norm(lp["attn_norm"], x), cfg,
-            pages=pg, tables=tables, lengths=lengths, window=win, impl=impl)
-        x = x + nn.swiglu(lp["mlp"], nn.rms_norm(lp["mlp_norm"], x))
-    x = nn.rms_norm(params["final_norm"], x)
-    return nn.unembed(params["embed"], x)
+    return _paged_layers(cfg, params, pages, tokens, lambda lp, x, pg:
+                         nn.paged_attention_decode(
+                             lp, x, cfg, pages=pg, tables=tables,
+                             lengths=lengths, window=win, impl=impl))
+
+
+# ---------------------------------------------------------------------------
+# speculative verify (k tokens scored against cached state in one forward)
+# ---------------------------------------------------------------------------
+
+def verify_step(cfg, params, state, tokens, *, window=None):
+    """Score k draft positions against the contiguous KV cache in ONE
+    forward: tokens ``(b, k)`` (last committed token + k-1 drafts) ->
+    ``(logits (b, k, V), new state)`` with the cache index advanced by k.
+    The batched-prefill mechanism pointed at mid-decode: the causal chunk
+    mask keeps position ``i``'s logits equal to what i single-token decode
+    steps would give.  The caller rolls the state back past the accept
+    point with ``rollback_decode_state``."""
+    return decode_step(cfg, params, state, tokens, window=window)
+
+
+def rollback_decode_state(cfg, state, delta):
+    """Rewind the cache write index by ``delta`` rows (a per-lane tensor
+    or an int).  Rows past the rewound index are stale but invisible:
+    decode attention masks ``kvpos > qpos`` and later writes overwrite
+    them in place."""
+    kv = state["kv"]
+    return {"kv": {"k": kv["k"], "v": kv["v"],
+                   "index": kv["index"] - delta}}
+
+
+def paged_verify_step(cfg, params, pages, tables, lengths, tokens, *,
+                      window=None, impl=None):
+    """The paged twin of ``verify_step``: score k positions per lane
+    through per-lane block tables.  tokens ``(n, k)``; the k K/V rows per
+    lane are written in place; returns logits ``(n, k, V)``.  The caller
+    owns rollback: it advances ``lengths`` by the accepted rows only and
+    frees whole tail blocks — rows past a lane's length get zero weight,
+    so rejected draft rows never perturb later decode.  ``impl`` routes
+    the attention: 'cuda' is the multi-query kernel, 'ref' the gathered
+    plain version."""
+    win = window if window is not None else cfg.window
+    return _paged_layers(cfg, params, pages, tokens, lambda lp, x, pg:
+                         nn.paged_attention_verify(
+                             lp, x, cfg, pages=pg, tables=tables,
+                             lengths=lengths, window=win, impl=impl))
 
 
 # ---------------------------------------------------------------------------
@@ -130,9 +194,13 @@ def _kv_state_bytes(cfg, batch: int, max_seq: int) -> int:
     return kv + 4
 
 
-def _kv_block_bytes(cfg, block_size: int) -> int:
-    """Bytes of ONE physical KV block across all layers (fp pools)."""
+def _kv_block_bytes(cfg, block_size: int, kv_dtype=None) -> int:
+    """Bytes of ONE physical KV block across all layers.  ``kv_dtype=
+    'int8'`` prices the quantized pool: one byte per cache element plus a
+    4-byte f32 scale per (row, KV head) — ``rows * (hd + 4)``."""
     rows = 2 * cfg.n_layers * block_size * cfg.n_kv_heads
+    if kv_dtype == "int8":
+        return rows * (cfg.head_dim + torch.float32.itemsize)
     return rows * cfg.head_dim * torch_dtype(cfg.kv_cache_dtype).itemsize
 
 
@@ -140,11 +208,10 @@ def _register():
     import sys
 
     from repro_torch.models import registry
-    later = "ported in a later slice of the PyTorch port"
     registry.register(registry.FamilySpec(
         family="dense", module=sys.modules[__name__],
         batched_prefill=True, paging=True, servable=True,
-        notes={"kv_quant": f"int8 KV pages are {later}"},
+        spec_draftable=True, kv_quant=True,
         decode_state_cost=_kv_state_bytes,
         kv_block_cost=_kv_block_bytes))
 

@@ -1,12 +1,12 @@
-"""Continuous-batching inference engine over the paged decode backend
+"""Continuous-batching inference engine over a pluggable decode backend
 (port of ``repro.serving.engine``).
 
 One engine serves one loaded model on one device.  Per tick (``step()``):
 
   1. retire finished requests (the backend releases lanes + KV bytes),
-  2. apply overload pressure (``serving/slo.py``: shed the lowest waiting
-     tier at hard overload) and, when the queue head strictly outranks a
-     running request, preempt one victim,
+  2. apply overload pressure (``serving/slo.py``: degrade spec drafts at
+     soft, shed the lowest waiting tier at hard) and, when the queue head
+     strictly outranks a running request, preempt one victim,
   3. admit queued requests in POLICY order (EDF + priority tiers +
      starvation aging by default; strict FIFO with ``policy="fifo"``)
      while the backend's byte budget allows — each group of same-length
@@ -19,16 +19,26 @@ Outputs are token-identical to running each request alone.  ``submit``
 and ``cancel`` behave as in the JAX package (streams, SLO fields, cancel
 of queued / running / preempted requests).
 
+Where decode state lives is the backend's concern
+(``serving/backends.py``): ``SlotBackend`` (the default), ``PagedBackend``
+(block-granular admission, copy-on-write prefix sharing, fp or int8
+pages) or ``SpecDecodeBackend`` (speculative decoding with a draft model
+over either inner).  The engine picks the backend once, from the family's
+declared capabilities, as the JAX engine does: a backend the family
+cannot support falls back (spec -> its inner -> slot) with a
+``CapabilityFallbackWarning``, and ``summary()`` records both the
+requested and the effective backend.
+
 Not ported yet (each raises ``NotImplementedError`` naming the later
-slice): the slot and speculative backends, length-bucketed prefill
-(``bucket_sizes``), shard-resident weights (``param_source``) and
-host-DRAM KV tiering (``tiered_kv``).
+slice): length-bucketed prefill (``bucket_sizes``), shard-resident
+weights (``param_source``) and host-DRAM KV tiering (``tiered_kv``).
 """
 
 from __future__ import annotations
 
 import math
 import time
+import warnings
 from collections import deque
 from typing import Optional, Sequence, Union
 
@@ -37,6 +47,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.models import api
+from repro_torch.models.registry import CapabilityFallbackWarning
 from repro_torch.models.registry import spec as family_spec
 from repro_torch.serving.backends import make_backend
 from repro_torch.serving.queue import RequestQueue
@@ -53,10 +64,14 @@ class InferenceEngine:
                  window: Optional[int] = None,
                  model_name: Optional[str] = None,
                  bucket_sizes: Optional[Sequence[int]] = None,
-                 backend: str = "paged", block_size: int = 16,
+                 backend: Optional[str] = None, paged: bool = False,
+                 block_size: int = 16,
                  n_blocks: Optional[int] = None, ledger=None,
                  paged_impl: Optional[str] = None,
                  prefix_share: bool = True, kv_dtype: Optional[str] = None,
+                 draft_cfg=None, draft_params=None, draft_k: int = 4,
+                 spec_inner: Optional[str] = None,
+                 verify_impl: Optional[str] = None,
                  completed_cap: Optional[int] = None,
                  policy: Union[str, object] = "slo",
                  default_slo: Optional[SLO] = None,
@@ -67,7 +82,13 @@ class InferenceEngine:
         it is moved to ``device`` and its >= 2-D layer weights are held in
         ``cfg.dtype`` (``api.prepare_params``).  ``device`` defaults to
         CUDA and raises where there is none; pass ``device="cpu"`` to
-        serve on the CPU through the plain attention."""
+        serve on the CPU through the plain attention.
+
+        ``backend``: 'slot' (None, the default), 'paged' (``paged=True``
+        is the legacy spelling) or 'spec', which wraps ``spec_inner``
+        ('slot' by default, or 'paged') and takes ``draft_cfg`` /
+        ``draft_params`` / ``draft_k`` (and ``verify_impl`` for a paged
+        inner)."""
         if bucket_sizes is not None:
             raise NotImplementedError(f"length-bucketed prefill {_LATER}")
         if param_source is not None:
@@ -91,13 +112,16 @@ class InferenceEngine:
         self.queue = RequestQueue(clock=clock)
         self.slot_bytes = spec.decode_state_bytes(cfg, 1, max_seq)
         self._prefill = make_prefill_into_cache(cfg, window=window)
-        self.requested_backend = backend
+        self.requested_backend, effective, spec_inner = \
+            self._resolve_backend(spec, backend, paged, spec_inner)
         self.backend = make_backend(
-            backend, cfg, capacity, max_seq, window=window,
+            effective, cfg, capacity, max_seq, window=window,
             kv_budget_bytes=kv_budget_bytes, ledger=ledger,
             block_size=block_size, n_blocks=n_blocks,
             paged_impl=paged_impl, prefix_share=prefix_share,
-            kv_dtype=kv_dtype, device=self.device)
+            kv_dtype=kv_dtype, verify_impl=verify_impl,
+            draft_cfg=draft_cfg, draft_params=draft_params,
+            draft_k=draft_k, inner=spec_inner, device=self.device)
         self._active: dict[int, Request] = {}       # lane -> request
         self._tokens = np.zeros((capacity, 1, 1), np.int32)
         self.completed: deque[Request] = deque(maxlen=completed_cap)
@@ -122,6 +146,43 @@ class InferenceEngine:
         self.n_shed = 0
         self.peak_live_requests = 0
 
+    def _resolve_backend(self, spec, backend, paged, spec_inner):
+        """(requested, effective backend, spec inner) from the arguments
+        and the family's declared capabilities, as the JAX engine resolves
+        them: None means 'slot' ('paged' with the legacy ``paged=True``); a
+        capability the family lacks falls back with a warning."""
+        cfg = self.cfg
+        if paged and backend is not None and backend != "paged":
+            raise ValueError(
+                f"conflicting arguments: paged=True but backend="
+                f"{backend!r}; drop one of them")
+        requested = backend if backend is not None else \
+            ("paged" if paged else "slot")
+        effective = requested
+        spec_inner = spec_inner or "slot"
+        if spec_inner not in ("slot", "paged"):
+            raise ValueError(f"spec_inner={spec_inner!r}: the spec "
+                             "backend wraps 'slot' or 'paged'")
+        if requested == "spec" and not spec.spec_draftable:
+            warnings.warn(
+                f"{cfg.name} ({cfg.family}): speculative decode requested "
+                f"but the family does not declare spec_draftable "
+                f"({spec.why_not('spec_draftable')}); falling back to the "
+                f"{spec_inner!r} backend", CapabilityFallbackWarning,
+                stacklevel=3)
+            effective = spec_inner
+        if (effective == "paged"
+                or (effective == "spec" and spec_inner == "paged")) \
+                and not spec.paging:
+            warnings.warn(
+                f"{cfg.name} ({cfg.family}): paged backend requested but "
+                f"the family does not declare paging "
+                f"({spec.why_not('paging')}); falling back to the slot "
+                "backend", CapabilityFallbackWarning, stacklevel=3)
+            effective = "slot" if effective == "paged" else effective
+            spec_inner = "slot"
+        return requested, effective, spec_inner
+
     # -- backend introspection ------------------------------------------------
     @property
     def paged(self) -> bool:
@@ -137,15 +198,15 @@ class InferenceEngine:
 
     @property
     def ledger(self):
-        return self.backend.ledger
+        return getattr(self.backend, "ledger", None)
 
     @property
     def block_size(self):
-        return self.backend.block_size
+        return getattr(self.backend, "block_size", None)
 
     @property
     def paged_impl(self):
-        return self.backend.paged_impl
+        return getattr(self.backend, "paged_impl", None)
 
     # -- submission ---------------------------------------------------------
     def submit(self, prompt, max_new_tokens: int, *,
@@ -302,7 +363,8 @@ class InferenceEngine:
         for req in [r for r in self.queue
                     if r.status in (Status.CANCELLED, Status.REJECTED)]:
             self.queue.remove(req)
-            self.backend.discard_preempted(req)
+            if self.backend.preemptible:
+                self.backend.discard_preempted(req)
             self._finish(req)
 
     def _admit(self) -> list[Request]:
@@ -367,7 +429,8 @@ class InferenceEngine:
         outranks it and is blocked on a lane, not on bytes."""
         if self.backend.free_lanes or not self.queue:
             return
-        if not getattr(self.policy, "preempt", False):
+        if not self.backend.preemptible \
+                or not getattr(self.policy, "preempt", False):
             return
         now = self.clock()
         waiting = [r for r in self.queue if not r.done]
@@ -393,10 +456,14 @@ class InferenceEngine:
         self.queue.push(victim)
 
     def _apply_pressure(self) -> None:
-        """Hard overload: reject the lowest-priority WAITING tier (worst
-        ranked first, stopping as soon as pressure clears)."""
-        if self.policy.pressure(self.queued_seconds()) < 2 \
-                or not hasattr(self.policy, "shed_tier"):
+        """Overload response, in declared shed order: soft -> degrade the
+        spec backend's draft model (compute only, still token-identical);
+        hard -> reject the lowest-priority WAITING tier (worst ranked
+        first, stopping as soon as pressure clears)."""
+        press = self.policy.pressure(self.queued_seconds())
+        if hasattr(self.backend, "set_degraded"):
+            self.backend.set_degraded(press >= 1)
+        if press < 2 or not hasattr(self.policy, "shed_tier"):
             return
         waiting = [r for r in self.queue if r.status is Status.QUEUED]
         shed = self.policy.shed_tier(waiting)

@@ -3,8 +3,10 @@
 with the tiering slice).
 
 ``BlockPool`` owns ONE pages dict — ``{"k","v"}`` of ``(L, n_blocks,
-block_size, n_kv_heads, head_dim)`` tensors on the serving device — and
-hands out physical blocks request by request.  Physical block 0 is the
+block_size, n_kv_heads, head_dim)`` tensors on the serving device, plus
+``{"k_scale","v_scale"}`` of ``(L, n_blocks, block_size, n_kv_heads)``
+for an int8 pool — and hands out physical blocks request by request.
+Physical block 0 is the
 reserved *garbage block*: inactive decode lanes and unused table entries
 all point at it, so every table entry is a valid physical index and the
 lane-batched KV write has a harmless target.  Attention masks rows past
@@ -25,7 +27,8 @@ class BlockPool:
 
     GARBAGE = 0          # reserved physical block; never allocated
 
-    def __init__(self, cfg, n_blocks: int, block_size: int, device="cuda"):
+    def __init__(self, cfg, n_blocks: int, block_size: int, device="cuda",
+                 kv_dtype=None):
         if block_size < 1:
             raise ValueError("block_size must be >= 1")
         if n_blocks < 2:
@@ -34,9 +37,13 @@ class BlockPool:
                 "on top of the reserved garbage block 0")
         self.block_size = block_size
         self.n_blocks = n_blocks
-        self.kv_dtype = "fp"
-        self.block_bytes = api.kv_block_bytes(cfg, block_size)
-        self.pages = api.init_kv_pages(cfg, n_blocks, block_size, device)
+        # kv_dtype='int8' allocates int8 pages + per-row f32 scale planes;
+        # block_bytes prices the whole dict either way, so ledger charges
+        # stay exact
+        self.kv_dtype = "fp" if kv_dtype is None else kv_dtype
+        self.block_bytes = api.kv_block_bytes(cfg, block_size, kv_dtype)
+        self.pages = api.init_kv_pages(cfg, n_blocks, block_size, device,
+                                       kv_dtype=kv_dtype)
         # low ids handed out first (stable layouts in tests); 0 is reserved
         self._free = list(range(n_blocks - 1, 0, -1))
         self._ref: dict[int, int] = {}          # allocated block -> refcount

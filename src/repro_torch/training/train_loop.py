@@ -48,3 +48,49 @@ def make_paged_decode_step(cfg, *, window: Optional[int] = None, impl=None):
         return torch.argmax(logits[:, -1, :], dim=-1)[:, None].to(torch.int32)
 
     return paged_step
+
+
+def make_decode_step(cfg, *, window: Optional[int] = None):
+    """One-token greedy decode against a contiguous KV cache.  Returns
+    ``step(params, state, tokens (b, 1)) -> (next_tokens (b, 1) int32,
+    state)``; the cache planes are written in place."""
+
+    @torch.no_grad()
+    def decode_step(params, state, tokens):
+        logits, state = api.decode_step(cfg, params, state, tokens,
+                                        window=window)
+        return (torch.argmax(logits[:, -1, :], dim=-1)[:, None]
+                .to(torch.int32), state)
+
+    return decode_step
+
+
+def make_verify_step(cfg, *, window: Optional[int] = None):
+    """Speculative verify over the contiguous cache: tokens ``(b, k)`` (the
+    last committed token + k-1 drafts) -> ``(greedy (b, k) int32, state)``,
+    the target's greedy continuation at every draft position in ONE
+    forward.  The cache advances k rows; the caller rewinds past the
+    accept point (``api.rollback_decode_state``)."""
+
+    @torch.no_grad()
+    def verify(params, state, tokens):
+        logits, state = api.verify_step(cfg, params, state, tokens,
+                                        window=window)
+        return torch.argmax(logits, dim=-1).to(torch.int32), state
+
+    return verify
+
+
+def make_paged_verify_step(cfg, *, window: Optional[int] = None, impl=None):
+    """The paged twin of ``make_verify_step``: k positions per lane scored
+    through block tables.  Returns ``step(params, pages, tables, lengths,
+    tokens (n, k)) -> greedy (n, k) int32``; the pages are written in
+    place."""
+
+    @torch.no_grad()
+    def verify(params, pages, tables, lengths, tokens):
+        logits = api.paged_verify_step(cfg, params, pages, tables, lengths,
+                                       tokens, window=window, impl=impl)
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+
+    return verify

@@ -73,6 +73,55 @@ def test_default_device_raises_without_cuda():
         api.init_params(cfg, torch.Generator().manual_seed(0))
 
 
+def _smoke_model():
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    cfg = get_config("qwen3-0.6b", smoke=True)
+    return cfg, api.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+
+
+def _slot_pool(cfg, params):
+    from repro_torch.serving.slots import SlotPool
+    return SlotPool(cfg, 2, 16)
+
+
+def _int8_block_pool(cfg, params):
+    from repro_torch.serving.paging import BlockPool
+    return BlockPool(cfg, 4, 8, kv_dtype="int8")
+
+
+def _engine(**kw):
+    def build(cfg, params):
+        from repro_torch.serving.engine import InferenceEngine
+        return InferenceEngine(cfg, params, capacity=2, max_seq=16, **kw)
+    return build
+
+
+def _spec_backend(inner):
+    def build(cfg, params):
+        from repro_torch.serving.backends import make_backend
+        return make_backend("spec", cfg, 2, 16, draft_cfg=cfg,
+                            draft_params=params, inner=inner)
+    return build
+
+
+@pytest.mark.parametrize("build", [
+    _slot_pool, _int8_block_pool, _engine(backend="slot"),
+    _engine(backend="paged", kv_dtype="int8"),
+    _engine(backend="spec", spec_inner="paged"),
+    _spec_backend("slot"), _spec_backend("paged"),
+], ids=["slot-pool", "int8-block-pool", "slot-engine", "int8-engine",
+        "spec-engine", "spec-backend-slot", "spec-backend-paged"])
+def test_new_entry_points_default_to_cuda(build):
+    """The slot pool, int8 pages and speculative backends of the port
+    default to CUDA like every other entry point, and raise without it."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    cfg, params = _smoke_model()
+    with pytest.raises(RuntimeError, match="cuda"):
+        build(cfg, params)
+
+
 def test_cuda_impl_on_cpu_tensors_raises():
     from repro_torch.kernels import ops
     rng = np.random.default_rng(0)
@@ -87,8 +136,8 @@ def test_cuda_impl_on_cpu_tensors_raises():
 
 
 @pytest.mark.parametrize("kw,match", [
-    ({"backend": "slot"}, "later slice"),
-    ({"backend": "spec"}, "later slice"),
+    ({"backend": "paged", "paged_impl": "fused"}, "later slice"),
+    ({"param_source": object()}, "later slice"),
     ({"bucket_sizes": (8, 16)}, "later slice"),
     ({"tiered_kv": True}, "later slice"),
 ])

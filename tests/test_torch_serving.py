@@ -70,7 +70,7 @@ def served():
     prompts = _prompts(cfg.vocab_size)
     kw = dict(capacity=2, max_seq=48, block_size=8)
     jeng = JEngine(jcfg, jparams, backend="paged", **kw)
-    eng = InferenceEngine(cfg, params, device="cpu", **kw)
+    eng = InferenceEngine(cfg, params, backend="paged", device="cpu", **kw)
     return jeng, _drive(jeng, prompts), eng, _drive(eng, prompts)
 
 
