@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Chip smoke run of the PyTorch port (``src/repro_torch``) on one NVIDIA
-GPU: the quickest proof that the port builds, is right, and serves.
+GPU: the quickest proof that the port builds, is right, serves and trains.
 
     python3 chip_smoke.py
 
@@ -9,8 +9,8 @@ Phases (any failure exits non-zero before the result line):
 1. environment — torch / CUDA versions, the card's name and power limit;
 2. build — every CUDA kernel of the port, from ``src/repro_torch/kernels/
    csrc`` (``paged_attention.cu``: the fp and int8 decode kernels;
-   ``paged_verify.cu``: the verify kernel), with nvcc for sm_90a, one
-   nvcc per source, in parallel;
+   ``paged_verify.cu``: the verify kernel; ``flash_attention.cu``: the
+   flash kernel), with nvcc for sm_90a, one nvcc per source, in parallel;
 3. kernel vs plain — each kernel against its plain PyTorch version at the
    serving shapes of qwen3-0.6b (16 heads, 8 KV heads, head_dim 128,
    block 16; 8 and 32 lanes; ragged lengths up to 4096 with block
@@ -46,7 +46,24 @@ Phases (any failure exits non-zero before the result line):
 8. small float32 engines — paged decode through the kernel and the plain
    version, speculative decode through the verify kernel against plain
    paged greedy, and int8 pages through the int8 kernel and the plain
-   version must each give identical tokens.
+   version must each give identical tokens;
+9. flash kernel vs plain — 16/8 heads, head_dim 128, b 1 and 2, sq = sk
+   in {64, 127, 128, 129, 1000, 2048, 4096} and two sq < sk, causal and
+   not, window 512, bf16 (2e-2) and f32 (2e-5), with the kernel's, the
+   plain version's and SDPA's times (same mask) and the bound;
+10. SHARP training — two full-width qwen3-0.6b TrainJobs (seeds 0 and 1,
+   lr 1e-4 and 3e-4, AdamW, SyntheticTokens batch 2 x seq 1024, 3 steps)
+   through ``Session`` on two virtual devices of 5 GB: at least 3 shards a
+   model, models x steps x 2 x shards units, the ledger never over its
+   budget, and each model's losses equal to plain full-model training on
+   the card (``train_sequential_reference``) at 3e-4;
+11. spilled eval — an ``EvalJob`` of 2 batches over model 0's trained
+   params through the shard queue (2 GB budget), with the flash kernel
+   and with plain attention: the kernel must launch batches x 28 times;
+   one full forward through the kernel, gated against an f32 forward as
+   in phase 5; the kernel's numbers at layer 0's q/k/v of the batch;
+12. one SHARP forward unit and one backward unit (promotion, compute,
+   and for the backward the optimizer step and demotion) profiled.
 
 Each kernel's launch count is zeroed just before the serve run of its own
 path and read just after; the kernel line reports it with the kernel's
@@ -1018,6 +1035,388 @@ def phase_small_f32():
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the flash-attention kernel against its plain version
+# ---------------------------------------------------------------------------
+
+def visible_pairs(sq, sk, causal, window):
+    """(query, key) pairs the mask lets through: key j < sk visible to
+    query i iff j <= i (causal) and j > i - window (window)."""
+    import numpy as np
+    i = np.arange(sq)
+    hi = np.minimum(i, sk - 1) if causal else np.full(sq, sk - 1)
+    lo = np.maximum(0, i - window + 1) if window else np.zeros(sq, int)
+    return int(np.maximum(0, hi - lo + 1).sum())
+
+
+def flash_mask(sq, sk, causal, window, device):
+    import torch
+    qp = torch.arange(sq, device=device)[:, None]
+    kp = torch.arange(sk, device=device)[None, :]
+    mask = torch.ones(sq, sk, dtype=torch.bool, device=device)
+    if causal:
+        mask &= kp <= qp
+    if window:
+        mask &= kp > qp - window
+    return mask
+
+
+def measure_flash(q, k, v, causal, window, dtype_name, flush):
+    """Flash kernel vs plain on one set of layer-layout inputs (q (b, sq,
+    nh, hd), k/v (b, sk, nkv, hd)): error, times, bound.  The library
+    yardstick is SDPA over head-expanded K/V made ahead, with the same
+    mask (``is_causal`` where that mask is the plain causal one)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+
+    b, sq, nh, hd = q.shape
+    sk, nkv = k.shape[1], k.shape[2]
+    with torch.no_grad():
+        out = ops.flash_attention(q, k, v, causal=causal, window=window,
+                                  impl="cuda")
+        exp = ops.flash_attention(q, k, v, causal=causal, window=window,
+                                  impl="ref")
+    torch.cuda.synchronize()
+    diff = (out.float() - exp.float()).abs()
+    tol = TOL[dtype_name]
+    ok = bool((diff <= tol + tol * exp.float().abs()).all())
+    finite = bool(torch.isfinite(out).all())
+    g = nh // nkv
+    qh = q.transpose(1, 2)
+    kh = k.repeat_interleave(g, 2).transpose(1, 2)
+    vh = v.repeat_interleave(g, 2).transpose(1, 2)
+    plain_causal = causal and not window and sq == sk
+    mask = None if plain_causal or (not causal and not window) \
+        else flash_mask(sq, sk, causal, window, q.device)
+
+    def lib():
+        return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
+                                              is_causal=plain_causal)
+
+    with torch.no_grad():
+        lib_err = (lib().transpose(1, 2).float() - exp.float()).abs().max()
+        res = {
+            "max_abs_err": float(diff.max()),
+            "library_max_abs_err": float(lib_err),
+            "within_tol": ok and finite,
+            "ms": cuda_ms(lambda: ops.flash_attention(
+                q, k, v, causal=causal, window=window, impl="cuda"),
+                flush=flush),
+            "plain_ms": cuda_ms(lambda: ops.flash_attention(
+                q, k, v, causal=causal, window=window, impl="ref"),
+                iters=5, flush=flush),
+            "library_ms": cuda_ms(lib, flush=flush),
+        }
+    item = q.element_size()
+    nbytes = (2 * b * sq * nh * hd + 2 * b * sk * nkv * hd) * item
+    flops = 4 * hd * nh * b * visible_pairs(sq, sk, causal, window)
+    res["bound_ms"], res["bound_by"] = bound_ms(nbytes, flops, dtype_name)
+    res["bytes"], res["flops"] = nbytes, flops
+    del kh, vh, mask
+    return res
+
+
+def phase_flash_sweep(flush):
+    import torch
+    cases = [  # b, sq, sk, causal, window, dtype
+        (2, 64, 64, True, None, "bfloat16"),
+        (2, 127, 127, True, None, "bfloat16"),
+        (2, 128, 128, True, None, "bfloat16"),
+        (2, 129, 129, True, None, "bfloat16"),
+        (2, 1000, 1000, True, None, "bfloat16"),
+        (2, 2048, 2048, True, None, "bfloat16"),
+        (2, 4096, 4096, True, None, "bfloat16"),
+        (1, 129, 129, True, None, "float32"),
+        (1, 1000, 1000, True, None, "float32"),
+        (1, 2048, 2048, True, None, "float32"),
+        (1, 1000, 1000, False, None, "bfloat16"),
+        (1, 2048, 2048, False, None, "float32"),
+        (2, 2048, 2048, True, 512, "bfloat16"),
+        (1, 4096, 4096, True, 512, "float32"),
+        (1, 1000, 1000, False, 512, "bfloat16"),
+        (1, 512, 2048, True, None, "bfloat16"),
+        (1, 300, 1000, True, None, "float32"),
+    ]
+    rows = []
+    for i, (b, sq, sk, causal, window, dt) in enumerate(cases):
+        gen = torch.Generator("cuda").manual_seed(100 + i)
+        dtype = getattr(torch, dt)
+        q = torch.randn(b, sq, NH, HD, device="cuda", generator=gen).to(dtype)
+        k = torch.randn(b, sk, NKV, HD, device="cuda",
+                        generator=gen).to(dtype)
+        v = torch.randn(b, sk, NKV, HD, device="cuda",
+                        generator=gen).to(dtype)
+        r = measure_flash(q, k, v, causal, window, dt, flush)
+        r.update(dtype=dt, b=b, sq=sq, sk=sk, causal=causal, window=window)
+        rows.append(r)
+        log(f"[kernel] flash_attention {dt} b={b} sq={sq} sk={sk} "
+            f"causal={causal} window={window}: max_abs_err="
+            f"{r['max_abs_err']:.3g} (tol {TOL[dt]}) ms={r['ms']:.4f} "
+            f"plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f}"
+            f" bound_ms={r['bound_ms']:.4f} ({r['bound_by']})")
+        if not r["within_tol"]:
+            fail(f"flash_attention kernel disagrees with its plain version "
+                 f"({dt}, b={b}, sq={sq}, sk={sk}, causal={causal}, "
+                 f"window={window}): max abs err {r['max_abs_err']}")
+        del q, k, v
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 10-12: SHARP training and spilled eval of full-width qwen3-0.6b
+# ---------------------------------------------------------------------------
+
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 1024, 3
+TRAIN_BUDGET = 5 * 10**9      # per virtual device
+EVAL_BUDGET = 2 * 10**9       # forward-only: cut the model into 2 shards
+EVAL_BATCHES = 2
+SHARP_TOL = 3e-4              # tests/test_orchestrator.py's bound
+
+
+def train_loader(cfg, seed):
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    return SyntheticTokens(DataConfig(batch_size=TRAIN_BATCH,
+                                      seq_len=TRAIN_SEQ,
+                                      vocab_size=cfg.vocab_size, seed=seed))
+
+
+def phase_sharp_train(cfg):
+    """Two full-width qwen3-0.6b TrainJobs (seeds 0 and 1, lr 1e-4 and
+    3e-4, AdamW) through the port's Session on two virtual devices of 5 GB
+    each, 3 steps of batch 2 x 1024 tokens; then each model's plain
+    full-model training on the card.  Gates: >= 3 shards a model, units =
+    models x steps x 2 x shards, the ledger never over its budget, SHARP
+    losses equal to the sequential reference at 3e-4."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import HydraConfig, Session, TrainJob
+    from repro_torch.core.orchestrator import (ModelTask,
+                                               train_sequential_reference)
+
+    lrs = (1e-4, 3e-4)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    session = Session(HydraConfig(n_devices=2,
+                                  device_budget_bytes=TRAIN_BUDGET),
+                      device="cuda")
+    for seed, lr in enumerate(lrs):
+        session.submit(TrainJob(cfg, train_loader(cfg, seed), lr=lr,
+                                optimizer="adamw", epochs=1,
+                                steps_per_epoch=TRAIN_STEPS, seed=seed,
+                                batch=TRAIN_BATCH, seq=TRAIN_SEQ))
+    plan = session.plan()
+    setup_s = time.perf_counter() - t0
+    peak_used = {}
+    for dm in session.devices:       # the ledger's high-water mark
+        def charge(nbytes, *, into_buffer, dm=dm, orig=dm.charge_promotion):
+            orig(nbytes, into_buffer=into_buffer)
+            peak_used[dm.device_id] = max(peak_used.get(dm.device_id, 0),
+                                          dm.used_bytes())
+        dm.charge_promotion = charge
+    t0 = time.perf_counter()
+    report = session.run(plan)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    train = report.train
+    execs = session.train_execs
+    shards = [len(m.partition.shards) for m in execs]
+    promoted = sum(s.promoted_bytes for s in train.transfer.values())
+    res = {"shards": shards,
+           "shard_layers": [[(s.seg_lo, s.seg_hi) for s in m.partition]
+                            for m in execs],
+           "losses": {int(k): v for k, v in train.losses.items()},
+           "units_executed": train.units_executed,
+           "virtual_makespan_s": train.makespan,
+           "avg_utilization": train.avg_utilization,
+           "exposed_transfer_s": train.exposed_transfer_time,
+           "hidden_transfer_s": train.hidden_transfer_time,
+           "setup_s": setup_s, "wall_s": wall,
+           "bytes_promoted": promoted,
+           "effective_h2d_gb_per_s": promoted / wall / 1e9,
+           "trained_tok_per_s": (len(execs) * TRAIN_STEPS * TRAIN_BATCH
+                                 * TRAIN_SEQ / wall),
+           "ledger_peak_bytes": peak_used,
+           "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    log(f"[sharp] 2 x qwen3-0.6b full width, {TRAIN_STEPS} steps of "
+        f"{TRAIN_BATCH}x{TRAIN_SEQ} tokens: shards {shards} "
+        f"{res['shard_layers'][0]}, units {train.units_executed}, virtual "
+        f"makespan {train.makespan:.4f} s, avg utilization "
+        f"{train.avg_utilization:.4f}, wall {wall:.2f} s (setup "
+        f"{setup_s:.2f} s), bytes promoted {promoted} "
+        f"({res['effective_h2d_gb_per_s']:.3f} GB/s over the wall), "
+        f"trained {res['trained_tok_per_s']:.1f} tok/s, ledger peak "
+        f"{peak_used} of {TRAIN_BUDGET}, max_memory_allocated "
+        f"{res['max_memory_allocated']}")
+    if min(shards) < 3:
+        fail(f"SHARP partitioned qwen3-0.6b into {shards} shards at a "
+             f"{TRAIN_BUDGET} B budget; expected at least 3 a model")
+    expect = len(execs) * TRAIN_STEPS * 2 * shards[0]
+    if len(set(shards)) != 1 or train.units_executed != expect:
+        fail(f"SHARP ran {train.units_executed} units; expected models x "
+             f"steps x 2 x shards = {expect}")
+    if max(peak_used.values()) > TRAIN_BUDGET:
+        fail(f"the device ledger went over its budget: {peak_used}")
+
+    refs = {}
+    for seed, lr in enumerate(lrs):
+        _, refs[seed] = train_sequential_reference(
+            ModelTask(cfg, train_loader(cfg, seed), lr=lr, epochs=1,
+                      steps_per_epoch=TRAIN_STEPS, seed=seed,
+                      batch=TRAIN_BATCH, seq=TRAIN_SEQ), device="cuda")
+        torch.cuda.empty_cache()
+    res["sequential_losses"] = refs
+    res["max_abs_loss_diff"] = max(
+        float(np.abs(np.subtract(refs[i], train.losses[i])).max())
+        for i in refs)
+    log(f"[sharp] losses {res['losses']}; sequential reference {refs}; "
+        f"max abs diff {res['max_abs_loss_diff']:.3g} (tol {SHARP_TOL})")
+    for i in refs:
+        if not np.allclose(train.losses[i], refs[i], rtol=SHARP_TOL,
+                           atol=SHARP_TOL):
+            fail(f"model {i}: SHARP losses {train.losses[i]} differ from "
+                 f"sequential training's {refs[i]}")
+    return session, res
+
+
+def layer0_qkv(cfg, params, batch):
+    """Layer 0's roped q, k, v of ``batch`` (bf16, layer layout), as the
+    eval path hands them to the flash kernel."""
+    import torch
+
+    from repro_torch.configs import torch_dtype
+    from repro_torch.core.spilling import to_device
+    from repro_torch.models import layers as nn
+    from repro_torch.models import transformer
+
+    with torch.no_grad():
+        embed = to_device(params["embed"], "cuda")
+        lp = to_device(transformer.layer_slices(params["layers"], 1)[0],
+                       "cuda")
+        x = nn.embed(embed, batch["tokens"], torch_dtype(cfg.dtype))
+        q, k, v = nn._project_qkv(lp["attn"],
+                                  transformer._norm(cfg, lp["attn_norm"], x),
+                                  cfg)
+        pos = torch.arange(x.shape[1], device="cuda")[None, :]
+        return (nn.apply_rope(q, pos, cfg.rope_theta),
+                nn.apply_rope(k, pos, cfg.rope_theta), v)
+
+
+def phase_spilled_eval(cfg, trained, flush):
+    """An EvalJob of 2 batches (2 x 1024) over model 0's trained params,
+    forward-only through the shard queue, once with the flash kernel
+    (attn_impl 'cuda') and once with the default plain attention.  The
+    kernel must launch batches x layers times; one full forward through
+    the kernel may be at most LOGIT_REL x as far from an f32 forward as
+    the plain bf16 forward; and the kernel's numbers at layer 0's q/k/v
+    of the first batch."""
+    import torch
+
+    from repro_torch.api import EvalJob, HydraConfig, Session
+    from repro_torch.core.spilling import to_device
+    from repro_torch.data.pipeline import as_tensors
+    from repro_torch.kernels.flash_attention import flash_attention_bhsd
+    from repro_torch.models import api
+
+    res = {}
+    for impl in ("cuda", "xla"):
+        session = Session(HydraConfig(n_devices=1,
+                                      device_budget_bytes=EVAL_BUDGET),
+                          device="cuda")
+        session.submit(EvalJob(cfg.replace(attn_impl=impl),
+                               train_loader(cfg, 10), n_batches=EVAL_BATCHES,
+                               params=trained, batch=TRAIN_BATCH,
+                               seq=TRAIN_SEQ))
+        session.plan()                          # build stores and shards
+        torch.cuda.synchronize()
+        flash_attention_bhsd.launches = 0
+        t0 = time.perf_counter()
+        ev = session.run().evals["eval-0"]
+        torch.cuda.synchronize()
+        ev["wall_s"] = time.perf_counter() - t0
+        ev["launches"] = flash_attention_bhsd.launches
+        res[impl] = ev
+        log(f"[eval] attn_impl={impl}: {ev['n_shards']} shards, losses "
+            f"{ev['losses']}, mean {ev['mean_loss']:.6f}, perplexity "
+            f"{ev['perplexity']:.3f}, bytes moved {ev['bytes_moved']}, wall "
+            f"{ev['wall_s']:.3f} s, flash launches {ev['launches']}")
+        del session
+    expect = EVAL_BATCHES * cfg.n_layers
+    if res["cuda"]["launches"] != expect:
+        fail(f"flash_attention launched {res['cuda']['launches']} times on "
+             f"the eval path; expected batches x layers = {expect}")
+    if res["xla"]["launches"] != 0:
+        fail("the default attn_impl launched the flash kernel")
+    if res["cuda"]["n_shards"] < 2:
+        fail("the eval ran unspilled (one shard)")
+
+    batch = as_tensors(next(iter(train_loader(cfg, 10))), "cuda")
+    with torch.no_grad():
+        dev_params = to_device(trained, "cuda")
+        cfg32 = cfg.replace(dtype="float32")
+        logits = {
+            "cuda": api.forward(cfg.replace(attn_impl="cuda"), dev_params,
+                                batch),
+            "ref": api.forward(cfg, dev_params, batch),
+            "f32": api.forward(cfg32, dev_params, batch)}
+    res["both_ways"] = logit_gate("one full forward (2 x 1024)", logits)
+    del logits, dev_params
+    torch.cuda.empty_cache()
+    q, k, v = layer0_qkv(cfg, trained, batch)
+    m = measure_flash(q, k, v, True, None, "bfloat16", flush)
+    log(f"[kernel] flash_attention at the eval path's layer 0 q/k/v "
+        f"(b {TRAIN_BATCH}, s {TRAIN_SEQ}, causal): ms={m['ms']:.4f} "
+        f"plain_ms={m['plain_ms']:.4f} library_ms={m['library_ms']:.4f} "
+        f"bound_ms={m['bound_ms']:.4f} ({m['bound_by']}) "
+        f"max_abs_err={m['max_abs_err']:.3g}")
+    if not m["within_tol"]:
+        fail("flash_attention kernel disagrees with its plain version at "
+             "the eval path's inputs")
+    res["main_path_kernel"] = m
+    return res
+
+
+def phase_unit_profiles(session):
+    """One SHARP forward unit and one backward unit of model 0's middle
+    shard, each as the executor runs it (promote; forward — or backward,
+    optimizer step and demote), under the profiler."""
+    import torch
+
+    from repro_torch.data.pipeline import as_tensors
+
+    m = session.train_execs[0]
+    shards = m.partition.shards
+    mid = shards[len(shards) // 2]
+    batch = as_tensors(next(iter(train_loader(m.cfg, 20))), "cuda")
+    act = {}
+    with torch.no_grad():
+        for s in shards[:mid.index]:
+            own, shared, _ = m.store.promote_shard(s)
+            act, _ = m.fns.fwd(s)(own, shared, act, batch)
+    cot = {"x": torch.full_like(act["x"], 1e-3)}
+    entry = act
+
+    def fwd_unit():
+        own, shared, _ = m.store.promote_shard(mid)
+        return m.fns.fwd(mid)(own, shared, entry, batch)
+
+    def bwd_unit():
+        own, shared, opt_state = m.store.promote_shard(mid)
+        g_own, _, g_act = m.fns.bwd(mid)(own, shared, entry, cot, batch)
+        new_own, new_opt = m.fns._step(own, g_own, opt_state)
+        m.store.demote_shard(mid, new_own, new_opt)
+        return g_act
+
+    label = (f"SHARP {{}} unit, qwen3-0.6b shard {mid.index} (layers "
+             f"{mid.seg_lo - 1}..{mid.seg_hi - 2}, "
+             f"{m.store.shard_transfer_bytes(mid)} B promoted)")
+    return {"shard": mid.index,
+            "fwd": profiled(label.format("forward"), fwd_unit),
+            "bwd": profiled(label.format("backward"), bwd_unit)}
+
+
 def kernel_entry(name, source, replaces, launches, m):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -1058,13 +1457,14 @@ def main() -> None:
     report["env"] = {"torch": torch.__version__, "cuda": torch.version.cuda,
                      "device": name, "nvidia_smi": smi}
 
-    # 2. build: paged_attention.cu (fp and int8 entry points) and
-    #    paged_verify.cu, one nvcc each, in parallel
+    # 2. build: paged_attention.cu (fp and int8 entry points),
+    #    paged_verify.cu and flash_attention.cu, one nvcc each, in parallel
     t0 = time.perf_counter()
     kernels.build_all()
     build_s = time.perf_counter() - t0
     log(f"[build] {', '.join(kernels.KERNELS)} (paged_attention_lanes, "
-        f"paged_attention_quant_lanes, paged_verify_lanes) built in "
+        f"paged_attention_quant_lanes, paged_verify_lanes, "
+        f"flash_attention_bhsd) built in "
         f"{build_s:.2f} s (nvcc {_build.nvcc_path()}, sm_90a)")
     for k, text in _build.build_logs.items():
         for line in text.strip().splitlines():
@@ -1184,6 +1584,25 @@ def main() -> None:
 
     # 8. small float32 engines both ways
     report["small_f32"] = phase_small_f32()
+    torch.cuda.empty_cache()
+
+    # 9. the flash kernel against its plain version over its sweep
+    report["flash_sweep"] = phase_flash_sweep(flush)
+    torch.cuda.empty_cache()
+
+    # 10. SHARP training of two full-width models through the Session
+    session, report["sharp_train"] = phase_sharp_train(cfg)
+    torch.cuda.empty_cache()
+
+    # 11. spilled eval of model 0's trained params, kernel and plain
+    report["spilled_eval"] = phase_spilled_eval(
+        cfg, session.train_execs[0].store.model_params(), flush)
+    flash_path = report["spilled_eval"]["main_path_kernel"]
+    torch.cuda.empty_cache()
+
+    # 12. one SHARP forward unit and one backward unit, profiled
+    report["unit_profiles"] = phase_unit_profiles(session)
+    del session
     report["total_s"] = time.perf_counter() - t_start
 
     src = "src/repro_torch/kernels/csrc/"
@@ -1198,6 +1617,10 @@ def main() -> None:
                      src + "paged_attention.cu",
                      "src/repro/kernels/paged_attention.py:164",
                      report["int8_serve"]["launches"], quant_path),
+        kernel_entry("flash_attention_bhsd", src + "flash_attention.cu",
+                     "src/repro/kernels/flash_attention.py:74",
+                     report["spilled_eval"]["cuda"]["launches"],
+                     flash_path),
     ]}
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)

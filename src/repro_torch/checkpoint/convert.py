@@ -15,6 +15,19 @@ from repro_torch import resolve_device
 from repro_torch.configs import torch_dtype
 
 
+# the JAX config's attn_impl spellings -> the port's (configs/base.py):
+# XLA attention is the plain path, either Pallas mode the flash kernel
+_ATTN_IMPLS = {"xla": "xla", "pallas": "cuda", "pallas_interpret": "cuda"}
+
+
+def attn_impl_from_jax(name: str) -> str:
+    """The port's ``attn_impl`` for a JAX ``ArchConfig.attn_impl``."""
+    if name not in _ATTN_IMPLS:
+        raise ValueError(f"attn_impl={name!r}: the JAX package knows "
+                         f"{sorted(_ATTN_IMPLS)}")
+    return _ATTN_IMPLS[name]
+
+
 def _map(tree, fn):
     return {k: _map(v, fn) if isinstance(v, dict) else fn(v)
             for k, v in tree.items()}

@@ -2,6 +2,12 @@
 with the fields the ported families read; the MoE, SSM, hybrid and
 encoder-decoder fields come with those families).
 
+``attn_impl`` follows the port's kernel vocabulary: ``"xla"`` (the
+default, as in the JAX package: plain attention, no kernel) or ``"cuda"``
+(the hand-written flash kernel on the cache-free causal path; on CPU
+tensors its plain version).  ``checkpoint.convert.attn_impl_from_jax``
+maps the JAX spellings onto it.
+
 Dtypes are strings (``"bfloat16"``, ``"float32"``) rather than framework
 dtype objects, so a config means the same thing on both sides of the
 port; ``torch_dtype`` maps a string to the ``torch.dtype`` the code uses.
@@ -14,6 +20,10 @@ from dataclasses import dataclass
 from typing import Optional
 
 import torch
+
+# "xla": plain attention (the JAX package's default spelling, kept so a
+# config means the same on both sides); "cuda": the flash kernel
+ATTN_IMPLS = ("xla", "cuda")
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -40,14 +50,17 @@ class ArchConfig:
     source: str = ""                  # citation (paper / model card)
 
     # attention details
+    causal: bool = True               # False for BERT-style encoders
     qkv_bias: bool = False
     qk_norm: bool = False
     rope_theta: float = 10_000.0
     window: Optional[int] = None      # native sliding window
+    attn_impl: str = "xla"            # xla | cuda (see ATTN_IMPLS)
 
     # norms / mlp family / misc
     norm: str = "rms"                 # rms | layer
     mlp: str = "swiglu"               # swiglu | gelu
+    mlp_bias: bool = False
     tie_embeddings: bool = True
     max_seq_len: int = 524_288
 
@@ -56,9 +69,15 @@ class ArchConfig:
     param_dtype: str = "float32"
     kv_cache_dtype: str = "bfloat16"
 
+    # training
+    remat: bool = True                # activation checkpoint each layer
+
     def __post_init__(self):
         if self.head_dim == 0:
             object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
+        if self.attn_impl not in ATTN_IMPLS:
+            raise ValueError(f"attn_impl={self.attn_impl!r}: expected one "
+                             f"of {ATTN_IMPLS}")
         for f in ("dtype", "param_dtype", "kv_cache_dtype"):
             torch_dtype(getattr(self, f))       # reject unknown names early
 

@@ -1,1 +1,1 @@
-"""Device byte ledger (the SHARP core comes with the training slice)."""
+"""Hydra core: spilling, partitioning, SHARP scheduling and execution."""

@@ -1,0 +1,144 @@
+"""Model-as-a-queue-of-segments: the structural substrate for Hydra (port
+of ``repro.core.shard_graph``, the dense and vlm plans; the other families
+come with their model code).
+
+A *segment* is the finest cut-point granularity (one layer, or the embed /
+head ends).  The partitioner groups contiguous segments into *shards*;
+SHARP schedules *shard units* (forward or backward of one shard on one
+mini-batch).
+
+Two parameter classes:
+
+* **own** params — spillable; live host-side, promoted with their shard,
+  optimizer-stepped right after the shard's backward unit.
+* **shared** params — referenced by more than one segment (the tied
+  embedding table).  One host copy, promoted alongside any shard that
+  references it; gradients accumulate across backward units and step once
+  when the model's mini-batch completes.
+
+Segments pass a dict ``act`` of tensors.
+"""
+
+from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
+from typing import Any, Callable, Optional
+
+import torch
+
+from repro_torch.models import layers as nn
+from repro_torch.models import transformer
+from repro_torch.training.losses import softmax_xent
+from repro_torch.tree import tree_map
+
+Act = Any
+ParamTree = Any
+
+
+@dataclass(frozen=True)
+class Segment:
+    """One cut-point unit of a model.
+
+    apply(cfg, own_params, shared_params: dict, act, batch) -> act
+    """
+    name: str
+    param_ref: Optional[tuple]        # ref for own params (None = stateless)
+    shared: tuple                      # names of shared param groups used
+    apply: Callable[..., Act]
+    flops_weight: float = 1.0          # relative cost hint (pilot fallback)
+
+
+@dataclass
+class ShardPlan:
+    cfg: Any
+    segments: list[Segment]
+    shared_refs: dict[str, tuple]      # name -> ref into the full param tree
+    loss: Callable[..., torch.Tensor]  # loss(cfg, act, batch)
+
+
+# ---------------------------------------------------------------------------
+# param_ref resolution (host trees are dicts of stacked tensors)
+# ---------------------------------------------------------------------------
+
+def resolve_ref(params: ParamTree, ref: Optional[tuple]):
+    """The subtree ``ref`` names; a ``stack_slice`` ref gives views of rows
+    ``[lo, hi)`` of the stacked tensors (no copy)."""
+    if ref is None:
+        return None
+    if len(ref) == 4 and ref[0] == "stack_slice":
+        _, key, lo, hi = ref
+        return tree_map(lambda a: a[lo:hi], params[key])
+    node = params
+    for k in ref:
+        node = node[k]
+    return node
+
+
+def _copy_into(dst: torch.Tensor, src: torch.Tensor) -> None:
+    # a blocking copy: the host tensor is final when this returns
+    dst.copy_(src)
+
+
+def update_with_ref(params: ParamTree, ref: tuple, new_val) -> ParamTree:
+    """Write ``new_val`` back at ``ref`` into the host tree, in place (the
+    host tensors keep their storage, pinned where they were pinned)."""
+    if ref is None:
+        return params
+    if len(ref) == 4 and ref[0] == "stack_slice":
+        _, key, lo, hi = ref
+        tree_map(lambda dst, src: _copy_into(dst[lo:hi], src),
+                 params[key], new_val)
+        return params
+    node = params
+    for k in ref[:-1]:
+        node = node[k]
+    tree_map(_copy_into, node[ref[-1]], new_val)
+    return params
+
+
+# ---------------------------------------------------------------------------
+# family shard plans
+# ---------------------------------------------------------------------------
+
+def _xent_loss(cfg, act, batch):
+    return softmax_xent(act["logits"], batch["labels"])
+
+
+def _dense_plan(cfg) -> ShardPlan:
+    def embed_apply(cfg, own, shared, act, batch):
+        x = transformer.embed_inputs(cfg, {"embed": shared["embed"]}, batch)
+        return {"x": x}
+
+    def layer_apply(cfg, own, shared, act, batch):
+        return {"x": transformer.apply_layer_range(cfg, own, act["x"])}
+
+    def head_apply(cfg, own, shared, act, batch):
+        x = transformer._norm(cfg, own, act["x"])
+        return {"logits": nn.unembed(shared["embed"], x)}
+
+    segs = [Segment("embed", None, ("embed",), embed_apply, 0.1)]
+    for i in range(cfg.n_layers):
+        segs.append(Segment(f"layer{i}", ("stack_slice", "layers", i, i + 1),
+                            (), layer_apply))
+    segs.append(Segment("head", ("final_norm",), ("embed",), head_apply, 0.5))
+    return ShardPlan(cfg, segs, {"embed": ("embed",)}, _xent_loss)
+
+
+def prepare_host_params(cfg, params) -> ParamTree:
+    """Family-specific host-tree tweaks (none for the dense families)."""
+    return dict(params)
+
+
+def restore_model_params(cfg, host_params) -> ParamTree:
+    """Inverse of prepare_host_params (for checkpoint / reference compare)."""
+    return dict(host_params)
+
+
+@functools.lru_cache(maxsize=None)
+def build_plan(cfg) -> ShardPlan:
+    if cfg.family in ("dense", "vlm"):
+        return _dense_plan(cfg)
+    raise NotImplementedError(
+        f"{cfg.name} ({cfg.family}): the shard plan of this family comes "
+        "with its model code in a later slice of the port")

@@ -1,28 +1,255 @@
-"""Device byte ledger (port of ``repro.core.spilling``, ``DeviceMemory``
-only).
+"""Model spilling (paper §4.2): shard-granular promotion/demotion between
+device memory and host DRAM, with byte accounting per virtual device
+(port of ``repro.core.spilling``).
 
-The JAX package's ledger charges four terms against one device budget:
-promoted shards, the double-buffer loading zone, serving KV pages and
-hot serve weights.  The port's serving slice charges only the KV-page
-term; the shard terms, the host model store and the tiered (host-DRAM)
-KV moves come with the SHARP and tiering slices.
+The host store keeps every model's master copy — params and optimizer
+state — as CPU tensors; for a CUDA device they live in pinned memory, and
+promotion copies them to the card with ``non_blocking=True`` on the
+current stream (compute queued after the copy on that stream waits for
+it), while demotion copies back with a blocking copy into the same pinned
+tensors.  Promotion always makes new tensors, on the CPU too, where
+``.to("cpu")`` alone would return the host tensor itself: nothing a unit
+does to its promoted shard can reach the master copy except ``demote``.
+
+Layout of the host store per model:
+    params:      family host tree (prepare_host_params applied)
+    opt:         {shard_index: opt-state tree}  (own params)
+    shared_opt:  {name: opt-state tree}         (shared params)
+
+``DeviceMemory`` is the byte ledger of one virtual device: promoted
+shards, the double-buffer loading zone, serving KV pages and serve-weight
+residency, all against one budget.  The SHARP executor charges virtual
+transfer time = bytes / ``link_bw`` against the device timeline.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+from typing import Any
+
+from repro_torch import resolve_device
+from repro_torch.core import shard_graph as sg
+from repro_torch.core.partitioner import PartitionResult, Shard, tree_bytes
+from repro_torch.tree import tree_map
+
+
+def to_host(tree, pin: bool = False):
+    """A CPU copy of every tensor of ``tree`` (pinned when ``pin``)."""
+    def copy(t):
+        t = t.detach().to("cpu", copy=True)
+        return t.pin_memory() if pin else t
+    return tree_map(copy, tree)
+
+
+def to_device(tree, device):
+    """A copy of every tensor of ``tree`` on ``device``: asynchronous on
+    the current stream from pinned host memory to a CUDA device, and a
+    fresh tensor on the CPU as well."""
+    return tree_map(lambda t: t.to(device, non_blocking=True, copy=True),
+                    tree)
+
+
+@dataclass
+class TransferStats:
+    promoted_bytes: int = 0
+    demoted_bytes: int = 0
+    n_promotions: int = 0
+    n_demotions: int = 0
+    act_bytes_moved: int = 0
+
+    def total_bytes(self) -> int:
+        return self.promoted_bytes + self.demoted_bytes + self.act_bytes_moved
+
+
+class HostModelStore:
+    """DRAM-resident master copy of one model (params + optimizer state),
+    promoted to ``device`` shard by shard."""
+
+    def __init__(self, cfg, plan: sg.ShardPlan, params, opt_cfg,
+                 partition: PartitionResult, device="cuda"):
+        from repro_torch.optim import optimizers as opt
+        self.device = resolve_device(device)
+        pin = self.device.type == "cuda"
+        self.cfg = cfg
+        self.plan = plan
+        self.partition = partition
+        self.params = sg.prepare_host_params(cfg, to_host(params, pin))
+        self.opt_cfg = opt_cfg
+        self.opt: dict[int, Any] = {}
+        for shard in partition.shards:
+            own = self._own_params(shard)
+            self.opt[shard.index] = to_host(opt.init_state(opt_cfg, own), pin)
+        self.shared_opt = {
+            name: to_host(opt.init_state(
+                opt_cfg, sg.resolve_ref(self.params, ref)), pin)
+            for name, ref in plan.shared_refs.items()}
+        # accumulated grads for shared params within the current mini-batch
+        self.shared_grad_acc: dict[str, Any] = {}
+
+    # -- own (spillable) ---------------------------------------------------
+    def _own_params(self, shard: Shard):
+        return tuple(sg.resolve_ref(self.params,
+                                    self.plan.segments[i].param_ref)
+                     for i in range(shard.seg_lo, shard.seg_hi))
+
+    def _shared_params(self, shard: Shard) -> dict:
+        return {n: to_device(sg.resolve_ref(self.params,
+                                            self.plan.shared_refs[n]),
+                             self.device)
+                for n in self.shard_shared_names(shard)}
+
+    def promote_shard(self, shard: Shard):
+        """Host -> device: (own_params, shared_params, opt_state)."""
+        own = to_device(self._own_params(shard), self.device)
+        opt_state = to_device(self.opt[shard.index], self.device)
+        return own, self._shared_params(shard), opt_state
+
+    def promote_shard_params(self, shard: Shard):
+        """Host -> device, weights only (no optimizer state)."""
+        return to_device(self._own_params(shard), self.device), \
+            self._shared_params(shard)
+
+    def demote_shard(self, shard: Shard, own, opt_state):
+        """Device -> host: write back possibly-updated params + opt state."""
+        for k, i in enumerate(range(shard.seg_lo, shard.seg_hi)):
+            ref = self.plan.segments[i].param_ref
+            if ref is not None and own[k] is not None:
+                sg.update_with_ref(self.params, ref, own[k])
+        tree_map(lambda dst, src: dst.copy_(src), self.opt[shard.index],
+                 opt_state)
+
+    def shard_shared_names(self, shard: Shard) -> list[str]:
+        names: list[str] = []
+        for i in range(shard.seg_lo, shard.seg_hi):
+            for n in self.plan.segments[i].shared:
+                if n not in names:
+                    names.append(n)
+        return names
+
+    # -- shared ------------------------------------------------------------
+    def accumulate_shared_grads(self, grads: dict[str, Any]):
+        """Sum shared-param grads on the host across the mini-batch's
+        backward units."""
+        for name, g in grads.items():
+            if g is None:
+                continue
+            if name in self.shared_grad_acc:
+                self.shared_grad_acc[name] = tree_map(
+                    lambda a, b: a + b.to("cpu"),
+                    self.shared_grad_acc[name], g)
+            else:
+                self.shared_grad_acc[name] = to_host(g)
+
+    def step_shared(self):
+        """Apply accumulated shared-param grads (mini-batch boundary)."""
+        from repro_torch.optim import optimizers as opt
+        for name, g in self.shared_grad_acc.items():
+            ref = self.plan.shared_refs[name]
+            p = to_device(sg.resolve_ref(self.params, ref), self.device)
+            s = to_device(self.shared_opt[name], self.device)
+            new_p, new_s = opt.update(self.opt_cfg, p,
+                                      to_device(g, self.device), s)
+            sg.update_with_ref(self.params, ref, new_p)
+            tree_map(lambda dst, src: dst.copy_(src), self.shared_opt[name],
+                     new_s)
+        self.shared_grad_acc = {}
+
+    # -- sizes --------------------------------------------------------------
+    def shard_transfer_bytes(self, shard: Shard, *, train: bool = True) -> int:
+        own_b = sum(tree_bytes(p) for p in self._own_params(shard)
+                    if p is not None)
+        shared_b = sum(
+            tree_bytes(sg.resolve_ref(self.params, self.plan.shared_refs[n]))
+            for n in self.shard_shared_names(shard))
+        opt_b = tree_bytes(self.opt[shard.index]) if train else 0
+        return own_b + shared_b + opt_b
+
+    def model_params(self):
+        """Reassembled full param tree (reference comparisons/checkpoints)."""
+        return sg.restore_model_params(self.cfg, self.params)
+
 
 class DeviceMemory:
-    """KV-page byte accounting for one device."""
+    """Budget + double-buffer + KV-page accounting for one virtual device.
 
-    def __init__(self, device_id: int, budget_bytes: int):
+    One ledger, four charges against the same byte budget: promoted shard
+    residency (``resident_bytes``), the double-buffer loading zone
+    (``buffered_bytes``), serving KV-page reservations
+    (``kv_reserved_bytes`` — charged by page-granular admission in
+    ``repro_torch.serving``), and persistent serve-side weight residency
+    (``weight_resident_bytes``).  The JAX package's tiered terms (KV pages
+    parked in host DRAM, pressure-driven demotion) come with the tiering
+    slice of the port.
+    """
+
+    def __init__(self, device_id: int, budget_bytes: int,
+                 buffer_frac: float = 0.05):
         self.device_id = device_id
         self.budget = budget_bytes
+        self.buffer_budget = int(budget_bytes * buffer_frac)
+        self.resident_bytes = 0
+        self.buffered_bytes = 0
         self.kv_reserved_bytes = 0
         self.kv_peak_bytes = 0
+        self.weight_resident_bytes = 0
+        self.stats = TransferStats()
 
     def used_bytes(self) -> int:
-        return self.kv_reserved_bytes
+        return (self.resident_bytes + self.buffered_bytes
+                + self.kv_reserved_bytes + self.weight_resident_bytes)
 
+    def _check_budget(self) -> None:
+        # a real error, not an assert: budget enforcement is a correctness
+        # invariant that must survive `python -O`
+        if self.used_bytes() > self.budget:
+            raise RuntimeError(
+                f"device {self.device_id} over budget: "
+                f"{self.used_bytes()/1e9:.3f} GB > {self.budget/1e9:.3f} GB "
+                f"(resident {self.resident_bytes/1e9:.3f} GB, double-buffer "
+                f"{self.buffered_bytes/1e9:.3f} GB, kv pages "
+                f"{self.kv_reserved_bytes/1e9:.3f} GB, serve weights "
+                f"{self.weight_resident_bytes/1e9:.3f} GB)")
+
+    def charge_promotion(self, nbytes: int, *, into_buffer: bool):
+        if into_buffer:
+            self.buffered_bytes += nbytes
+        else:
+            self.resident_bytes += nbytes
+        self.stats.promoted_bytes += nbytes
+        self.stats.n_promotions += 1
+        self._check_budget()
+
+    def promote_through_buffer(self, nbytes: int, *,
+                               double_buffer: bool = True) -> None:
+        """The SHARP promotion pattern: land the shard in the loading zone,
+        then flip it into the active region."""
+        self.charge_promotion(nbytes, into_buffer=double_buffer)
+        if double_buffer:
+            self.activate_buffer()
+
+    # -- serve weights (shard-granular residency) ---------------------------
+    def reserve_weights(self, nbytes: int) -> bool:
+        """Charge persistent hot-shard residency for a served model; False
+        when it does not fit."""
+        if self.used_bytes() + nbytes > self.budget:
+            return False
+        self.weight_resident_bytes += nbytes
+        self.stats.promoted_bytes += nbytes
+        self.stats.n_promotions += 1
+        return True
+
+    def release_weights(self, nbytes: int) -> None:
+        """Demote hot serve shards back to the host store."""
+        if nbytes > self.weight_resident_bytes:
+            raise RuntimeError(
+                f"device {self.device_id}: release_weights({nbytes}) exceeds "
+                f"the {self.weight_resident_bytes} B of serve-weight "
+                "residency — release without a matching reserve")
+        self.weight_resident_bytes -= nbytes
+        self.stats.demoted_bytes += nbytes
+        self.stats.n_demotions += 1
+
+    # -- serving KV pages ----------------------------------------------------
     def can_reserve_kv(self, nbytes: int) -> bool:
         return self.used_bytes() + nbytes <= self.budget
 
@@ -42,3 +269,17 @@ class DeviceMemory:
                 f"{self.kv_reserved_bytes} B reserved — release without a "
                 "matching reserve")
         self.kv_reserved_bytes -= nbytes
+
+    # -- shard residency -----------------------------------------------------
+    def activate_buffer(self):
+        """Promote the double-buffered shard to the active region."""
+        self.resident_bytes += self.buffered_bytes
+        self.buffered_bytes = 0
+
+    def charge_demotion(self, nbytes: int):
+        self.resident_bytes = max(0, self.resident_bytes - nbytes)
+        self.stats.demoted_bytes += nbytes
+        self.stats.n_demotions += 1
+
+    def charge_act(self, nbytes: int):
+        self.stats.act_bytes_moved += nbytes

@@ -2,7 +2,7 @@
 (``ref``), and the public entry points (``ops``)."""
 
 # every CUDA kernel source under csrc/, built together by build_all()
-KERNELS = ("paged_attention", "paged_verify")
+KERNELS = ("paged_attention", "paged_verify", "flash_attention")
 
 
 def build_all() -> None:

@@ -11,6 +11,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.flash_attention import (flash_attention_bhsd,
+                                                 refuse_grad)
 from repro_torch.kernels.paged_attention import (paged_attention_lanes,
                                                  paged_attention_quant_lanes)
 from repro_torch.kernels.paged_verify import paged_verify_lanes
@@ -22,6 +24,24 @@ def default_paged_impl(device) -> str:
     """Engine-facing policy: the CUDA kernel on a CUDA device, the plain
     version on the CPU."""
     return "cuda" if torch.device(device).type == "cuda" else "ref"
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window=None,
+                    impl=None):
+    """Flash attention in the layer layout: q (b, sq, nh, hd), k/v (b, sk,
+    nkv, hd) -> (b, sq, nh, hd).  The kernel reads these through
+    transposed views (strides), so no transposed copy is made.  Forward
+    only, on every device and with either ``impl``: inputs that need a
+    gradient raise, as the JAX package cannot differentiate the TPU
+    kernel.  ``impl``: 'cuda' | 'ref' | None (by device)."""
+    refuse_grad(q, k, v)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    if _impl("flash_attention", impl, q) == "ref":
+        out = ref.flash_attention_ref(qt, kt, vt, causal=causal,
+                                      window=window)
+    else:
+        out = flash_attention_bhsd(qt, kt, vt, causal=causal, window=window)
+    return out.transpose(1, 2)
 
 
 def paged_attention(q, k_pages, v_pages, tables, lengths, *, window=None,

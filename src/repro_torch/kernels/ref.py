@@ -11,6 +11,32 @@ import torch
 NEG_INF = -1e30
 
 
+def flash_attention_ref(q, k, v, *, causal: bool = True, window=None):
+    """Plain GQA attention, the function ``flash_attention_bhsd`` computes.
+
+    q: (b, nh, sq, hd); k/v: (b, nkv, sk, hd).  Query and key positions
+    both start at 0 (for ``sq != sk`` the causal diagonal is top-left);
+    key ``j`` is visible to query ``i`` iff ``j <= i`` (causal) and ``j >
+    i - window`` (window).  f32 logits, masked to -1e30, f32 softmax.
+    Returns (b, nh, sq, hd) in q's dtype."""
+    b, nh, sq, hd = q.shape
+    nkv, sk = k.shape[1], k.shape[2]
+    groups = nh // nkv
+    qg = q.reshape(b, nkv, groups, sq, hd).float()
+    logits = torch.einsum("bkgqh,bksh->bkgqs", qg, k.float()) / math.sqrt(hd)
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgqs,bksh->bkgqh", probs, v.float())
+    return out.reshape(b, nh, sq, hd).to(q.dtype)
+
+
 def paged_attention_ref(q, k_pages, v_pages, tables, lengths, *, window=None):
     """Gather-based single-token paged attention.
 

@@ -1,1 +1,1 @@
-"""Model families of the port (dense decoder so far)."""
+"""Model families of the port (the dense family so far)."""

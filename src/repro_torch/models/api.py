@@ -1,5 +1,6 @@
 """Unified model API: dispatch on ``cfg.family`` through the FamilySpec
-registry (port of ``repro.models.api``, serving subset)."""
+registry (port of ``repro.models.api``; no ``input_specs``, which only
+the JAX dry-run reads)."""
 
 from __future__ import annotations
 
@@ -18,6 +19,33 @@ def family_module(cfg):
 
 def init_params(cfg, generator, device="cuda"):
     return family_module(cfg).init_params(cfg, generator, device)
+
+
+def forward(cfg, params, batch, *, window: Optional[int] = None,
+            last_only: bool = False):
+    return family_module(cfg).forward(cfg, params, batch, window=window,
+                                      last_only=last_only)
+
+
+def param_count(params) -> int:
+    def count(tree):
+        return sum(count(v) if isinstance(v, dict) else v.numel()
+                   for v in tree.values())
+    return count(params)
+
+
+def make_dummy_batch(cfg, batch_size: int, seq_len: int, generator=None,
+                     device="cuda"):
+    """Random ``{"tokens", "labels"}`` int64 batch on ``device`` (smoke
+    runs).  Its numbers differ from the JAX package's for the same seed;
+    parity tests feed both sides ``data.pipeline.SyntheticTokens``."""
+    device = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device).manual_seed(0)
+    def draw():
+        return torch.randint(0, cfg.vocab_size, (batch_size, seq_len),
+                             generator=generator, device=device)
+    return {"tokens": draw(), "labels": draw()}
 
 
 def prepare_params(cfg, params, device="cuda"):

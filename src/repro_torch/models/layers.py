@@ -1,4 +1,6 @@
-"""Core layers, dense subset (port of ``repro.models.layers``).
+"""Core layers, dense subset (port of ``repro.models.layers``): RMSNorm
+and layer norm, RoPE, GQA attention (cache-free, contiguous-cache and
+paged), SwiGLU and GELU MLPs, embedding and tied LM head.
 
 Plain functions over tensors: every layer is an ``init_*`` returning a
 param dict plus an apply function taking ``(params, inputs, cfg)``.  The
@@ -59,6 +61,20 @@ def rms_norm(params: Params, x: torch.Tensor, eps: float = 1e-6):
     var = x32.square().mean(dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)
     return (y * params["scale"].float()).to(dtype)
+
+
+def init_layernorm(d: int, dtype, device, lead=()) -> Params:
+    return {"scale": torch.ones((*lead, d), dtype=dtype, device=device),
+            "bias": torch.zeros((*lead, d), dtype=dtype, device=device)}
+
+
+def layer_norm(params: Params, x: torch.Tensor, eps: float = 1e-5):
+    dtype = x.dtype
+    x32 = x.float()
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = x32.var(dim=-1, unbiased=False, keepdim=True)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * params["scale"].float() + params["bias"].float()).to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -152,11 +168,20 @@ def _sdpa_dense(q, k, v, scale, qpos, kpos, causal, window):
 
 def sdpa(q, k, v, *, causal: bool, window: Optional[int] = None,
          q_positions: Optional[torch.Tensor] = None,
-         kv_positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Scaled dot-product attention with GQA broadcast (plain products).
+         kv_positions: Optional[torch.Tensor] = None,
+         impl: str = "xla") -> torch.Tensor:
+    """Scaled dot-product attention with GQA broadcast.
 
     q: (b, sq, nh, hd); k/v: (b, skv, nkv, hd).  nh % nkv == 0.
-    ``q_positions`` is (sq,), or (b, sq) when each lane has its own."""
+    ``q_positions`` is (sq,), or (b, sq) when each lane has its own.
+    ``impl='cuda'`` takes the flash kernel (``kernels.ops.flash_attention``:
+    the CUDA kernel on CUDA tensors, its plain version on the CPU) exactly
+    when the JAX package takes its Pallas kernel: causal and ``sq > 1``,
+    with positions from 0.  Otherwise plain products, query-chunked above
+    ``_SDPA_CHUNK_ELEMS`` score elements."""
+    if impl == "cuda" and causal and q.shape[1] > 1:
+        from repro_torch.kernels import ops as kops
+        return kops.flash_attention(q, k, v, causal=True, window=window)
     b, sq, nh, hd = q.shape
     skv, nkv = k.shape[1], k.shape[2]
     groups = nh // nkv
@@ -175,11 +200,15 @@ def sdpa(q, k, v, *, causal: bool, window: Optional[int] = None,
     return torch.cat(outs, dim=1).reshape(b, sq, nh, hd).to(q.dtype)
 
 
-def attention(params: Params, x: torch.Tensor, cfg, kv_cache: dict, *,
-              positions: torch.Tensor, window: Optional[int] = None):
-    """Causal self-attention over a contiguous KV cache (the serving
-    branch of the JAX ``attention``; the cache-free training branch comes
-    with the training slice).  Returns (out, kv_cache).
+def attention(params: Params, x: torch.Tensor, cfg,
+              kv_cache: Optional[dict] = None, *,
+              positions: Optional[torch.Tensor] = None, causal: bool = True,
+              window: Optional[int] = None, impl: str = "xla"):
+    """Self-attention layer.  Returns (out, kv_cache).
+
+    Without a cache (forward, training, eval): positions default to
+    arange, attention is ``causal`` or not, and ``impl`` routes ``sdpa``
+    (the returned cache is None).
 
     kv_cache: {"k": (b, max_s, nkv, hd), "v": ..., "index": int or (b,)
     int64 tensor} — this chunk's rows are written at ``index`` IN PLACE
@@ -190,8 +219,14 @@ def attention(params: Params, x: torch.Tensor, cfg, kv_cache: dict, *,
     the write start is clamped so the chunk fits the cache."""
     b, sq, _ = x.shape
     q, k, v = _project_qkv(params, x, cfg)
+    if positions is None:
+        positions = torch.arange(sq, device=x.device)[None, :].expand(b, sq)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
+    if kv_cache is None:
+        out = sdpa(q, k, v, causal=causal, window=window, impl=impl)
+        out = out.reshape(b, sq, cfg.n_heads * cfg.head_dim)
+        return out @ params["wo"].to(x.dtype), None
     idx = kv_cache["index"]
     ck, cv = kv_cache["k"], kv_cache["v"]
     steps = torch.arange(sq, device=x.device)
@@ -342,6 +377,25 @@ def swiglu(params: Params, x: torch.Tensor) -> torch.Tensor:
     g = x @ params["w_gate"].to(dt)
     u = x @ params["w_up"].to(dt)
     return (F.silu(g) * u) @ params["w_down"].to(dt)
+
+
+def init_gelu_mlp(generator, cfg, device, lead=()) -> Params:
+    d, f = cfg.d_model, cfg.d_ff
+    pdt = torch_dtype(cfg.param_dtype)
+    return {
+        "w_in": dense_init(generator, (*lead, d, f), d, pdt, device),
+        "b_in": torch.zeros((*lead, f), dtype=pdt, device=device),
+        "w_out": dense_init(generator, (*lead, f, d), f, pdt, device),
+        "b_out": torch.zeros((*lead, d), dtype=pdt, device=device),
+    }
+
+
+def gelu_mlp(params: Params, x: torch.Tensor) -> torch.Tensor:
+    # tanh approximation: jax.nn.gelu's default
+    dt = x.dtype
+    h = F.gelu(x @ params["w_in"].to(dt) + params["b_in"].to(dt),
+               approximate="tanh")
+    return h @ params["w_out"].to(dt) + params["b_out"].to(dt)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
-"""Dense decoder-only transformer, serving subset (port of
-``repro.models.transformer``).
+"""Dense transformer: RMSNorm/SwiGLU decoders (qwen-class) and layer-norm
+/GELU encoders (BERT*-class), port of ``repro.models.transformer``.
 
 Param tree layout, the same as the JAX package's (Hydra shards over the
 leading ``layers`` axis):
@@ -8,24 +8,18 @@ leading ``layers`` axis):
      "final_norm": {"scale": (d,)}}
 
 The JAX package scans the stacked layers; here a Python loop walks them,
-taking each layer's slice as a view.
+taking each layer's slice as a view.  ``apply_layer_range`` applies a
+contiguous slice of layers — the primitive Hydra's shard units execute.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs import torch_dtype
 from repro_torch.models import layers as nn
-
-
-def _require_dense_rms_swiglu(cfg) -> None:
-    if cfg.norm != "rms" or cfg.mlp != "swiglu":
-        raise NotImplementedError(
-            f"{cfg.name}: norm={cfg.norm!r}, mlp={cfg.mlp!r} — the port has "
-            "only RMSNorm + SwiGLU decoders so far (layer norm and GELU "
-            "come with the bert-style configs)")
 
 
 def init_params(cfg, generator: torch.Generator, device="cuda"):
@@ -33,20 +27,21 @@ def init_params(cfg, generator: torch.Generator, device="cuda"):
     ``device``), laid out as the JAX package lays them out.  The numbers
     differ from JAX's for the same seed; parity tests carry JAX's
     parameters across with ``checkpoint.convert.params_from_numpy``."""
-    _require_dense_rms_swiglu(cfg)
     device = resolve_device(device)
     pdt = torch_dtype(cfg.param_dtype)
     L = (cfg.n_layers,)
+    norm_init = nn.init_rmsnorm if cfg.norm == "rms" else nn.init_layernorm
+    mlp_init = nn.init_swiglu if cfg.mlp == "swiglu" else nn.init_gelu_mlp
     return {
         "embed": nn.init_embedding(generator, cfg.vocab_size, cfg.d_model,
                                    pdt, device),
         "layers": {
-            "attn_norm": nn.init_rmsnorm(cfg.d_model, pdt, device, L),
+            "attn_norm": norm_init(cfg.d_model, pdt, device, L),
             "attn": nn.init_attention(generator, cfg, device, L),
-            "mlp_norm": nn.init_rmsnorm(cfg.d_model, pdt, device, L),
-            "mlp": nn.init_swiglu(generator, cfg, device, L),
+            "mlp_norm": norm_init(cfg.d_model, pdt, device, L),
+            "mlp": mlp_init(generator, cfg, device, L),
         },
-        "final_norm": nn.init_rmsnorm(cfg.d_model, pdt, device),
+        "final_norm": norm_init(cfg.d_model, pdt, device),
     }
 
 
@@ -56,6 +51,64 @@ def layer_slices(stacked: dict, n_layers: int) -> list[dict]:
         return {k: take(v, i) if isinstance(v, dict) else v[i]
                 for k, v in tree.items()}
     return [take(stacked, i) for i in range(n_layers)]
+
+
+def _norm(cfg, p, x):
+    return nn.rms_norm(p, x) if cfg.norm == "rms" else nn.layer_norm(p, x)
+
+
+def _mlp(cfg, p, x):
+    return nn.swiglu(p, x) if cfg.mlp == "swiglu" else nn.gelu_mlp(p, x)
+
+
+def _n_stacked(stacked: dict) -> int:
+    leaf = stacked
+    while isinstance(leaf, dict):
+        leaf = next(iter(leaf.values()))
+    return leaf.shape[0]
+
+
+def apply_layer(cfg, lp, x, *, window=None, positions=None, impl=None):
+    """One pre-norm transformer block (cache-free). x: (b, s, d)."""
+    h, _ = nn.attention(lp["attn"], _norm(cfg, lp["attn_norm"], x), cfg,
+                        positions=positions, causal=cfg.causal,
+                        window=window if window is not None else cfg.window,
+                        impl=impl or cfg.attn_impl)
+    x = x + h
+    return x + _mlp(cfg, lp["mlp"], _norm(cfg, lp["mlp_norm"], x))
+
+
+def embed_inputs(cfg, params, batch):
+    return nn.embed(params["embed"], batch["tokens"], torch_dtype(cfg.dtype))
+
+
+def apply_layer_range(cfg, stacked_slice, x, *, window=None, remat=None):
+    """Apply a contiguous slice of stacked layer params (Hydra shard
+    unit).  ``remat`` (default ``cfg.remat``) checkpoints each layer when
+    autograd records: its activations are recomputed in the backward
+    instead of kept, which changes memory, not numbers."""
+    remat = cfg.remat if remat is None else remat
+    for lp in layer_slices(stacked_slice, _n_stacked(stacked_slice)):
+        if remat and torch.is_grad_enabled():
+            x = checkpoint(lambda lp_, h: apply_layer(cfg, lp_, h,
+                                                      window=window),
+                           lp, x, use_reentrant=False)
+        else:
+            x = apply_layer(cfg, lp, x, window=window)
+    return x
+
+
+def forward(cfg, params, batch, *, window=None, last_only=False):
+    """Full forward to logits. batch: {"tokens": (b, s) int64 tensor}.
+
+    ``last_only``: unembed only the final position; the (b, s, V) logits
+    tensor is never made."""
+    x = embed_inputs(cfg, params, batch)
+    x = apply_layer_range(cfg, params["layers"], x, window=window)
+    if last_only:
+        x = x[:, -1:]
+    x = _norm(cfg, params["final_norm"], x)
+    return nn.unembed(params["embed"], x)
 
 
 def _chunk_positions(index, b: int, sq: int, device) -> torch.Tensor:
@@ -73,11 +126,11 @@ def apply_layer_decode(cfg, lp, x, cache, *, window=None):
     positions = _chunk_positions(cache["index"], x.shape[0], x.shape[1],
                                  x.device)
     h, new_cache = nn.attention(
-        lp["attn"], nn.rms_norm(lp["attn_norm"], x), cfg, cache,
+        lp["attn"], _norm(cfg, lp["attn_norm"], x), cfg, cache,
         positions=positions,
         window=window if window is not None else cfg.window)
     x = x + h
-    return x + nn.swiglu(lp["mlp"], nn.rms_norm(lp["mlp_norm"], x)), \
+    return x + _mlp(cfg, lp["mlp"], _norm(cfg, lp["mlp_norm"], x)), \
         new_cache
 
 
@@ -93,14 +146,13 @@ def decode_step(cfg, params, state, tokens, *, window=None):
     The index is an int for a batch that shares one (prefill), or a (b,)
     int64 tensor with one per lane (the slot pool, where the JAX package
     vmaps the step over batch-1 states)."""
-    _require_dense_rms_swiglu(cfg)
     x = nn.embed(params["embed"], tokens, torch_dtype(cfg.dtype))
     kv = state["kv"]
     for lp, k_l, v_l in zip(layer_slices(params["layers"], cfg.n_layers),
                             kv["k"], kv["v"]):
         cache = {"k": k_l, "v": v_l, "index": kv["index"]}
         x, _ = apply_layer_decode(cfg, lp, x, cache, window=window)
-    x = nn.rms_norm(params["final_norm"], x)
+    x = _norm(cfg, params["final_norm"], x)
     logits = nn.unembed(params["embed"], x)
     new_state = {"kv": {"k": kv["k"], "v": kv["v"],
                         "index": kv["index"] + tokens.shape[1]}}
@@ -112,13 +164,12 @@ def _paged_layers(cfg, params, pages, tokens, attend):
     layer pages)`` as its attention block, and unembed.  Each layer's
     pages are views of the stacked planes (k, v and, for int8 pools,
     k_scale, v_scale), written in place."""
-    _require_dense_rms_swiglu(cfg)
     x = nn.embed(params["embed"], tokens, torch_dtype(cfg.dtype))
     for i, lp in enumerate(layer_slices(params["layers"], cfg.n_layers)):
         pg = {name: plane[i] for name, plane in pages.items()}
-        x = x + attend(lp["attn"], nn.rms_norm(lp["attn_norm"], x), pg)
-        x = x + nn.swiglu(lp["mlp"], nn.rms_norm(lp["mlp_norm"], x))
-    x = nn.rms_norm(params["final_norm"], x)
+        x = x + attend(lp["attn"], _norm(cfg, lp["attn_norm"], x), pg)
+        x = x + _mlp(cfg, lp["mlp"], _norm(cfg, lp["mlp_norm"], x))
+    x = _norm(cfg, params["final_norm"], x)
     return nn.unembed(params["embed"], x)
 
 

@@ -1,1 +1,1 @@
-"""Step factories (serving half so far)."""
+"""Train and serve step factories, and the loss."""

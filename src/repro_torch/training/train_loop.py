@@ -1,5 +1,11 @@
-"""Serving-step factories (port of ``repro.training.train_loop``, serving
-half; the train step comes with the SHARP slice)."""
+"""Train-step and serving-step factories (port of
+``repro.training.train_loop``).
+
+``make_train_step(cfg, opt_cfg)`` returns ``step(params, opt_state,
+batch) -> (params, opt_state, metrics)``: gradients by autograd over the
+whole model, then one optimizer update that returns new tensors.  The
+serving factories run under ``torch.no_grad``.
+"""
 
 from __future__ import annotations
 
@@ -8,6 +14,74 @@ from typing import Optional
 import torch
 
 from repro_torch.models import api, registry
+from repro_torch.optim import optimizers as opt
+from repro_torch.training.losses import softmax_xent
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten_like
+
+
+def make_loss_fn(cfg, *, window: Optional[int] = None):
+    """``loss_fn(params, batch) -> (loss, metrics)``."""
+
+    def loss_fn(params, batch):
+        logits = api.forward(cfg, params, batch, window=window)
+        loss = softmax_xent(logits, batch["labels"])
+        return loss, {"loss": loss, "xent": loss}
+
+    return loss_fn
+
+
+def _value_and_grad(loss_fn, params, batch):
+    """``(loss, metrics), grads`` of ``loss_fn`` at ``params`` (grads in the
+    params' tree structure; a leaf the loss does not read gets zeros)."""
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    with torch.enable_grad():
+        loss, metrics = loss_fn(tree_unflatten_like(params, leaves), batch)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(leaves, grads)]
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    return (loss.detach(), metrics), tree_unflatten_like(params, grads)
+
+
+def make_train_step(cfg, opt_cfg: opt.OptimizerConfig, *,
+                    window: Optional[int] = None, accum_steps: int = 1,
+                    mesh=None):
+    """Full train step; with ``accum_steps > 1`` the batch is split into
+    micro-batches whose gradients are summed in f32 and averaged (gradient
+    accumulation), as the JAX package's scan does.  ``mesh`` is the JAX
+    package's SPMD placement and has no counterpart here."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "make_train_step(mesh=...): SPMD training over a mesh comes "
+            "with the sharding slice of the port")
+    loss_fn = make_loss_fn(cfg, window=window)
+
+    def train_step(params, opt_state, batch):
+        if accum_steps == 1:
+            (_, metrics), grads = _value_and_grad(loss_fn, params, batch)
+        else:
+            b = batch["tokens"].shape[0]
+            if b % accum_steps:
+                raise ValueError(f"batch {b} not divisible by accum_steps "
+                                 f"{accum_steps}")
+            mb = b // accum_steps
+            gsum = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                            params)
+            ms = []
+            for i in range(accum_steps):
+                micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+                (_, m), g = _value_and_grad(loss_fn, params, micro)
+                gsum = tree_map(torch.add, gsum, g)
+                ms.append(m)
+            grads = tree_map(lambda g: g / accum_steps, gsum)
+            metrics = {k: torch.stack([m[k] for m in ms]).mean()
+                       for k in ms[0]}
+        gnorm = opt.global_norm(grads)
+        new_params, new_state = opt.update(opt_cfg, params, grads, opt_state,
+                                           grad_norm=gnorm)
+        return new_params, new_state, dict(metrics, grad_norm=gnorm)
+
+    return train_step
 
 
 def make_prefill_into_cache(cfg, *, window: Optional[int] = None):

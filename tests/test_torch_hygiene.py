@@ -5,8 +5,10 @@
   ``sys.modules``, and no source file (nor ``chip_smoke.py``) names them
   in an import statement.
 * It never quietly runs on the CPU: without a CUDA device, the default
-  device of an entry point raises, and asking for the CUDA kernel on CPU
-  tensors raises.
+  device of an entry point (serving, SHARP training, eval) raises, and
+  asking for the CUDA kernel on CPU tensors raises.
+* What is not ported yet raises ``NotImplementedError`` naming the slice
+  it comes with.
 """
 
 import ast
@@ -120,6 +122,85 @@ def test_new_entry_points_default_to_cuda(build):
     cfg, params = _smoke_model()
     with pytest.raises(RuntimeError, match="cuda"):
         build(cfg, params)
+
+
+def _session(cfg, params):
+    from repro_torch.api import HydraConfig, Session
+    return Session(HydraConfig(n_devices=1, device_budget_bytes=10**8))
+
+
+def _spilled_inference(cfg, params):
+    from repro_torch.core.orchestrator import SpilledInference
+    return SpilledInference(cfg, params, device_budget_bytes=10**8)
+
+
+def _sequential_reference(cfg, params):
+    from repro_torch.core.orchestrator import (ModelTask,
+                                               train_sequential_reference)
+    return train_sequential_reference(ModelTask(cfg, iter(()),
+                                                params=params))
+
+
+def _host_store(cfg, params):
+    from repro_torch.core import partitioner as pt
+    from repro_torch.core import shard_graph as sg
+    from repro_torch.core.spilling import HostModelStore
+    from repro_torch.optim.optimizers import OptimizerConfig
+    plan = sg.build_plan(cfg)
+    part = pt.partition(cfg, params, plan, budget_bytes=10**8, batch=2,
+                        seq=16)
+    return HostModelStore(cfg, plan, params, OptimizerConfig(), part)
+
+
+@pytest.mark.parametrize("build", [_session, _spilled_inference,
+                                   _sequential_reference, _host_store],
+                         ids=["session", "spilled-inference",
+                              "sequential-reference", "host-store"])
+def test_training_entry_points_default_to_cuda(build):
+    """The SHARP training and eval entry points default to CUDA like the
+    serving ones, and raise without a card."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    cfg, params = _smoke_model()
+    with pytest.raises(RuntimeError, match="cuda"):
+        build(cfg, params)
+
+
+def _serve_job(cfg):
+    from repro_torch.api import ServeJob
+    ServeJob(cfg)
+
+
+def _spmd_job(cfg):
+    from repro_torch.api import SpmdTrainJob
+    SpmdTrainJob(cfg)
+
+
+def _probe_oracle(cfg):
+    from repro_torch.api import HydraConfig, Session
+    Session(HydraConfig(partition_oracle="probe"), device="cpu")
+
+
+def _measured_profile(cfg):
+    from repro_torch.api import Session
+    Session(device="cpu", profile="auto")
+
+
+def _mesh_train_step(cfg):
+    from repro_torch.optim.optimizers import OptimizerConfig
+    from repro_torch.training.train_loop import make_train_step
+    make_train_step(cfg, OptimizerConfig(), mesh=object())
+
+
+@pytest.mark.parametrize("build,match", [
+    (_serve_job, "later slice"), (_spmd_job, "sharding slice"),
+    (_probe_oracle, "profiler slice"), (_measured_profile, "profiler slice"),
+    (_mesh_train_step, "sharding slice"),
+], ids=["serve-job", "spmd-job", "probe-oracle", "profile", "mesh"])
+def test_unported_session_options_raise(build, match):
+    from repro_torch.configs import get_config
+    with pytest.raises(NotImplementedError, match=match):
+        build(get_config("qwen3-0.6b", smoke=True))
 
 
 def test_cuda_impl_on_cpu_tensors_raises():
