@@ -10,7 +10,9 @@ Phases (any failure exits non-zero before the result line):
 2. build — every CUDA kernel of the port, from ``src/repro_torch/kernels/
    csrc`` (``paged_attention.cu``: the fp and int8 decode kernels;
    ``paged_verify.cu``: the verify kernel; ``flash_attention.cu``: the
-   flash kernel), with nvcc for sm_90a, one nvcc per source, in parallel;
+   flash kernel; ``fused_decode.cu``: the fused decode layer;
+   ``rmsnorm.cu`` and ``swiglu.cu``), with nvcc for sm_90a, one nvcc per
+   source, in parallel;
 3. kernel vs plain — each kernel against its plain PyTorch version at the
    serving shapes of qwen3-0.6b (16 heads, 8 KV heads, head_dim 128,
    block 16; 8 and 32 lanes; ragged lengths up to 4096 with block
@@ -20,7 +22,13 @@ Phases (any failure exits non-zero before the result line):
    q over int8 pages (2e-2).  Each with CUDA-event times of the kernel,
    the plain version and ``scaled_dot_product_attention`` over K/V
    gathered (and for int8 dequantized) ahead with an explicit mask — the
-   library yardstick, which the port never calls;
+   library yardstick, which the port never calls; the fused decode layer
+   (d 1024, f 3072; 8 and 32 lanes, the same ragged lengths, garbage lane
+   and window case) in bf16 (2e-2) and f32 (2e-4); RMSNorm and SwiGLU at
+   rows {1, 8, 127, 2048} of d 1024 (f 3072) and at the profiler's probe
+   shapes (512, 512[, 1024]), in bf16 (2e-2) and f32 (2e-5 / 2e-4), with
+   ``F.rms_norm`` as RMSNorm's yardstick (the fused layer and SwiGLU have
+   no one-call equivalent);
 4. serve — full-width qwen3-0.6b (bf16 compute, f32 params seeded on the
    card) through ``InferenceEngine(backend="paged")``: 8 requests with
    prompts of 64..1024 tokens, two sharing a 256-token prefix (one also a
@@ -32,6 +40,11 @@ Phases (any failure exits non-zero before the result line):
    compute: the kernel's logits may be at most 2x as far from the f32
    step as the plain bf16 path's (bf16 noise over 28 layers, not the
    kernel, dominates); and one profiled decode step (device busy share);
+5b. fused serve — the same requests through ``paged_impl="fused"``: the
+   fused layer must run decode_steps x n_layers times; one decode step
+   both ways (fused kernel and fused plain version, bf16), each gated
+   against the f32 step as in phase 5; one fused step profiled beside
+   phase 5's; tokens matching phase 4 reported, not gated (bf16);
 6. speculative serve — the same requests through ``backend="spec",
    spec_inner="paged"``, draft_k 4: (a) with the target's own parameters
    as the draft, (b) with a random 4-layer qwen3-0.6b draft (seed 1), so
@@ -45,8 +58,9 @@ Phases (any failure exits non-zero before the result line):
    ways, gated as in phase 5, and one profiled;
 8. small float32 engines — paged decode through the kernel and the plain
    version, speculative decode through the verify kernel against plain
-   paged greedy, and int8 pages through the int8 kernel and the plain
-   version must each give identical tokens;
+   paged greedy, int8 pages through the int8 kernel and the plain
+   version, and the fused decode layer's kernel against the plain unfused
+   paged engine must each give identical tokens;
 9. flash kernel vs plain — 16/8 heads, head_dim 128, b 1 and 2, sq = sk
    in {64, 127, 128, 129, 1000, 2048, 4096} and two sq < sk, causal and
    not, window 512, bf16 (2e-2) and f32 (2e-5), with the kernel's, the
@@ -63,11 +77,19 @@ Phases (any failure exits non-zero before the result line):
    one full forward through the kernel, gated against an f32 forward as
    in phase 5; the kernel's numbers at layer 0's q/k/v of the batch;
 12. one SHARP forward unit and one backward unit (promotion, compute,
-   and for the backward the optimizer step and demotion) profiled.
+   and for the backward the optimizer step and demotion) profiled;
+13. profiler — ``build_facts()`` on the card (transfer rows in GB/s, the
+   dense decode grid, the seven kernel rows; saved to
+   ``build/profile_facts.json``), counting the RMSNorm and SwiGLU kernels'
+   launches; phase 10's session planned with those facts (measured
+   queries > 0, none without, the same shard boundaries); a smoke-width
+   two-model session trained with and without the facts (identical
+   losses).
 
-Each kernel's launch count is zeroed just before the serve run of its own
-path and read just after; the kernel line reports it with the kernel's
-numbers at that path's inputs.
+Each kernel's launch count is zeroed just before the run of its own path
+(a serve run, the spilled eval, or the profiler's ``build_facts`` for
+RMSNorm and SwiGLU) and read just after; the kernel line reports it with
+the kernel's numbers at that path's inputs.
 
 The second-to-last lines are a JSON object of per-kernel numbers and the
 card's ``nvidia-smi`` name/power line; the last line is
@@ -523,6 +545,173 @@ def phase_quant_sweep(flush):
 
 
 # ---------------------------------------------------------------------------
+# phase 3d: the fused decode layer against its plain version
+# ---------------------------------------------------------------------------
+
+D_MODEL, D_FF = 1024, 3072
+MM_TOL = {"float32": 2e-4, "bfloat16": 2e-2}   # kernels ending in matmuls
+
+
+def fused_weights(dtype, seed, d=D_MODEL, f=D_FF):
+    """wo, the MLP norm scale, Wg, Wu, Wd at qwen3-0.6b's widths, scaled
+    as the model's initializer scales them (N(0, 1/fan_in))."""
+    import torch
+    g = torch.Generator("cuda").manual_seed(seed)
+
+    def dense(fan_in, fan_out):
+        return (torch.randn(fan_in, fan_out, device="cuda", generator=g)
+                / fan_in ** 0.5).to(dtype)
+    scale = (torch.randn(d, device="cuda", generator=g) * 0.1 + 1.0)
+    return (dense(NH * HD, d), scale.to(dtype), dense(d, f), dense(d, f),
+            dense(f, d))
+
+
+def fused_bytes_flops(lengths, tables_width, n, window, act_bytes, kv_bytes,
+                      d=D_MODEL, f=D_FF):
+    """Least bytes of one fused layer: the K/V rows the lanes attend, q, h
+    and out, tables and lengths, and the weights read once for all lanes;
+    flops: the attention's and 2 n (nh hd d + 3 d f) for the products."""
+    nbytes, flops = paged_bytes_flops(lengths, tables_width, kv_bytes,
+                                      act_bytes, n, window)
+    nbytes -= n * NH * HD * act_bytes            # out is (n, d), not q-sized
+    nbytes += (2 * n * d + NH * HD * d + 3 * d * f + d) * act_bytes
+    flops += 2 * n * (NH * HD * d + 3 * d * f)
+    return nbytes, flops
+
+
+def measure_fused(h, q, kp, vp, tables, lengths, weights, window,
+                  dtype_name, flush):
+    """Fused kernel vs plain on one set of inputs: error, times, bound."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    args = (h, q, kp, vp, tables, lengths, *weights)
+    out = ops.fused_decode_layer(*args, window=window, impl="cuda")
+    exp = ref.fused_decode_layer_ref(*args, window=window)
+    torch.cuda.synchronize()
+    diff = (out.float() - exp.float()).abs()
+    tol = MM_TOL[dtype_name]
+    res = {"max_abs_err": float(diff.max()),
+           "within_tol": bool((diff <= tol + tol * exp.float().abs()).all()
+                              and torch.isfinite(out).all()),
+           "ms": cuda_ms(lambda: ops.fused_decode_layer(
+               *args, window=window, impl="cuda"), flush=flush),
+           "plain_ms": cuda_ms(lambda: ref.fused_decode_layer_ref(
+               *args, window=window), iters=5, flush=flush),
+           "library_ms": None}     # no one PyTorch call computes the layer
+    nbytes, flops = fused_bytes_flops(
+        lengths.tolist(), tables.shape[1], h.shape[0], window,
+        h.element_size(), kp.element_size())
+    res["bound_ms"], res["bound_by"] = bound_ms(nbytes, flops, dtype_name)
+    res["bytes"], res["flops"] = nbytes, flops
+    return res
+
+
+def phase_fused_sweep(flush):
+    import torch
+    cases = [("bfloat16", 8, None), ("bfloat16", 32, None),
+             ("float32", 8, None), ("float32", 32, None),
+             ("bfloat16", 32, 512)]
+    rows = []
+    for i, (dt, n, window) in enumerate(cases):
+        torch.manual_seed(100 + i)
+        dtype = getattr(torch, dt)
+        q, kp, vp, tables, lengths = sweep_inputs(n, dtype, seed=100 + i)
+        h = torch.randn(n, D_MODEL, device="cuda").to(dtype)
+        r = measure_fused(h, q, kp, vp, tables, lengths,
+                          fused_weights(dtype, 100 + i), window, dt, flush)
+        r.update(dtype=dt, lanes=n, window=window, lengths=lengths.tolist())
+        rows.append(r)
+        log(f"[kernel] fused_decode_layer {dt} lanes={n} window={window}: "
+            f"max_abs_err={r['max_abs_err']:.3g} (tol {MM_TOL[dt]}) "
+            f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+            f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']})")
+        if not r["within_tol"]:
+            fail(f"fused_decode_layer kernel disagrees with its plain "
+                 f"version ({dt}, {n} lanes, window={window}): max abs err "
+                 f"{r['max_abs_err']}")
+        del q, kp, vp
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 3e: RMSNorm and SwiGLU against their plain versions
+# ---------------------------------------------------------------------------
+
+RMS_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# the profiler's probe shapes: rms_norm (rows, d), swiglu (rows, d, f)
+PROBE_SHAPE = (512, 512, 1024)
+
+
+def measure_rms_swiglu(rows, d, f, dtype_name, flush):
+    """RMSNorm over (rows, d) and SwiGLU over (rows, d, f), kernel vs
+    plain: errors, times, bounds; F.rms_norm is RMSNorm's library
+    yardstick, SwiGLU has none."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+
+    dtype = getattr(torch, dtype_name)
+    g = torch.Generator("cuda").manual_seed(rows + d + f)
+    x = torch.randn(rows, d, device="cuda", generator=g).to(dtype)
+    w = (torch.randn(d, device="cuda", generator=g) * 0.1 + 1.0).to(dtype)
+    mats = [(torch.randn(a, b, device="cuda", generator=g) / a ** 0.5)
+            .to(dtype) for a, b in ((d, f), (d, f), (f, d))]
+    item = x.element_size()
+    out = {}
+    for name, kern, plain, lib, tol, nbytes, flops in (
+            ("rms_norm", lambda: ops.rms_norm(x, w, impl="cuda"),
+             lambda: ref.rms_norm_ref(x, w),
+             lambda: F.rms_norm(x, (d,), w, 1e-6), RMS_TOL[dtype_name],
+             (2 * rows * d + d) * item, 4 * rows * d),
+            ("swiglu", lambda: ops.swiglu(x, *mats, impl="cuda"),
+             lambda: ref.swiglu_ref(x, *mats), None, MM_TOL[dtype_name],
+             (2 * rows * d + 3 * d * f) * item, 6 * rows * d * f)):
+        got, exp = kern(), plain()
+        torch.cuda.synchronize()
+        diff = (got.float() - exp.float()).abs()
+        r = {"max_abs_err": float(diff.max()),
+             "within_tol": bool((diff <= tol + tol * exp.float().abs()).all()
+                                and torch.isfinite(got).all()),
+             "ms": cuda_ms(kern, flush=flush),
+             "plain_ms": cuda_ms(plain, iters=5, flush=flush),
+             "library_ms": None if lib is None else cuda_ms(lib, flush=flush),
+             "rows": rows, "d": d, "f": f if name == "swiglu" else None,
+             "dtype": dtype_name}
+        r["bound_ms"], r["bound_by"] = bound_ms(nbytes, flops, dtype_name)
+        out[name] = r
+        lib_s = ("" if r["library_ms"] is None
+                 else f" library_ms={r['library_ms']:.4f}")
+        log(f"[kernel] {name} {dtype_name} rows={rows} d={d}"
+            f"{'' if name == 'rms_norm' else f' f={f}'}: max_abs_err="
+            f"{r['max_abs_err']:.3g} (tol {tol}) ms={r['ms']:.4f} plain_ms="
+            f"{r['plain_ms']:.4f}{lib_s} bound_ms={r['bound_ms']:.4f} "
+            f"({r['bound_by']})")
+        if not r["within_tol"]:
+            fail(f"{name} kernel disagrees with its plain version "
+                 f"({dtype_name}, rows {rows}, d {d}, f {f}): max abs err "
+                 f"{r['max_abs_err']}")
+    return out
+
+
+def phase_rms_swiglu_sweep(flush):
+    """Rows {1, 8, 127, 2048} at qwen3-0.6b's widths, plus the profiler's
+    probe shapes, in bf16 and f32.  Returns (sweep rows, the probe-shape
+    f32 rows — the shapes the profiler's path gives the kernels)."""
+    rows, probe = [], {}
+    for dt in ("bfloat16", "float32"):
+        for m in (1, 8, 127, 2048):
+            rows.append(measure_rms_swiglu(m, D_MODEL, D_FF, dt, flush))
+        r = measure_rms_swiglu(*PROBE_SHAPE, dt, flush)
+        rows.append(r)
+        if dt == "float32":
+            probe = r
+    return rows, probe
+
+
+# ---------------------------------------------------------------------------
 # phase 4-5: serve full-width qwen3-0.6b, then one step both ways
 # ---------------------------------------------------------------------------
 
@@ -858,7 +1047,8 @@ def profiled(label, fn):
     return res
 
 
-def phase_profile(cfg, eng, snap, label="one decode step (8 lanes)"):
+def phase_profile(cfg, eng, snap, label="one decode step (8 lanes)",
+                  impl=None):
     """One decode step of the snapshot state under the profiler."""
     import torch
 
@@ -870,7 +1060,7 @@ def phase_profile(cfg, eng, snap, label="one decode step (8 lanes)"):
             torch.from_numpy(snap["tokens"]).long().to(dev))
     pages = {k: v.clone() for k, v in snap["pages"].items()}
     res = profiled(label, lambda: api.paged_decode_step(
-        cfg, eng.params, pages, *args))
+        cfg, eng.params, pages, *args, impl=impl))
     del pages
     return res
 
@@ -969,6 +1159,137 @@ def phase_int8_both_ways(cfg, snap, params, bf16_params):
     return logit_gate("one int8 decode step", logits)
 
 
+def step_turns(cfg, params, snap, tables, lengths, tokens, impls, rounds=3):
+    """Host wall time of one decode step of the snapshot state per impl
+    (each from fresh page copies, ended by a sync), taken in turns — A, B,
+    B, A, ``rounds`` times — so the two share the host's drift."""
+    import torch
+
+    from repro_torch.models import api
+
+    a, b = impls
+    times = {a: [], b: []}
+    with torch.no_grad():
+        for key in [a, b, b, a] * rounds:
+            pages = {k: v.clone() for k, v in snap["pages"].items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            api.paged_decode_step(cfg, params, pages, tables, lengths,
+                                  tokens, impl=impls[key])
+            torch.cuda.synchronize()
+            times[key].append((time.perf_counter() - t0) * 1e3)
+            del pages
+    return {k: {"median": statistics.median(v), "all": v}
+            for k, v in times.items()}
+
+
+def phase_fused_serve(cfg, params, prompts, fp_res, fp_profile, flush):
+    """The phase-4 requests through ``paged_impl="fused"``: the fused
+    layer's kernel chain runs once per layer per decode step; one decode
+    step of the snapshot state both ways — the fused kernel and the fused
+    plain version (bf16), each gated against the same step in f32 as
+    phase 5 gates the attention kernel (at most LOGIT_REL x the plain
+    unfused bf16 step's distance); one fused step profiled beside phase
+    5's; and the kernel's numbers at layer 0's serve inputs."""
+    import torch
+
+    from repro_torch.kernels.fused_decode import fused_decode_layer
+    from repro_torch.models import api
+    from repro_torch.models import transformer
+    from repro_torch.serving.engine import InferenceEngine
+
+    max_seq = max(len(p) for p in prompts) + GEN
+    eng = InferenceEngine(cfg, params, capacity=CAPACITY, max_seq=max_seq,
+                          backend="paged", paged_impl="fused",
+                          block_size=BS, device="cuda")
+    snap, res, summary = drive_serve(cfg, eng, prompts, fused_decode_layer,
+                                     "fused", snap_step=8)
+    expect = summary["decode_steps"] * cfg.n_layers
+    if res["launches"] != expect:
+        fail(f"fused_decode_layer launched {res['launches']} times on the "
+             f"fused serve path; expected decode_steps x layers = {expect}")
+    same = sum(res["tokens"][r] == fp_res["tokens"][r] for r in res["tokens"])
+    res["requests_token_identical_to_paged"] = same
+    log(f"[fused] paged_impl=fused: {res['requests']} requests x {GEN} "
+        f"tokens, decode {res['decode_tok_per_s']} tok/s (paged "
+        f"{fp_res['decode_tok_per_s']}), prefill {res['prefill_tok_per_s']} "
+        f"tok/s, decode_steps {res['decode_steps']}, kernel launches "
+        f"{res['launches']}, max_memory_allocated "
+        f"{res['max_memory_allocated']}, requests token-identical to the "
+        f"unfused paged run {same} of {res['requests']} (bf16: not gated)")
+
+    dev = "cuda"
+    tables = torch.from_numpy(snap["tables"]).to(dev)
+    lengths = torch.from_numpy(snap["lengths"]).to(dev)
+    tokens = torch.from_numpy(snap["tokens"]).long().to(dev)
+    cfg32 = cfg.replace(dtype="float32")
+    runs = {"fused": (cfg, eng.params, "fused"),
+            "fused_ref": (cfg, eng.params, "fused_ref"),
+            "ref": (cfg, eng.params, "ref"),
+            "f32": (cfg32, api.prepare_params(cfg32, params, dev), "ref")}
+    logits = {}
+    with torch.no_grad():
+        for key, (c, p, impl) in runs.items():
+            pages = {k: v.clone() for k, v in snap["pages"].items()}
+            logits[key] = api.paged_decode_step(
+                c, p, pages, tables, lengths, tokens, impl=impl).float()
+            del pages
+    torch.cuda.synchronize()
+    del runs
+    res["both_ways_kernel"] = logit_gate(
+        "one fused decode step, fused kernel", dict(
+            cuda=logits["fused"], ref=logits["ref"], f32=logits["f32"]))
+    res["both_ways_plain"] = logit_gate(
+        "one fused decode step, fused plain version", dict(
+            cuda=logits["fused_ref"], ref=logits["ref"], f32=logits["f32"]))
+    res["max_abs_logit_diff_kernel_vs_fused_plain"] = float(
+        (logits["fused"] - logits["fused_ref"]).abs().max())
+    log(f"[both-ways] fused kernel vs fused plain version: max abs logit "
+        f"diff {res['max_abs_logit_diff_kernel_vs_fused_plain']:.4g}")
+    del logits
+    res["step_host_ms"] = step_turns(cfg, eng.params, snap, tables, lengths,
+                                     tokens, {"unfused": "cuda",
+                                              "fused": "fused"})
+    st = res["step_host_ms"]
+    log(f"[fused] one decode step, host wall to a sync, median of "
+        f"{len(st['fused']['all'])} in turns (unfused, fused, fused, "
+        f"unfused): unfused {st['unfused']['median']:.2f} ms, fused "
+        f"{st['fused']['median']:.2f} ms")
+    res["profile"] = phase_profile(cfg, eng, snap,
+                                   "one fused decode step (8 lanes)",
+                                   impl="fused")
+    pr = res["profile"]
+    log(f"[fused] one decode step: {pr['kernel_launches']} launches, busy "
+        f"share {pr['device_busy_share']} (unfused paged step: "
+        f"{fp_profile['kernel_launches']} launches, busy share "
+        f"{fp_profile['device_busy_share']})")
+
+    # the kernel at the serve path's inputs: layer 0's pages and weights
+    lp = transformer.layer_slices(eng.params["layers"], 1)[0]
+    bf = torch.bfloat16
+    weights = (lp["attn"]["wo"].to(bf).contiguous(),
+               lp["mlp_norm"]["scale"].to(bf).contiguous(),
+               lp["mlp"]["w_gate"].to(bf).contiguous(),
+               lp["mlp"]["w_up"].to(bf).contiguous(),
+               lp["mlp"]["w_down"].to(bf).contiguous())
+    le = torch.from_numpy(snap["lengths"] + 1).cuda()
+    h = torch.randn(CAPACITY, D_MODEL, device="cuda").to(bf)
+    q = torch.randn(CAPACITY, NH, HD, device="cuda").to(bf)
+    m = measure_fused(h, q, snap["pages"]["k"][0], snap["pages"]["v"][0],
+                      tables, le, weights, None, "bfloat16", flush)
+    m["lengths"] = le.tolist()
+    log(f"[kernel] fused_decode_layer at the fused serve path's inputs "
+        f"(lengths {m['lengths']}): ms={m['ms']:.4f} "
+        f"plain_ms={m['plain_ms']:.4f} bound_ms={m['bound_ms']:.4f} "
+        f"({m['bound_by']}) max_abs_err={m['max_abs_err']:.3g}")
+    if not m["within_tol"]:
+        fail("fused_decode_layer kernel disagrees with its plain version at "
+             "the fused serve path's inputs")
+    res["main_path_kernel"] = m
+    del eng, snap
+    return res
+
+
 def phase_small_f32():
     """Small float32 engines: paged decode through the kernel and through
     the plain attention give identical tokens; speculative decode over the
@@ -1000,8 +1321,12 @@ def phase_small_f32():
         eng.run()
         return eng, {r.request_id: r.generated for r in eng.completed}
 
+    from repro_torch.kernels.fused_decode import fused_decode_layer
     out = {impl: serve(backend="paged", paged_impl=impl)[1]
            for impl in ("cuda", "ref")}
+    fused_before = fused_decode_layer.launches
+    out["fused"] = serve(backend="paged", paged_impl="fused")[1]
+    fused_launches = fused_decode_layer.launches - fused_before
     spec_eng, out["spec"] = serve(backend="spec", spec_inner="paged",
                                   draft_cfg=cfg, draft_params=draft,
                                   draft_k=3)
@@ -1016,13 +1341,17 @@ def phase_small_f32():
                spec_eng.summary()["draft_accept_rate"],
            "int8_identical_kernel_vs_plain":
                out["int8_cuda"] == out["int8_ref"]
-               and len(out["int8_cuda"]) == len(prompts)}
+               and len(out["int8_cuda"]) == len(prompts),
+           "fused_identical_to_plain": out["fused"] == out["ref"],
+           "fused_launches": fused_launches}
     log(f"[small-f32] smoke engines, tokens identical: paged kernel vs "
         f"plain {res['identical_tokens']}; spec (verify "
         f"{res['spec_verify_impl']}, draft accept rate "
         f"{res['spec_draft_accept_rate']}) vs plain paged "
         f"{res['spec_identical_to_plain']}; int8 kernel vs plain int8 "
-        f"{res['int8_identical_kernel_vs_plain']}")
+        f"{res['int8_identical_kernel_vs_plain']}; fused kernel "
+        f"({fused_launches} launches) vs plain unfused paged "
+        f"{res['fused_identical_to_plain']}")
     if not res["identical_tokens"]:
         fail("small f32 engine: kernel and plain attention gave different "
              "tokens")
@@ -1032,6 +1361,9 @@ def phase_small_f32():
     if not res["int8_identical_kernel_vs_plain"]:
         fail("small f32 engine: int8 pages through the kernel and through "
              "the plain version gave different tokens")
+    if not res["fused_identical_to_plain"] or fused_launches == 0:
+        fail("small f32 engine: the fused decode layer's kernel did not "
+             "give the plain unfused paged engine's tokens")
     return res
 
 
@@ -1173,6 +1505,7 @@ TRAIN_BUDGET = 5 * 10**9      # per virtual device
 EVAL_BUDGET = 2 * 10**9       # forward-only: cut the model into 2 shards
 EVAL_BATCHES = 2
 SHARP_TOL = 3e-4              # tests/test_orchestrator.py's bound
+TRAIN_LRS = (1e-4, 3e-4)
 
 
 def train_loader(cfg, seed):
@@ -1196,12 +1529,12 @@ def phase_sharp_train(cfg):
     from repro_torch.core.orchestrator import (ModelTask,
                                                train_sequential_reference)
 
-    lrs = (1e-4, 3e-4)
+    lrs = TRAIN_LRS
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     session = Session(HydraConfig(n_devices=2,
                                   device_budget_bytes=TRAIN_BUDGET),
-                      device="cuda")
+                      device="cuda", profile=None)
     for seed, lr in enumerate(lrs):
         session.submit(TrainJob(cfg, train_loader(cfg, seed), lr=lr,
                                 optimizer="adamw", epochs=1,
@@ -1239,7 +1572,12 @@ def phase_sharp_train(cfg):
            "trained_tok_per_s": (len(execs) * TRAIN_STEPS * TRAIN_BATCH
                                  * TRAIN_SEQ / wall),
            "ledger_peak_bytes": peak_used,
-           "max_memory_allocated": torch.cuda.max_memory_allocated()}
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "plan_provenance": plan.provenance,
+           "plan_est_makespan_s": plan.schedule["est_makespan_s"],
+           "plan_shard_bounds": [[(sh["seg_lo"], sh["seg_hi"])
+                                  for sh in j.partition["shards"]]
+                                 for j in plan.jobs]}
     log(f"[sharp] 2 x qwen3-0.6b full width, {TRAIN_STEPS} steps of "
         f"{TRAIN_BATCH}x{TRAIN_SEQ} tokens: shards {shards} "
         f"{res['shard_layers'][0]}, units {train.units_executed}, virtual "
@@ -1417,6 +1755,133 @@ def phase_unit_profiles(session):
             "bwd": profiled(label.format("backward"), bwd_unit)}
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the machine profiler and measured-cost planning
+# ---------------------------------------------------------------------------
+
+def smoke_loader(cfg, seed):
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    return SyntheticTokens(DataConfig(batch_size=2, seq_len=64,
+                                      vocab_size=cfg.vocab_size, seed=seed))
+
+
+def phase_profiler(cfg, sharp_res):
+    """``build_facts()`` on the card (every probe, full size; saved under
+    build/), with the launches of the RMSNorm and SwiGLU kernels its
+    kernel probe makes; phase 10's two-model session planned again with
+    those facts (measured queries > 0 where phase 10's analytic plan had
+    0, and the same shard boundaries); a smoke-width two-model session
+    trained with and without the facts (identical losses: facts change
+    estimates, never execution)."""
+    import torch
+
+    from repro_torch.api import HydraConfig, Session, TrainJob
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.rmsnorm import rms_norm_2d
+    from repro_torch.kernels.swiglu import swiglu_2d
+    from repro_torch.profiler import build_facts
+
+    counters = {"rms_norm_2d": rms_norm_2d, "swiglu_2d": swiglu_2d}
+    for c in counters.values():
+        c.launches = 0                   # count this path's run only
+    t0 = time.perf_counter()
+    facts = build_facts(device="cuda")
+    res = {"build_facts_s": time.perf_counter() - t0,
+           "launches": {k: c.launches for k, c in counters.items()}}
+    res["path"] = facts.save(str(ROOT / "build" / "profile_facts.json"))
+    res.update(transfer=facts.transfer, decode=facts.decode,
+               kernels=facts.kernels, accept_rates=facts.accept_rates,
+               notes=facts.notes, fingerprint=facts.fingerprint)
+    log(f"[profiler] build_facts() on {facts.fingerprint['device_kind']}: "
+        f"{res['build_facts_s']:.2f} s, saved to build/profile_facts.json; "
+        f"kernel launches of the probe {res['launches']}")
+    for d in ("h2d", "d2h"):
+        log(f"[profiler] {d}: " + ", ".join(
+            f"{r['bytes']} B {r['gbytes_per_s']:.3f} GB/s"
+            for r in facts.transfer[d]))
+    if "dense" not in facts.decode:
+        fail(f"the decode probe measured no dense grid: "
+             f"{facts.notes.get('decode_errors')}")
+    g = facts.decode["dense"]
+    log(f"[profiler] dense decode grid ({g['arch']}, batches {g['batches']} "
+        f"x seqs {g['seqs']}): decode_step_s {g['decode_step_s']}, "
+        f"prefill_s_per_token {g['prefill_s_per_token']}; families that "
+        f"failed: {sorted(facts.notes.get('decode_errors', {}))}")
+    log(f"[profiler] accept rates: {facts.accept_rates}")
+    for name, r in facts.kernels.items():
+        log(f"[profiler] kernel {name}: kernel_us {r['kernel_us']:.1f} "
+            f"ref_us {r['ref_us']:.1f} fallback_delta "
+            f"{r['fallback_delta']:.3f} default_impl {r['default_impl']}")
+    want = {"flash_attention", "rms_norm", "swiglu", "paged_attention",
+            "paged_verify", "paged_attention_quant", "fused_decode_layer"}
+    if set(facts.kernels) != want or any(
+            r["default_impl"] != "cuda" for r in facts.kernels.values()):
+        fail(f"the kernel probe's rows {sorted(facts.kernels)} are not the "
+             f"seven kernels on the card")
+    if min(res["launches"].values()) == 0:
+        fail(f"the profiler's kernel probe launched no RMSNorm / SwiGLU "
+             f"kernel: {res['launches']}")
+
+    # phase 10's session, planned with the facts
+    session = Session(HydraConfig(n_devices=2,
+                                  device_budget_bytes=TRAIN_BUDGET),
+                      device="cuda", profile=facts)
+    for seed, lr in enumerate(TRAIN_LRS):
+        session.submit(TrainJob(cfg, train_loader(cfg, seed), lr=lr,
+                                optimizer="adamw", epochs=1,
+                                steps_per_epoch=TRAIN_STEPS, seed=seed,
+                                batch=TRAIN_BATCH, seq=TRAIN_SEQ))
+    plan = session.plan()
+    bounds = [[(sh["seg_lo"], sh["seg_hi"]) for sh in j.partition["shards"]]
+              for j in plan.jobs]
+    analytic = sharp_res["plan_provenance"]
+    res["plan"] = {"n_measured": plan.provenance["n_measured"],
+                   "n_analytic": plan.provenance["n_analytic"],
+                   "est_makespan_s": plan.schedule["est_makespan_s"],
+                   "analytic_n_measured": analytic["n_measured"],
+                   "analytic_est_makespan_s":
+                       sharp_res["plan_est_makespan_s"],
+                   "same_shard_bounds":
+                       bounds == sharp_res["plan_shard_bounds"]}
+    del session, plan
+    torch.cuda.empty_cache()
+    pl = res["plan"]
+    log(f"[profiler] phase 10's session planned with the facts: "
+        f"{pl['n_measured']} measured / {pl['n_analytic']} analytic "
+        f"queries (without: {pl['analytic_n_measured']} measured), "
+        f"est_makespan_s {pl['est_makespan_s']} (analytic "
+        f"{pl['analytic_est_makespan_s']}), same shard boundaries "
+        f"{pl['same_shard_bounds']}")
+    if pl["n_measured"] <= 0 or pl["analytic_n_measured"] != 0 \
+            or not pl["same_shard_bounds"]:
+        fail("measured-cost planning: expected measured queries with the "
+             "facts, none without, and the same shard boundaries")
+
+    # smoke-width two-model training both ways
+    scfg = get_config("qwen3-0.6b", smoke=True)
+    runs = []
+    for profile in (None, facts):
+        s = Session(HydraConfig(n_devices=2, device_budget_bytes=18 * 10**6),
+                    device="cuda", profile=profile)
+        for seed in (0, 1):
+            s.submit(TrainJob(scfg, smoke_loader(scfg, seed), epochs=1,
+                              steps_per_epoch=2, seed=seed, batch=2, seq=64))
+        p = s.plan()
+        runs.append((p.provenance["n_measured"],
+                     {int(k): v for k, v in s.run(p).train.losses.items()}))
+    res["smoke_train"] = {"n_measured": [r[0] for r in runs],
+                          "losses": [r[1] for r in runs],
+                          "identical": runs[0][1] == runs[1][1]}
+    log(f"[profiler] smoke two-model training, analytic plan "
+        f"({runs[0][0]} measured queries) vs measured plan ({runs[1][0]}): "
+        f"losses {runs[0][1]} vs {runs[1][1]}, identical "
+        f"{res['smoke_train']['identical']}")
+    if not res["smoke_train"]["identical"] or runs[1][0] == 0:
+        fail("training losses changed with the cost facts: facts may "
+             "change estimates, never execution")
+    return res
+
+
 def kernel_entry(name, source, replaces, launches, m):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -1458,13 +1923,15 @@ def main() -> None:
                      "device": name, "nvidia_smi": smi}
 
     # 2. build: paged_attention.cu (fp and int8 entry points),
-    #    paged_verify.cu and flash_attention.cu, one nvcc each, in parallel
+    #    paged_verify.cu, flash_attention.cu, fused_decode.cu, rmsnorm.cu
+    #    and swiglu.cu, one nvcc each, in parallel
     t0 = time.perf_counter()
     kernels.build_all()
     build_s = time.perf_counter() - t0
     log(f"[build] {', '.join(kernels.KERNELS)} (paged_attention_lanes, "
         f"paged_attention_quant_lanes, paged_verify_lanes, "
-        f"flash_attention_bhsd) built in "
+        f"flash_attention_bhsd, fused_decode_layer, rms_norm_2d, "
+        f"swiglu_2d) built in "
         f"{build_s:.2f} s (nvcc {_build.nvcc_path()}, sm_90a)")
     for k, text in _build.build_logs.items():
         for line in text.strip().splitlines():
@@ -1478,6 +1945,8 @@ def main() -> None:
     report["sweep"] = phase_kernel_sweep(flush)
     report["verify_sweep"] = phase_verify_sweep(flush)
     report["quant_sweep"] = phase_quant_sweep(flush)
+    report["fused_sweep"] = phase_fused_sweep(flush)
+    report["rms_swiglu_sweep"], probe_shape = phase_rms_swiglu_sweep(flush)
 
     # 4. serve full-width qwen3-0.6b on the paged backend
     cfg = get_config("qwen3-0.6b")
@@ -1510,6 +1979,11 @@ def main() -> None:
     report["profile"] = phase_profile(cfg, eng, snap)
     bf16_params = eng.params
     del eng, snap
+    torch.cuda.empty_cache()
+
+    # 5b. the same requests through the fused decode layer
+    report["fused_serve"] = phase_fused_serve(
+        cfg, params, prompts, report["serve"], report["profile"], flush)
     torch.cuda.empty_cache()
 
     # 6. speculative serve over the paged inner: (a) the target's own
@@ -1603,6 +2077,10 @@ def main() -> None:
     # 12. one SHARP forward unit and one backward unit, profiled
     report["unit_profiles"] = phase_unit_profiles(session)
     del session
+    torch.cuda.empty_cache()
+
+    # 13. the machine profiler, and plans priced with its facts
+    report["profiler"] = phase_profiler(cfg, report["sharp_train"])
     report["total_s"] = time.perf_counter() - t_start
 
     src = "src/repro_torch/kernels/csrc/"
@@ -1621,6 +2099,18 @@ def main() -> None:
                      "src/repro/kernels/flash_attention.py:74",
                      report["spilled_eval"]["cuda"]["launches"],
                      flash_path),
+        kernel_entry("fused_decode_layer", src + "fused_decode.cu",
+                     "src/repro/kernels/fused_decode.py:92",
+                     report["fused_serve"]["launches"],
+                     report["fused_serve"]["main_path_kernel"]),
+        kernel_entry("rms_norm_2d", src + "rmsnorm.cu",
+                     "src/repro/kernels/rmsnorm.py:22",
+                     report["profiler"]["launches"]["rms_norm_2d"],
+                     probe_shape["rms_norm"]),
+        kernel_entry("swiglu_2d", src + "swiglu.cu",
+                     "src/repro/kernels/swiglu.py:44",
+                     report["profiler"]["launches"]["swiglu_2d"],
+                     probe_shape["swiglu"]),
     ]}
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)

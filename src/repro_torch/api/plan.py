@@ -2,8 +2,9 @@
 of ``repro.api.plan``).
 
 A ``Plan`` is pure data — per-job partitions (shard boundaries, byte sizes,
-analytic runtimes), spill placement (what stays host-resident), and a
-schedule estimate from the same greedy list scheduler the executor uses.
+runtime estimates), spill placement (what stays host-resident), a
+schedule estimate from the same greedy list scheduler the executor uses,
+and the provenance of every price (analytic or measured).
 It serializes to JSON, and ``Session.run(plan)`` consumes the *same*
 object: a Plan re-loaded from disk reconstructs identical ``Shard`` lists,
 so the executed schedule reproduces the planned one.
@@ -74,6 +75,9 @@ class Plan:
     hydra: dict                                 # HydraConfig fields
     jobs: list[JobPlan] = field(default_factory=list)
     schedule: dict = field(default_factory=dict)
+    # which cost facts priced which decision (profiler.CostModel
+    # provenance_summary): {"profile": ... | None, "n_measured", "queries"}
+    provenance: dict = field(default_factory=dict)
     version: int = 1
 
     def job(self, job_id: str) -> JobPlan:
@@ -89,6 +93,7 @@ class Plan:
             "version": self.version,
             "hydra": self.hydra,
             "schedule": self.schedule,
+            "provenance": self.provenance,
             "jobs": [dataclasses.asdict(j) for j in self.jobs],
         }, **kw)
 
@@ -97,7 +102,9 @@ class Plan:
         d = json.loads(text)
         if d.get("version") != 1:
             raise ValueError(f"unsupported plan version {d.get('version')!r}")
+        # .get: plans written before measured-cost planning carry none
         return cls(hydra=d["hydra"], schedule=d["schedule"],
+                   provenance=d.get("provenance", {}),
                    jobs=[JobPlan(**j) for j in d["jobs"]],
                    version=d["version"])
 
@@ -110,6 +117,11 @@ class Plan:
             "est_makespan_s": self.schedule.get("est_makespan_s"),
             "jobs": {},
         }
+        if self.provenance:
+            out["cost_source"] = ("measured"
+                                  if self.provenance.get("n_measured")
+                                  else "analytic")
+            out["n_measured_queries"] = self.provenance.get("n_measured", 0)
         for jp in self.jobs:
             rec: dict[str, Any] = {"kind": jp.kind, "arch": jp.arch["name"]}
             if jp.partition is not None:

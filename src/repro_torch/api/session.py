@@ -9,10 +9,12 @@ half):
     report = session.run(Plan.from_json(text))   # the planned placement
 
 ``session.run`` drives SHARP training with real compute on the session's
-device, then runs eval jobs forward-only through the shard queue.  The
-serving half (``ServeJob``, serve ticks between shard units), SPMD jobs,
-``run_async`` and measured-cost planning (``profile``) come with later
-slices of the port.
+device, then runs eval jobs forward-only through the shard queue.  Plans
+are priced by a ``profiler.CostModel``: against the measured facts of
+``python -m repro_torch.profiler`` when a fresh profile is given or found
+(``profile="auto"``), else by the analytic priors.  The serving half
+(``ServeJob``, serve ticks between shard units), SPMD jobs and
+``run_async`` come with later slices of the port.
 """
 
 from __future__ import annotations
@@ -37,6 +39,8 @@ from repro_torch.core import shard_graph as sg
 from repro_torch.core.sharp import (HydraConfig, ModelExec, RunReport,
                                     ShardFunctions, SharpExecutor, UnitEvent)
 from repro_torch.core.spilling import DeviceMemory, HostModelStore
+from repro_torch.profiler import CostModel, MachineFacts, load_facts
+from repro_torch.profiler import DEFAULT_PATH as _PROFILE_PATH
 
 
 class JobState(enum.Enum):
@@ -74,14 +78,32 @@ class Session:
     (``device``, CUDA unless the caller asks for the CPU)."""
 
     def __init__(self, hydra_cfg: Optional[HydraConfig] = None, *,
-                 device="cuda", profile=None):
-        if profile is not None:
-            raise NotImplementedError(
-                "Session(profile=...): measured-cost planning comes with "
-                "the profiler slice of the port; plans are priced by the "
-                "analytic cost model (profile=None)")
+                 device="cuda", profile: Any = "auto"):
         self.hc = (hydra_cfg or HydraConfig()).validate()
         self.device = resolve_device(device)
+        # measured-cost planning (repro_torch.profiler): ``profile`` is
+        # "auto" (load results/profile_latest_torch.json when present and
+        # fresh), None (force analytic pricing), a path, or a MachineFacts.
+        # The CostModel prices partitions and the schedule estimate; with
+        # no facts it reproduces the analytic constants byte-identically
+        # and tags every answer source="analytic" in plan provenance.
+        # Facts change estimates, never execution.
+        allow_stale = False
+        if profile is None:
+            facts = None
+        elif isinstance(profile, MachineFacts):
+            # an explicit facts object is a deliberate choice — the what-if
+            # case prices against another machine's profile on purpose
+            facts, allow_stale = profile, True
+        elif profile == "auto":
+            facts = load_facts(_PROFILE_PATH, missing_ok=True)
+        elif isinstance(profile, str):
+            facts = load_facts(profile)
+        else:
+            raise TypeError(
+                f"profile={profile!r}: pass 'auto', None, a profile JSON "
+                "path, or a MachineFacts")
+        self.cost = CostModel(facts, allow_stale=allow_stale)
         # session-owned device ledgers: SHARP promotions and
         # double-buffers charge these same objects
         self.devices = [DeviceMemory(d, self.hc.device_budget_bytes,
@@ -174,6 +196,9 @@ class Session:
                 continue
             plan.jobs.append(self._plan_job(jid, job))
         plan.schedule = self._schedule_estimate()
+        # the *why*: which measured facts (or analytic constants) priced
+        # the partitions and the schedule estimate
+        plan.provenance = self.cost.provenance_summary()
         return plan
 
     def _plan_job(self, jid: str, job: JobSpec) -> JobPlan:
@@ -324,7 +349,8 @@ class Session:
             cfg, sg.prepare_host_params(cfg, params), shard_plan,
             budget_bytes=self.hc.device_budget_bytes,
             batch=batch, seq=seq, oracle=self.hc.partition_oracle,
-            buffer_frac=self.hc.buffer_frac, train=train)
+            buffer_frac=self.hc.buffer_frac, train=train,
+            cost_model=self.cost)
         return shard_plan, partition
 
     def _build_train(self, job: TrainJob, planned) -> ModelExec:

@@ -118,13 +118,10 @@ def partition(cfg, params, plan: sg.ShardPlan, *,
     """
     if oracle != "analytic":
         raise NotImplementedError(
-            f"partition oracle {oracle!r}: the probe oracle (a compiled "
-            "pilot run per candidate shard) comes with the profiler slice "
-            "of the port; use 'analytic'")
-    if cost_model is not None:
-        raise NotImplementedError(
-            "a measured cost model prices shards with the profiler slice of "
-            "the port; pass cost_model=None (analytic runtimes)")
+            f"partition oracle {oracle!r}: the probe oracle (XLA's compiled-"
+            "memory analysis of a pilot run per candidate shard) has no "
+            "port yet; it comes with a later slice of the port. Use "
+            "'analytic'")
     shared_bytes = shared_cost(cfg, params, plan, train=train)
     n = len(plan.segments)
     shards: list[Shard] = []
@@ -149,23 +146,34 @@ def partition(cfg, params, plan: sg.ShardPlan, *,
         lo = hi
 
     result = PartitionResult(shards, shared_bytes, budget_bytes, oracle)
-    _assign_runtimes(cfg, params, plan, result)
+    _assign_runtimes(cfg, params, plan, result, cost_model=cost_model,
+                     batch=batch, seq=seq)
     return result
 
 
-def _assign_runtimes(cfg, params, plan, result):
-    """Initial runtime estimates ∝ flops_weight × param bytes (the JAX
-    package's analytic prior, 1e-12 s per weighted byte forward, twice
-    that backward).  The SHARP executor's pilot pass overwrites them with
-    measured per-shard times."""
+def _assign_runtimes(cfg, params, plan, result, *, cost_model=None,
+                     batch: int = 2, seq: int = 128):
+    """Initial runtime estimates ∝ flops_weight × param bytes.
+
+    The SHARP executor's pilot pass (first mini-batch) overwrites these
+    with measured per-shard times.  With a ``profiler.CostModel`` the same
+    per-shard weights price against a measured whole-model forward instead
+    of the analytic 1e-12 s/weighted-byte prior; the unprofiled CostModel
+    reproduces the analytic numbers byte-identically (and records either
+    way in its provenance)."""
     weights = [
         sum(plan.segments[i].flops_weight
             * max(1, sg_param_bytes(params, plan.segments[i]))
             for i in range(shard.seg_lo, shard.seg_hi))
         for shard in result.shards]
-    for shard, w in zip(result.shards, weights):
-        shard.fwd_runtime = w * 1e-12
-        shard.bwd_runtime = 2 * (w * 1e-12)
+    if cost_model is not None:
+        runtimes = cost_model.shard_runtimes(cfg, weights,
+                                             batch=batch, seq=seq)
+    else:
+        runtimes = [(w * 1e-12, 2 * (w * 1e-12)) for w in weights]
+    for shard, (fwd, bwd) in zip(result.shards, runtimes):
+        shard.fwd_runtime = fwd
+        shard.bwd_runtime = bwd
         shard.est_runtime = shard.fwd_runtime + shard.bwd_runtime
 
 

@@ -93,9 +93,9 @@ class HydraConfig:
                 f"{sorted(sched.SCHEDULERS)}")
         if self.partition_oracle == "probe":
             raise NotImplementedError(
-                "partition_oracle='probe' (a compiled pilot run per "
-                "candidate shard) comes with the profiler slice of the "
-                "port; use 'analytic'")
+                "partition_oracle='probe' (XLA's compiled-memory analysis of "
+                "a pilot run per candidate shard) has no port yet; it comes "
+                "with a later slice of the port. Use 'analytic'")
         if self.partition_oracle != "analytic":
             raise ValueError(
                 f"unknown partition_oracle {self.partition_oracle!r}: "

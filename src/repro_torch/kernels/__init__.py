@@ -2,7 +2,8 @@
 (``ref``), and the public entry points (``ops``)."""
 
 # every CUDA kernel source under csrc/, built together by build_all()
-KERNELS = ("paged_attention", "paged_verify", "flash_attention")
+KERNELS = ("paged_attention", "paged_verify", "flash_attention",
+           "fused_decode", "rmsnorm", "swiglu")
 
 
 def build_all() -> None:

@@ -1,12 +1,13 @@
 """Build harness for the port's hand-written CUDA kernels.
 
-Each kernel is one ``csrc/<name>.cu`` with a plain C entry point.  It is
+Each kernel is one ``csrc/<name>.cu`` with a plain C entry point (device
+code shared between kernels lives in ``csrc/*.cuh`` headers).  It is
 compiled with ``nvcc`` for ``sm_90a`` into a shared library under the
 checkout's ``build/`` directory (listed in ``.gitignore``) at first use,
-keyed by a hash of the source and the flags, and loaded with ``ctypes`` —
-no PyTorch headers, so a build takes seconds.  ``build_all`` starts one
-``nvcc`` per source at once, so the build time of a set of kernels is that
-of the slowest one.  Nothing here runs at import time.
+keyed by a hash of the source, the headers and the flags, and loaded with
+``ctypes`` — no PyTorch headers, so a build takes seconds.  ``build_all``
+starts one ``nvcc`` per source at once, so the build time of a set of
+kernels is that of the slowest one.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -47,6 +48,7 @@ def nvcc_path() -> str:
 
 def _lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{key[:16]}.so"
 

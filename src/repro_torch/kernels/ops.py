@@ -13,9 +13,13 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import (flash_attention_bhsd,
                                                  refuse_grad)
+from repro_torch.kernels.fused_decode import \
+    fused_decode_layer as _fused_layer
 from repro_torch.kernels.paged_attention import (paged_attention_lanes,
                                                  paged_attention_quant_lanes)
 from repro_torch.kernels.paged_verify import paged_verify_lanes
+from repro_torch.kernels.rmsnorm import rms_norm_2d
+from repro_torch.kernels.swiglu import swiglu_2d
 
 IMPLS = ("cuda", "ref")
 
@@ -89,6 +93,46 @@ def paged_attention_quant(q, k_pages, v_pages, k_scales, v_scales, tables,
     return paged_attention_quant_lanes(q, k_pages, v_pages, k_scales,
                                        v_scales, tables, lengths,
                                        window=window)
+
+
+def fused_decode_layer(h, q, k_pages, v_pages, tables, lengths, wo,
+                       mlp_scale, w_gate, w_up, w_down, *, window=None,
+                       eps: float = 1e-6, impl=None):
+    """Fused paged decode layer: attention through the block table, the
+    wo projection and residual, RMSNorm, SwiGLU and the second residual
+    (``fused_decode.fused_decode_layer``; shapes there).  ``impl``:
+    'cuda' | 'ref' | None (by device)."""
+    args = (h, q, k_pages, v_pages, tables, lengths, wo, mlp_scale, w_gate,
+            w_up, w_down)
+    if _impl("fused_decode_layer", impl, q) == "ref":
+        return ref.fused_decode_layer_ref(*args, window=window, eps=eps)
+    return _fused_layer(*args, window=window, eps=eps)
+
+
+def rms_norm(x, w, *, eps: float = 1e-6, impl=None):
+    """RMSNorm over the last axis of x (any leading shape); w: (d,).
+    ``impl``: 'cuda' | 'ref' | None (by device)."""
+    shape = x.shape
+    x2 = x.reshape(-1, shape[-1])
+    if _impl("rms_norm", impl, x) == "ref":
+        y = ref.rms_norm_ref(x2, w, eps=eps)
+    else:
+        y = rms_norm_2d(x2.contiguous(), w.contiguous(), eps=eps)
+    return y.reshape(shape)
+
+
+def swiglu(x, w_gate, w_up, w_down, *, impl=None):
+    """SwiGLU MLP over the last axis of x (any leading shape); w_gate/w_up:
+    (d, f); w_down: (f, d), of x's dtype.  ``impl``: 'cuda' | 'ref' | None
+    (by device)."""
+    shape = x.shape
+    x2 = x.reshape(-1, shape[-1])
+    if _impl("swiglu", impl, x) == "ref":
+        y = ref.swiglu_ref(x2, w_gate, w_up, w_down)
+    else:
+        y = swiglu_2d(x2.contiguous(), w_gate.contiguous(),
+                      w_up.contiguous(), w_down.contiguous())
+    return y.reshape(*shape[:-1], w_down.shape[-1])
 
 
 def _impl(op: str, impl, q) -> str:

@@ -7,6 +7,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1e30
 
@@ -189,3 +190,48 @@ def paged_verify_quant_ref(q, k_pages, v_pages, k_scales, v_scales,
     v = _gather_dequant(v_pages, v_scales, tables)
     mask = _verify_mask(lengths, kk, nb * bs, window, q.device)
     return _verify_attend(q, k, v, mask)
+
+
+# ---------------------------------------------------------------------------
+# RMSNorm, SwiGLU and the fused paged decode layer
+# ---------------------------------------------------------------------------
+
+def rms_norm_ref(x, w, *, eps: float = 1e-6):
+    """``x * rsqrt(mean(x^2) + eps) * w`` over the last axis in f32, cast
+    back to x's dtype."""
+    x32 = x.float()
+    var = x32.square().mean(dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps) * w.float()).to(x.dtype)
+
+
+def swiglu_ref(x, w_gate, w_up, w_down):
+    """``silu(x @ Wg) * (x @ Wu) @ Wd`` in f32, cast back to x's dtype."""
+    x32 = x.float()
+    g = x32 @ w_gate.float()
+    u = x32 @ w_up.float()
+    return ((F.silu(g) * u) @ w_down.float()).to(x.dtype)
+
+
+def fused_decode_layer_ref(h, q, k_pages, v_pages, tables, lengths, wo,
+                           mlp_scale, w_gate, w_up, w_down, *, window=None,
+                           eps: float = 1e-6):
+    """The fused paged decode layer: paged attention through the block
+    table, output projection + residual, RMSNorm, SwiGLU and the second
+    residual — the whole per-layer epilogue after the QKV projection,
+    rope and the KV scatter (which stay outside: they write the pages).
+
+    h: (n, d) residual stream; q: (n, nh, hd) roped queries; lengths:
+    valid rows per lane INCLUDING the current token (the
+    ``paged_attention_ref`` convention).  The attention output comes back
+    in q's dtype, as in the JAX oracle; everything after it is f32, cast
+    once to h's dtype."""
+    n, nh, hd = q.shape
+    attn = paged_attention_ref(q, k_pages, v_pages, tables, lengths,
+                               window=window)
+    h1 = h.float() + attn.reshape(n, nh * hd).float() @ wo.float()
+    var = h1.square().mean(dim=-1, keepdim=True)
+    hn = h1 * torch.rsqrt(var + eps) * mlp_scale.float()
+    g = hn @ w_gate.float()
+    u = hn @ w_up.float()
+    out = h1 + (F.silu(g) * u) @ w_down.float()
+    return out.to(h.dtype)

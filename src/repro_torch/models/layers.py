@@ -55,7 +55,13 @@ def init_rmsnorm(d: int, dtype, device, lead=()) -> Params:
     return {"scale": torch.ones((*lead, d), dtype=dtype, device=device)}
 
 
-def rms_norm(params: Params, x: torch.Tensor, eps: float = 1e-6):
+def rms_norm(params: Params, x: torch.Tensor, eps: float = 1e-6,
+             use_kernel: bool = False):
+    """``use_kernel`` routes through ``kernels.ops.rms_norm`` (the CUDA
+    kernel on a CUDA device); no caller sets it, as in the JAX package."""
+    if use_kernel:
+        from repro_torch.kernels import ops as kops
+        return kops.rms_norm(x, params["scale"], eps=eps)
     dtype = x.dtype
     x32 = x.float()
     var = x32.square().mean(dim=-1, keepdim=True)
@@ -270,6 +276,13 @@ def _scatter_kv_rows(pages: dict, blk, off, k, v) -> None:
     pages["v"][blk, off] = v.to(pages["v"].dtype)
 
 
+# the fused layer's impls, and the attention impl each means where the
+# fused layer does not apply (int8 pools, non-RMSNorm/SwiGLU configs) and
+# for speculative verify: "fused" is the kernel (on a CUDA device; the
+# plain version on the CPU), "fused_ref" the plain version anywhere
+FUSED_IMPLS = {"fused": None, "fused_ref": "ref"}
+
+
 def paged_attention_decode(params: Params, x: torch.Tensor, cfg, *,
                            pages: dict, tables: torch.Tensor,
                            lengths: torch.Tensor,
@@ -285,8 +298,10 @@ def paged_attention_decode(params: Params, x: torch.Tensor, cfg, *,
     Writes this step's K/V row through the block table in place and
     attends to the ``[0, lengths]`` logical prefix through
     ``kernels.ops.paged_attention`` (``paged_attention_quant`` for int8
-    pools).  Returns ``out`` (n, 1, d)."""
+    pools).  A fused ``impl`` takes the attention kernel it stands for
+    (``FUSED_IMPLS``).  Returns ``out`` (n, 1, d)."""
     from repro_torch.kernels import ops as kops
+    impl = FUSED_IMPLS.get(impl, impl)
     n = x.shape[0]
     q, k, v = _project_qkv(params, x, cfg)
     positions = lengths[:, None]                        # (n, 1)
@@ -308,6 +323,43 @@ def paged_attention_decode(params: Params, x: torch.Tensor, cfg, *,
     return out @ params["wo"].to(x.dtype)
 
 
+def paged_decode_layer_fused(lp: Params, h: torch.Tensor, cfg, *,
+                             pages: dict, tables: torch.Tensor,
+                             lengths: torch.Tensor,
+                             window: Optional[int] = None, impl=None):
+    """One FULL pre-norm decode block through the fused layer: the
+    attention norm, QKV projection with qk-norm, rope and the K/V scatter
+    run here (they write the pages); attention through the block table,
+    the wo projection, residual, MLP RMSNorm, SwiGLU and the second
+    residual run in ``kernels.ops.fused_decode_layer`` (``impl``: 'cuda'
+    | 'ref' | None, by device).  Requires ``cfg.norm == 'rms'``,
+    ``cfg.mlp == 'swiglu'`` and an fp pool — callers gate on that.
+
+    h: (n, 1, d) residual stream.  Returns the new residual (n, 1, d)."""
+    from repro_torch.kernels import ops as kops
+    n = h.shape[0]
+    x = rms_norm(lp["attn_norm"], h)
+    q, k, v = _project_qkv(lp["attn"], x, cfg)
+    positions = lengths[:, None]
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    bs = pages["k"].shape[1]
+    lens = lengths.long()
+    blk = tables[torch.arange(n, device=h.device), lens // bs].long()
+    _scatter_kv_rows(pages, blk, lens % bs, k[:, 0], v[:, 0])
+    dt = h.dtype
+    # every operand in h's dtype, the 1-D norm scale too (as the JAX
+    # package casts them before its kernel call)
+    out = kops.fused_decode_layer(
+        h[:, 0].contiguous(), q[:, 0].contiguous(), pages["k"], pages["v"],
+        tables, lengths + 1, lp["attn"]["wo"].to(dt).contiguous(),
+        lp["mlp_norm"]["scale"].to(dt).contiguous(),
+        lp["mlp"]["w_gate"].to(dt).contiguous(),
+        lp["mlp"]["w_up"].to(dt).contiguous(),
+        lp["mlp"]["w_down"].to(dt).contiguous(), window=window, impl=impl)
+    return out[:, None, :]
+
+
 def paged_attention_verify(params: Params, x: torch.Tensor, cfg, *,
                            pages: dict, tables: torch.Tensor,
                            lengths: torch.Tensor,
@@ -323,9 +375,12 @@ def paged_attention_verify(params: Params, x: torch.Tensor, cfg, *,
     through ``kernels.ops.paged_verify``.  int8 pools take the gathered
     ``ref.paged_verify_quant_ref`` whatever ``impl`` says, as the JAX
     package does: draft depths are too small to earn a quant verify
-    kernel.  Returns ``out`` (n, k, d)."""
+    kernel.  A fused ``impl`` (a spec engine over a fused paged inner)
+    verifies through the verify kernel (``FUSED_IMPLS``).  Returns ``out``
+    (n, k, d)."""
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import ref as kref
+    impl = FUSED_IMPLS.get(impl, impl)
     n, kk, _ = x.shape
     q, k, v = _project_qkv(params, x, cfg)
     positions = lengths.long()[:, None] \
@@ -372,8 +427,15 @@ def init_swiglu(generator, cfg, device, lead=()) -> Params:
     }
 
 
-def swiglu(params: Params, x: torch.Tensor) -> torch.Tensor:
+def swiglu(params: Params, x: torch.Tensor,
+           use_kernel: bool = False) -> torch.Tensor:
+    """``use_kernel`` routes through ``kernels.ops.swiglu`` (the CUDA
+    kernel on a CUDA device); no caller sets it, as in the JAX package."""
     dt = x.dtype
+    if use_kernel:
+        from repro_torch.kernels import ops as kops
+        return kops.swiglu(x, params["w_gate"].to(dt),
+                           params["w_up"].to(dt), params["w_down"].to(dt))
     g = x @ params["w_gate"].to(dt)
     u = x @ params["w_up"].to(dt)
     return (F.silu(g) * u) @ params["w_down"].to(dt)

@@ -159,16 +159,22 @@ def decode_step(cfg, params, state, tokens, *, window=None):
     return logits, new_state
 
 
-def _paged_layers(cfg, params, pages, tokens, attend):
-    """Embed ``tokens``, run every layer with ``attend(lp, normed x,
-    layer pages)`` as its attention block, and unembed.  Each layer's
-    pages are views of the stacked planes (k, v and, for int8 pools,
-    k_scale, v_scale), written in place."""
+def _unfused_block(cfg, attend):
+    """A pre-norm block with ``attend(lp, normed x, layer pages)`` as its
+    attention."""
+    def block(lp, x, pg):
+        x = x + attend(lp["attn"], _norm(cfg, lp["attn_norm"], x), pg)
+        return x + _mlp(cfg, lp["mlp"], _norm(cfg, lp["mlp_norm"], x))
+    return block
+
+
+def _paged_layers(cfg, params, pages, tokens, block):
+    """Embed ``tokens``, run ``block(lp, x, layer pages)`` for every layer,
+    and unembed.  Each layer's pages are views of the stacked planes (k, v
+    and, for int8 pools, k_scale, v_scale), written in place."""
     x = nn.embed(params["embed"], tokens, torch_dtype(cfg.dtype))
     for i, lp in enumerate(layer_slices(params["layers"], cfg.n_layers)):
-        pg = {name: plane[i] for name, plane in pages.items()}
-        x = x + attend(lp["attn"], _norm(cfg, lp["attn_norm"], x), pg)
-        x = x + _mlp(cfg, lp["mlp"], _norm(cfg, lp["mlp_norm"], x))
+        x = block(lp, x, {name: plane[i] for name, plane in pages.items()})
     x = _norm(cfg, params["final_norm"], x)
     return nn.unembed(params["embed"], x)
 
@@ -181,13 +187,24 @@ def paged_decode_step(cfg, params, pages, tables, lengths, tokens, *,
     {"k_scale","v_scale"} of (L, P, bs, nkv) for an int8 pool — written in
     place (this step's row per lane); tables: (n, B) int32 physical block
     ids per lane; lengths: (n,) int32 rows already written (this token's
-    row index).  ``impl`` routes the attention (``kernels.ops``).  Returns
-    logits (n, 1, V)."""
+    row index).  ``impl`` routes the attention (``kernels.ops``): 'cuda',
+    'ref' or None (by device).  ``impl='fused'`` (the kernel; its plain
+    version on the CPU) or ``'fused_ref'`` (the plain version anywhere)
+    runs each whole block through ``kernels.ops.fused_decode_layer`` when
+    the config qualifies (RMSNorm + SwiGLU, fp pool); other configs quietly
+    take the equivalent unfused path.  Returns logits (n, 1, V)."""
     win = window if window is not None else cfg.window
-    return _paged_layers(cfg, params, pages, tokens, lambda lp, x, pg:
-                         nn.paged_attention_decode(
-                             lp, x, cfg, pages=pg, tables=tables,
-                             lengths=lengths, window=win, impl=impl))
+    if (impl in nn.FUSED_IMPLS and cfg.norm == "rms" and cfg.mlp == "swiglu"
+            and "k_scale" not in pages):
+        op_impl = nn.FUSED_IMPLS[impl]
+        return _paged_layers(cfg, params, pages, tokens, lambda lp, x, pg:
+                             nn.paged_decode_layer_fused(
+                                 lp, x, cfg, pages=pg, tables=tables,
+                                 lengths=lengths, window=win, impl=op_impl))
+    return _paged_layers(cfg, params, pages, tokens, _unfused_block(
+        cfg, lambda lp, x, pg: nn.paged_attention_decode(
+            lp, x, cfg, pages=pg, tables=tables, lengths=lengths,
+            window=win, impl=impl)))
 
 
 # ---------------------------------------------------------------------------
@@ -226,10 +243,10 @@ def paged_verify_step(cfg, params, pages, tables, lengths, tokens, *,
     the attention: 'cuda' is the multi-query kernel, 'ref' the gathered
     plain version."""
     win = window if window is not None else cfg.window
-    return _paged_layers(cfg, params, pages, tokens, lambda lp, x, pg:
-                         nn.paged_attention_verify(
-                             lp, x, cfg, pages=pg, tables=tables,
-                             lengths=lengths, window=win, impl=impl))
+    return _paged_layers(cfg, params, pages, tokens, _unfused_block(
+        cfg, lambda lp, x, pg: nn.paged_attention_verify(
+            lp, x, cfg, pages=pg, tables=tables, lengths=lengths,
+            window=win, impl=impl)))
 
 
 # ---------------------------------------------------------------------------

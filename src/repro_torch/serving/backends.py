@@ -65,6 +65,9 @@ from repro_torch.training.train_loop import (make_decode_step,
                                              make_prefill_into_cache,
                                              make_verify_step)
 
+# paged decode impls: the attention kernel, its plain version, and the
+# fused decode layer (``models.transformer.paged_decode_step``)
+PAGED_IMPLS = ("cuda", "ref", "fused")
 TIERED_LATER = ("host-DRAM KV tiering is ported in a later slice of the "
                 "PyTorch port")
 
@@ -247,13 +250,11 @@ class PagedBackend:
         self.pool = BlockPool(cfg, worst, block_size, self.device,
                               self.kv_dtype)
         self.budget = PagedKVBudget(ledger, self.pool.block_bytes)
-        if paged_impl in ("fused", "fused_interpret"):
-            raise NotImplementedError(
-                "the fused paged decode layer (paged_impl='fused') is "
-                "ported in a later slice of the PyTorch port")
-        if paged_impl not in (None, *kops.IMPLS):
+        if paged_impl not in (None, *PAGED_IMPLS):
             raise ValueError(f"paged_impl={paged_impl!r}: expected one of "
-                             f"{kops.IMPLS}")
+                             f"{PAGED_IMPLS} ('fused' is the fused decode "
+                             "layer: its kernel on a CUDA device, its plain "
+                             "version on the CPU)")
         self.paged_impl = paged_impl or kops.default_paged_impl(self.device)
         self._decode = make_paged_decode_step(cfg, window=window,
                                               impl=self.paged_impl)

@@ -41,7 +41,21 @@ def test_importing_every_module_pulls_in_no_jax():
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 20      # every module was walked
+    assert int(res.stdout.strip()) >= 30      # every module was walked
+
+
+def test_walk_covers_the_profiler_and_kernel_modules():
+    """The import walk above reaches the profiler package and every
+    kernel wrapper (pkgutil finds them; nothing here is skipped)."""
+    import pkgutil
+
+    import repro_torch
+    mods = {m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                  "repro_torch.")}
+    for name in ("profiler", "profiler.__main__", "profiler.cost",
+                 "profiler.facts", "profiler.probes", "kernels.fused_decode",
+                 "kernels.rmsnorm", "kernels.swiglu", "kernels.ops"):
+        assert f"repro_torch.{name}" in mods
 
 
 def _imported_roots(path):
@@ -181,11 +195,6 @@ def _probe_oracle(cfg):
     Session(HydraConfig(partition_oracle="probe"), device="cpu")
 
 
-def _measured_profile(cfg):
-    from repro_torch.api import Session
-    Session(device="cpu", profile="auto")
-
-
 def _mesh_train_step(cfg):
     from repro_torch.optim.optimizers import OptimizerConfig
     from repro_torch.training.train_loop import make_train_step
@@ -194,9 +203,8 @@ def _mesh_train_step(cfg):
 
 @pytest.mark.parametrize("build,match", [
     (_serve_job, "later slice"), (_spmd_job, "sharding slice"),
-    (_probe_oracle, "profiler slice"), (_measured_profile, "profiler slice"),
-    (_mesh_train_step, "sharding slice"),
-], ids=["serve-job", "spmd-job", "probe-oracle", "profile", "mesh"])
+    (_probe_oracle, "later slice"), (_mesh_train_step, "sharding slice"),
+], ids=["serve-job", "spmd-job", "probe-oracle", "mesh"])
 def test_unported_session_options_raise(build, match):
     from repro_torch.configs import get_config
     with pytest.raises(NotImplementedError, match=match):
@@ -217,7 +225,6 @@ def test_cuda_impl_on_cpu_tensors_raises():
 
 
 @pytest.mark.parametrize("kw,match", [
-    ({"backend": "paged", "paged_impl": "fused"}, "later slice"),
     ({"param_source": object()}, "later slice"),
     ({"bucket_sizes": (8, 16)}, "later slice"),
     ({"tiered_kv": True}, "later slice"),
@@ -236,3 +243,42 @@ def test_unported_config_raises_key_error():
     from repro_torch.configs import get_config
     with pytest.raises(KeyError, match="not ported"):
         get_config("yi-34b")
+
+
+@pytest.mark.parametrize("profile", ["auto", None, "facts", "path"])
+def test_session_profile_is_ported(profile, tmp_path, monkeypatch):
+    """``Session(profile=...)`` takes what the JAX Session takes: "auto"
+    (no profile on disk here: analytic pricing), None, a MachineFacts or a
+    path; a fresh profile prices plans as measured.  Anything else is a
+    TypeError."""
+    from repro_torch.api import Session
+    from repro_torch.profiler import MachineFacts, current_fingerprint
+    monkeypatch.chdir(tmp_path)           # "auto" finds no profile here
+    facts = MachineFacts(fingerprint=current_fingerprint("cpu"))
+    facts.transfer = {"h2d": [{"bytes": 1, "seconds": 1e-6},
+                              {"bytes": 2, "seconds": 2e-6}]}
+    arg = {"facts": facts, "path": facts.save(str(tmp_path / "f.json"))}
+    session = Session(device="cpu", profile=arg.get(profile, profile))
+    assert session.cost.measured == (profile in ("facts", "path"))
+    session.cost.transfer_seconds(10)
+    prov = session.cost.provenance_summary()
+    assert prov["n_measured"] == (1 if session.cost.measured else 0)
+    with pytest.raises(TypeError, match="profile"):
+        Session(device="cpu", profile=3)
+
+
+def test_fused_paged_impl_is_ported():
+    """``paged_impl="fused"`` builds a paged engine that reports it;
+    ``"fused_interpret"`` (the JAX package's interpreter mode) has no
+    meaning in the port and raises a ValueError naming "fused"."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.serving.engine import InferenceEngine
+    cfg = get_config("qwen3-0.6b", smoke=True)
+    params = api.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    eng = InferenceEngine(cfg, params, backend="paged", paged_impl="fused",
+                          device="cpu")
+    assert eng.paged_impl == eng.summary()["paged_impl"] == "fused"
+    with pytest.raises(ValueError, match="'fused'"):
+        InferenceEngine(cfg, params, backend="paged",
+                        paged_impl="fused_interpret", device="cpu")

@@ -96,7 +96,7 @@ def test_partition_matches_jax(arch, train):
         assert [vars(s) for s in r.shards] == [vars(s) for s in jr.shards]
         assert (r.shared_bytes, r.budget_bytes, r.oracle) == \
             (jr.shared_bytes, jr.budget_bytes, jr.oracle)
-    with pytest.raises(NotImplementedError, match="profiler slice"):
+    with pytest.raises(NotImplementedError, match="later slice"):
         pt.partition(cfg, params, sg.build_plan(cfg), budget_bytes=budget,
                      batch=2, seq=SEQ, oracle="probe")
 
@@ -201,7 +201,7 @@ def _sessions(arch):
     hc = dict(n_devices=2, device_budget_bytes=BUDGET[arch],
               fixed_unit_runtime=1e-3)
     js = JSession(JHydraConfig(**hc), profile=None)
-    ps = Session(HydraConfig(**hc), device="cpu")
+    ps = Session(HydraConfig(**hc), device="cpu", profile=None)
     for seed, lr in enumerate(LRS):
         jparams, params = _params(jcfg, seed)
         jl, pl = _loaders(cfg, seed)
@@ -307,7 +307,7 @@ def test_eval_job_matches_jax(attn_impl):
     jl, pl = _loaders(cfg, 5)
     hc = dict(n_devices=1, device_budget_bytes=4 * 10**6)
     js = JSession(JHydraConfig(**hc), profile=None)
-    ps = Session(HydraConfig(**hc), device="cpu")
+    ps = Session(HydraConfig(**hc), device="cpu", profile=None)
     js.submit(JEvalJob(jcfg, jl, n_batches=2, params=jparams, seq=SEQ))
     ps.submit(EvalJob(cfg, pl, n_batches=2, params=params, seq=SEQ))
     jev, ev = js.run().evals["eval-0"], ps.run().evals["eval-0"]
