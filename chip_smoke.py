@@ -11,8 +11,8 @@ Phases (any failure exits non-zero before the result line):
    csrc`` (``paged_attention.cu``: the fp and int8 decode kernels;
    ``paged_verify.cu``: the verify kernel; ``flash_attention.cu``: the
    flash kernel; ``fused_decode.cu``: the fused decode layer;
-   ``rmsnorm.cu`` and ``swiglu.cu``), with nvcc for sm_90a, one nvcc per
-   source, in parallel;
+   ``rmsnorm.cu``, ``swiglu.cu`` and ``ssd_scan.cu``), with nvcc for
+   sm_90a, one nvcc per source, in parallel;
 3. kernel vs plain — each kernel against its plain PyTorch version at the
    serving shapes of qwen3-0.6b (16 heads, 8 KV heads, head_dim 128,
    block 16; 8 and 32 lanes; ragged lengths up to 4096 with block
@@ -79,22 +79,52 @@ Phases (any failure exits non-zero before the result line):
 12. one SHARP forward unit and one backward unit (promotion, compute,
    and for the backward the optimizer step and demotion) profiled;
 13. profiler — ``build_facts()`` on the card (transfer rows in GB/s, the
-   dense decode grid, the seven kernel rows; saved to
-   ``build/profile_facts.json``), counting the RMSNorm and SwiGLU kernels'
-   launches; phase 10's session planned with those facts (measured
-   queries > 0, none without, the same shard boundaries); a smoke-width
-   two-model session trained with and without the facts (identical
-   losses).
+   dense, ssm and hybrid decode grids, the seven kernel rows — the JAX
+   probe has no SSD row; saved to ``build/profile_facts.json``), counting
+   the RMSNorm and SwiGLU kernels' launches; phase 10's session planned
+   with those facts (measured queries > 0, none without, the same shard
+   boundaries); a smoke-width two-model session trained with and without
+   the facts (identical losses);
+14. build — ``ssd_scan.cu`` is part of phase 2's parallel build;
+15. SSD kernel vs plain — ``ssd_scan_bshpn`` against the plain chunked
+   scan in bf16 (2e-2) and f32 (2e-4, the JAX test's tolerance), rel+abs:
+   zamba2's Mamba2 (b 1 and 2, s 256 / 1024 / 4096, h 64, p = n = 64,
+   chunk 256, B/C broadcast over heads and contiguous), xlstm-350m's
+   mLSTM (b 1, s 1024, h 4, p = n = 512), the four shapes of
+   tests/test_kernels.py, and the decay edges log_a = 0 and -30 a step;
+   with the kernel's and the plain version's times and the bound (no one
+   PyTorch call computes this function: no library yardstick);
+16. full-width zamba2-1.2b (38 Mamba2 layers, d 2048, shared block 32/32
+   heads of 64 after every 6th layer; bf16 compute, f32 params seeded on
+   the card): (a) serve — ``InferenceEngine`` (slot backend), 8 requests
+   with prompts of 16..128 tokens (numpy seed 0), 16 tokens each, 8
+   lanes: every request gets exactly 16 tokens, decode and prefill tok/s,
+   one decode step profiled, and ``backend="paged"`` falls back to slot
+   with the warning; (b) spilled eval — an ``EvalJob`` of 2 batches of
+   2 x 1024 through the shard queue (2 GB budget) with the flash kernel
+   and without: the kernel must launch batches x 6 times; one flash call
+   at the shared block's shape held against its plain version; (c) one
+   forward of the eval batch composed as the hybrid shard plan's segments
+   with every Mamba2 scan through ``ssd_scan_bshpn``: exactly 38
+   launches, logits gated against an f32 forward as in phase 5, and the
+   kernel's numbers at layer 0's scan inputs; (d) SHARP — two TrainJobs
+   (seeds 0 and 1, AdamW, 2 x 1024, 2 steps) on two virtual devices of
+   8 GB (3 shards a model), gated as phase 10; (e) a small f32 zamba2
+   engine whose lanes at different positions give the tokens each request
+   gets alone.
 
 Each kernel's launch count is zeroed just before the run of its own path
-(a serve run, the spilled eval, or the profiler's ``build_facts`` for
-RMSNorm and SwiGLU) and read just after; the kernel line reports it with
-the kernel's numbers at that path's inputs.
+(a serve run, the spilled eval, the profiler's ``build_facts`` for
+RMSNorm and SwiGLU, the zamba2 kernel forward for the SSD scan) and read
+just after; the kernel line reports it with the kernel's numbers at that
+path's inputs.
 
 The second-to-last lines are a JSON object of per-kernel numbers and the
 card's ``nvidia-smi`` name/power line; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
-Details also go to ``build/chip_smoke.json``.
+Details also go to ``build/chip_smoke.json``.  ``--out-dir DIR`` puts
+that file in DIR instead, beside ``chip_smoke.log``, a copy of every line
+the run printed (the log of a failed run too).
 """
 
 from __future__ import annotations
@@ -117,13 +147,24 @@ NH, NKV, HD, BS = 16, 8, 128, 16
 GEN, CAPACITY, DRAFT_K = 32, 8, 4
 
 
+LOG_FILE = None      # set by --out-dir: every printed line is copied there
+
+
 def fail(msg: str) -> None:
     print(f"chip_smoke FAILED: {msg}", file=sys.stderr, flush=True)
+    _copy_line(f"chip_smoke FAILED: {msg}")
     sys.exit(1)
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+    _copy_line(msg)
+
+
+def _copy_line(msg: str) -> None:
+    if LOG_FILE is not None:
+        with open(LOG_FILE, "a") as f:
+            f.write(msg + "\n")
 
 
 def nvidia_smi_line() -> str:
@@ -1515,11 +1556,12 @@ def train_loader(cfg, seed):
                                       vocab_size=cfg.vocab_size, seed=seed))
 
 
-def phase_sharp_train(cfg):
-    """Two full-width qwen3-0.6b TrainJobs (seeds 0 and 1, lr 1e-4 and
-    3e-4, AdamW) through the port's Session on two virtual devices of 5 GB
-    each, 3 steps of batch 2 x 1024 tokens; then each model's plain
-    full-model training on the card.  Gates: >= 3 shards a model, units =
+def phase_sharp_train(cfg, budget=TRAIN_BUDGET, steps=TRAIN_STEPS):
+    """Two full-width TrainJobs of ``cfg`` (seeds 0 and 1, lr 1e-4 and
+    3e-4, AdamW) through the port's Session on two virtual devices of
+    ``budget`` bytes each (qwen3-0.6b: 5 GB, 3 steps), ``steps`` steps of
+    batch 2 x 1024 tokens; then each model's plain full-model training on
+    the card.  Gates: >= 3 shards a model, units =
     models x steps x 2 x shards, the ledger never over its budget, SHARP
     losses equal to the sequential reference at 3e-4."""
     import numpy as np
@@ -1533,12 +1575,12 @@ def phase_sharp_train(cfg):
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     session = Session(HydraConfig(n_devices=2,
-                                  device_budget_bytes=TRAIN_BUDGET),
+                                  device_budget_bytes=budget),
                       device="cuda", profile=None)
     for seed, lr in enumerate(lrs):
         session.submit(TrainJob(cfg, train_loader(cfg, seed), lr=lr,
                                 optimizer="adamw", epochs=1,
-                                steps_per_epoch=TRAIN_STEPS, seed=seed,
+                                steps_per_epoch=steps, seed=seed,
                                 batch=TRAIN_BATCH, seq=TRAIN_SEQ))
     plan = session.plan()
     setup_s = time.perf_counter() - t0
@@ -1569,7 +1611,7 @@ def phase_sharp_train(cfg):
            "setup_s": setup_s, "wall_s": wall,
            "bytes_promoted": promoted,
            "effective_h2d_gb_per_s": promoted / wall / 1e9,
-           "trained_tok_per_s": (len(execs) * TRAIN_STEPS * TRAIN_BATCH
+           "trained_tok_per_s": (len(execs) * steps * TRAIN_BATCH
                                  * TRAIN_SEQ / wall),
            "ledger_peak_bytes": peak_used,
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
@@ -1578,7 +1620,7 @@ def phase_sharp_train(cfg):
            "plan_shard_bounds": [[(sh["seg_lo"], sh["seg_hi"])
                                   for sh in j.partition["shards"]]
                                  for j in plan.jobs]}
-    log(f"[sharp] 2 x qwen3-0.6b full width, {TRAIN_STEPS} steps of "
+    log(f"[sharp] 2 x {cfg.name} full width, {steps} steps of "
         f"{TRAIN_BATCH}x{TRAIN_SEQ} tokens: shards {shards} "
         f"{res['shard_layers'][0]}, units {train.units_executed}, virtual "
         f"makespan {train.makespan:.4f} s, avg utilization "
@@ -1586,23 +1628,23 @@ def phase_sharp_train(cfg):
         f"{setup_s:.2f} s), bytes promoted {promoted} "
         f"({res['effective_h2d_gb_per_s']:.3f} GB/s over the wall), "
         f"trained {res['trained_tok_per_s']:.1f} tok/s, ledger peak "
-        f"{peak_used} of {TRAIN_BUDGET}, max_memory_allocated "
+        f"{peak_used} of {budget}, max_memory_allocated "
         f"{res['max_memory_allocated']}")
     if min(shards) < 3:
-        fail(f"SHARP partitioned qwen3-0.6b into {shards} shards at a "
-             f"{TRAIN_BUDGET} B budget; expected at least 3 a model")
-    expect = len(execs) * TRAIN_STEPS * 2 * shards[0]
+        fail(f"SHARP partitioned {cfg.name} into {shards} shards at a "
+             f"{budget} B budget; expected at least 3 a model")
+    expect = len(execs) * steps * 2 * shards[0]
     if len(set(shards)) != 1 or train.units_executed != expect:
         fail(f"SHARP ran {train.units_executed} units; expected models x "
              f"steps x 2 x shards = {expect}")
-    if max(peak_used.values()) > TRAIN_BUDGET:
+    if max(peak_used.values()) > budget:
         fail(f"the device ledger went over its budget: {peak_used}")
 
     refs = {}
     for seed, lr in enumerate(lrs):
         _, refs[seed] = train_sequential_reference(
             ModelTask(cfg, train_loader(cfg, seed), lr=lr, epochs=1,
-                      steps_per_epoch=TRAIN_STEPS, seed=seed,
+                      steps_per_epoch=steps, seed=seed,
                       batch=TRAIN_BATCH, seq=TRAIN_SEQ), device="cuda")
         torch.cuda.empty_cache()
     res["sequential_losses"] = refs
@@ -1799,14 +1841,18 @@ def phase_profiler(cfg, sharp_res):
         log(f"[profiler] {d}: " + ", ".join(
             f"{r['bytes']} B {r['gbytes_per_s']:.3f} GB/s"
             for r in facts.transfer[d]))
-    if "dense" not in facts.decode:
-        fail(f"the decode probe measured no dense grid: "
-             f"{facts.notes.get('decode_errors')}")
-    g = facts.decode["dense"]
-    log(f"[profiler] dense decode grid ({g['arch']}, batches {g['batches']} "
-        f"x seqs {g['seqs']}): decode_step_s {g['decode_step_s']}, "
-        f"prefill_s_per_token {g['prefill_s_per_token']}; families that "
-        f"failed: {sorted(facts.notes.get('decode_errors', {}))}")
+    for fam in ("dense", "ssm", "hybrid"):
+        if fam not in facts.decode:
+            fail(f"the decode probe measured no {fam} grid: "
+                 f"{facts.notes.get('decode_errors')}")
+        g = facts.decode[fam]
+        log(f"[profiler] {fam} decode grid ({g['arch']}, batches "
+            f"{g['batches']} x seqs {g['seqs']}): decode_step_s "
+            f"{g['decode_step_s']}, prefill_s_per_token "
+            f"{g['prefill_s_per_token']}")
+    log(f"[profiler] families whose decode probe failed: "
+        f"{sorted(facts.notes.get('decode_errors', {}))}; accept probe "
+        f"errors {sorted(facts.notes.get('accept_errors', {}))}")
     log(f"[profiler] accept rates: {facts.accept_rates}")
     for name, r in facts.kernels.items():
         log(f"[profiler] kernel {name}: kernel_us {r['kernel_us']:.1f} "
@@ -1882,6 +1928,434 @@ def phase_profiler(cfg, sharp_res):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the SSD scan kernel against its plain version
+# ---------------------------------------------------------------------------
+
+SSD_TOL = {"float32": 2e-4, "bfloat16": 2e-2}   # f32: the JAX test's MM_TOL
+
+
+def distinct_bytes(t):
+    """Bytes of the distinct elements a view covers: a broadcast axis
+    (stride 0) counts once, as the kernel must read it once."""
+    n = 1
+    for size, stride in zip(t.shape, t.stride()):
+        if stride != 0:
+            n *= size
+    return n * t.element_size()
+
+
+def measure_ssd(x, log_a, b_coef, c_coef, chunk, dtype_name, flush):
+    """SSD kernel vs plain chunked scan on one set of inputs: error, times,
+    bound.  Least bytes: x, log_a, B, C read once (``distinct_bytes``) and
+    y written once; operations: ``ssd_flops`` (the causal half of each
+    chunk's products).  No one PyTorch call computes this function, so
+    there is no library yardstick."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.ssd_scan import ssd_flops
+
+    with torch.no_grad():
+        out = ops.ssd_scan(x, log_a, b_coef, c_coef, chunk=chunk,
+                           impl="cuda")[0]
+        exp = ref.ssd_chunked_ref(x, log_a, b_coef, c_coef, chunk)[0]
+        torch.cuda.synchronize()
+        diff = (out.float() - exp.float()).abs()
+        tol = SSD_TOL[dtype_name]
+        ok = bool((diff <= tol + tol * exp.float().abs()).all())
+        res = {"max_abs_err": float(diff.max()),
+               "max_abs_ref": float(exp.float().abs().max()),
+               "within_tol": ok and bool(torch.isfinite(out).all()),
+               "ms": cuda_ms(lambda: ops.ssd_scan(
+                   x, log_a, b_coef, c_coef, chunk=chunk, impl="cuda"),
+                   flush=flush),
+               "plain_ms": cuda_ms(lambda: ref.ssd_chunked_ref(
+                   x, log_a, b_coef, c_coef, chunk), iters=5, flush=flush),
+               "library_ms": None}
+    bsz, s, h, p = x.shape
+    n = b_coef.shape[-1]
+    nbytes = sum(distinct_bytes(t) for t in (x, log_a, b_coef, c_coef)) \
+        + x.numel() * x.element_size()
+    flops = ssd_flops(bsz, s, h, p, n, chunk)
+    res["bound_ms"], res["bound_by"] = bound_ms(nbytes, flops, dtype_name)
+    res["bytes"], res["flops"] = nbytes, flops
+    del out, exp, diff
+    return res
+
+
+def ssd_inputs(b, s, h, p, n, dtype, seed, broadcast=False, log_a=None):
+    """The reference tests' scales (x ~ N(0,1), log decay -|N(0,1)|·0.1,
+    B and C ~ N(0,1)·0.3), made on the card from ``seed``; ``broadcast``
+    expands one B/C group over the heads (head stride 0, the Mamba2
+    block's layout); ``log_a`` pins every decay to one value."""
+    import torch
+    gen = torch.Generator("cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+
+    x = randn(b, s, h, p).to(dtype)
+    la = (-randn(b, s, h).abs() * 0.1 if log_a is None
+          else torch.full((b, s, h), float(log_a), device="cuda"))
+    hb = 1 if broadcast else h
+    bc = (randn(b, s, hb, n) * 0.3).to(dtype)
+    cc = (randn(b, s, hb, n) * 0.3).to(dtype)
+    if broadcast:
+        bc, cc = bc.expand(b, s, h, n), cc.expand(b, s, h, n)
+    return x, la, bc, cc
+
+
+def phase_ssd_sweep(flush):
+    """zamba2's Mamba2 (b 1, 2; s 256, 1024, 4096; h 64, p = n = 64, chunk
+    256; B/C broadcast and contiguous), xlstm-350m's mLSTM (b 1, s 1024,
+    h 4, p = n = 512), the four shapes of tests/test_kernels.py, and the
+    decay edges (log_a = 0 and -30 per step), in bf16 and f32."""
+    import torch
+    cases = []          # b, s, h, p, n, chunk, broadcast, log_a
+    for b in (1, 2):
+        for s in (256, 1024, 4096):
+            for bc in (True, False):
+                cases.append((b, s, 64, 64, 64, 256, bc, None))
+    cases.append((1, 1024, 4, 512, 512, 256, False, None))
+    cases += [(2, 256, 2, 16, 8, 64, False, None),
+              (1, 128, 4, 64, 32, 32, False, None),
+              (1, 64, 1, 8, 8, 64, False, None),
+              (2, 96, 2, 32, 16, 32, False, None)]
+    cases += [(1, 1024, 64, 64, 64, 256, True, 0.0),
+              (1, 1024, 64, 64, 64, 256, True, -30.0)]
+    rows = []
+    for dt in ("bfloat16", "float32"):
+        for i, (b, s, h, p, n, chunk, bc, la) in enumerate(cases):
+            x, lg, bm, cm = ssd_inputs(b, s, h, p, n, getattr(torch, dt),
+                                       300 + i, broadcast=bc, log_a=la)
+            r = measure_ssd(x, lg, bm, cm, chunk, dt, flush)
+            r.update(dtype=dt, b=b, s=s, h=h, p=p, n=n, chunk=chunk,
+                     broadcast=bc, log_a=la)
+            rows.append(r)
+            log(f"[kernel] ssd_scan {dt} b={b} s={s} h={h} p={p} n={n} "
+                f"chunk={chunk} broadcast_bc={bc} log_a={la}: max_abs_err="
+                f"{r['max_abs_err']:.3g} (tol {SSD_TOL[dt]} rel+abs, max "
+                f"|ref| {r['max_abs_ref']:.3g}) ms={r['ms']:.4f} plain_ms="
+                f"{r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
+                f"({r['bound_by']})")
+            if not r["within_tol"]:
+                fail(f"ssd_scan kernel disagrees with its plain version "
+                     f"({dt}, b={b}, s={s}, h={h}, p={p}, n={n}, chunk="
+                     f"{chunk}, broadcast={bc}, log_a={la}): max abs err "
+                     f"{r['max_abs_err']}")
+            del x, lg, bm, cm
+        torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 16: full-width zamba2-1.2b — serve, spilled eval, kernel forward,
+# SHARP, small f32 engine
+# ---------------------------------------------------------------------------
+
+Z_GEN, Z_CAPACITY, Z_REQUESTS = 16, 8, 8
+Z_TRAIN_BUDGET = 8 * 10**9    # per virtual device: 3 shards a model
+Z_TRAIN_STEPS = 2
+
+
+def zamba_prompts(vocab, seed=0):
+    """8 prompts of 16..128 tokens (numpy seed 0)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(16, 129, Z_REQUESTS)
+    return [rng.integers(0, vocab, int(n), dtype=np.int32) for n in lens]
+
+
+def phase_zamba_serve(cfg, params, prompts):
+    """Full-width zamba2 through ``InferenceEngine`` (slot backend): every
+    request gets exactly Z_GEN tokens; decode and prefill tok/s; one
+    decode step over the final pool state profiled; ``backend="paged"``
+    falls back to slot with a CapabilityFallbackWarning."""
+    import warnings
+
+    import torch
+
+    from repro_torch.models import api
+    from repro_torch.models.registry import CapabilityFallbackWarning
+    from repro_torch.serving.engine import InferenceEngine
+    from repro_torch.tree import tree_map
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        peng = InferenceEngine(cfg, params, capacity=1, max_seq=32,
+                               backend="paged", device="cuda")
+    s = peng.summary()
+    fell_back = (any(issubclass(w.category, CapabilityFallbackWarning)
+                     for w in caught)
+                 and (s["backend"], s["requested_backend"])
+                 == ("slot", "paged"))
+    del peng
+    if not fell_back:
+        fail("zamba2: backend='paged' did not fall back to slot with a "
+             "CapabilityFallbackWarning")
+    warm = InferenceEngine(cfg, params, capacity=2, max_seq=32,
+                           device="cuda")
+    for p in prompts[:2]:
+        warm.submit(p[:8], 2)
+    warm.run()
+    del warm
+    torch.cuda.empty_cache()
+
+    max_seq = max(len(p) for p in prompts) + Z_GEN
+    eng = InferenceEngine(cfg, params, capacity=Z_CAPACITY, max_seq=max_seq,
+                          device="cuda")
+    for i, p in enumerate(prompts):
+        eng.submit(p, Z_GEN, request_id=f"z{i}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    summary = eng.summary()
+    done = {r.request_id: r for r in eng.completed}
+    if len(done) != len(prompts):
+        fail(f"zamba2 serve: served {len(done)} of {len(prompts)} requests")
+    for rid, r in done.items():
+        if len(r.generated) != Z_GEN or r.status.value != "finished":
+            fail(f"zamba2 serve {rid}: {len(r.generated)} tokens, status "
+                 f"{r.status}")
+    res = {"requests": len(done), "gen": Z_GEN, "wall_s": wall,
+           "fell_back_from_paged": fell_back,
+           "prompt_lens": [len(p) for p in prompts],
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           **{k: summary.get(k) for k in (
+               "backend", "slot_bytes", "decode_steps", "prefill_calls",
+               "prefill_tok_per_s", "decode_tok_per_s", "kv_peak_bytes",
+               "peak_concurrency")},
+           "prefill_s": eng.prefill_s, "decode_s": eng.decode_s,
+           "tokens": {rid: r.generated for rid, r in done.items()}}
+    log(f"[zamba2 serve] full width (38 Mamba2 layers, 6 shared-block "
+        f"sites): {res['requests']} requests x {Z_GEN} tokens, prompts "
+        f"{res['prompt_lens']}, prefill {res['prefill_tok_per_s']} tok/s "
+        f"(token by token), decode {res['decode_tok_per_s']} tok/s, "
+        f"decode_steps {res['decode_steps']}, prefill_calls "
+        f"{res['prefill_calls']}, slot_bytes {res['slot_bytes']}, wall "
+        f"{wall:.2f} s, max_memory_allocated {res['max_memory_allocated']}"
+        f"; paged request fell back to slot: {fell_back}")
+    state = tree_map(lambda t: t.clone() if isinstance(t, torch.Tensor)
+                     else t, eng.pool.state)
+    toks = torch.zeros((Z_CAPACITY, 1), dtype=torch.long, device="cuda")
+    res["profile"] = profiled(
+        "zamba2 one decode step (8 lanes)",
+        lambda: api.decode_step(cfg, eng.params, state, toks))
+    del eng, state
+    torch.cuda.empty_cache()
+    return res
+
+
+def hybrid_site0_qkv(cfg, params, batch):
+    """The roped q, k, v the shared block's first invocation site computes
+    for ``batch`` (bf16, layer layout): embed, the Mamba2 layers up to the
+    first flagged one, the shared block's attention norm and projection."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import torch_dtype
+    from repro_torch.models import hybrid
+    from repro_torch.models import layers as nn
+    from repro_torch.models.transformer import layer_slices
+
+    first = int(np.argmax(hybrid.attn_flags(cfg)))
+    sp = params["shared_attn"]
+    with torch.no_grad():
+        x = nn.embed(params["embed"], batch["tokens"], torch_dtype(cfg.dtype))
+        for lp in layer_slices(params["layers"], first + 1):
+            x = hybrid.apply_layer(cfg, lp, x, sp, False)
+        q, k, v = nn._project_qkv(sp["attn"],
+                                  nn.rms_norm(sp["attn_norm"], x), cfg)
+        pos = torch.arange(x.shape[1], device="cuda")[None, :]
+        return (nn.apply_rope(q, pos, cfg.rope_theta),
+                nn.apply_rope(k, pos, cfg.rope_theta), v)
+
+
+def plan_forward(cfg, params, batch, use_kernel):
+    """One forward composed of the hybrid shard plan's segments (embed,
+    38 layer segments, head), each Mamba2 layer through
+    ``mamba2_forward(use_kernel=...)`` as ``_hybrid_plan``'s layer apply
+    would run with the switch on."""
+    import torch
+
+    from repro_torch.core import shard_graph as sg
+    from repro_torch.models import hybrid
+
+    plan = sg.build_plan(cfg)
+    flags = hybrid.attn_flags(cfg)
+    act = {}
+    with torch.no_grad():
+        for seg in plan.segments:
+            apply = seg.apply
+            if seg.name.startswith("mamba"):
+                i = int(seg.name[len("mamba"):])
+                apply = sg.hybrid_layer_apply(bool(flags[i]),
+                                              use_kernel=use_kernel)
+            own = sg.resolve_ref(params, seg.param_ref)
+            shared = {n: sg.resolve_ref(params, plan.shared_refs[n])
+                      for n in seg.shared}
+            act = apply(cfg, own, shared, act, batch)
+    return act["logits"]
+
+
+def phase_zamba_eval(cfg, params, flush):
+    """(b) An EvalJob of 2 batches (2 x 1024) through the shard queue,
+    with the flash kernel (attn_impl 'cuda') and with plain attention: the
+    flash kernel must launch batches x 6 times; one flash call at the
+    shared block's shape (its first site's q/k/v) against its plain
+    version.  (c) One forward of the eval batch composed as the hybrid
+    plan's segments with every Mamba2 scan through the SSD kernel: 38
+    launches exactly, and its logits at most LOGIT_REL x as far from an
+    f32 forward as the plain bf16 forward's; the kernel's numbers at layer
+    0's scan inputs of that batch."""
+    import torch
+
+    from repro_torch.api import EvalJob, HydraConfig, Session
+    from repro_torch.data.pipeline import as_tensors
+    from repro_torch.kernels.flash_attention import flash_attention_bhsd
+    from repro_torch.kernels.ssd_scan import ssd_scan_bshpn
+    from repro_torch.models import hybrid, ssm
+    from repro_torch.models import layers as nn
+    from repro_torch.models.transformer import layer_slices
+
+    sites = hybrid.n_attn_invocations(cfg)
+    res = {}
+    for impl in ("cuda", "xla"):
+        session = Session(HydraConfig(n_devices=1,
+                                      device_budget_bytes=EVAL_BUDGET),
+                          device="cuda", profile=None)
+        session.submit(EvalJob(cfg.replace(attn_impl=impl),
+                               train_loader(cfg, 10), n_batches=EVAL_BATCHES,
+                               params=params, batch=TRAIN_BATCH,
+                               seq=TRAIN_SEQ))
+        session.plan()
+        torch.cuda.synchronize()
+        flash_attention_bhsd.launches = 0
+        t0 = time.perf_counter()
+        ev = session.run().evals["eval-0"]
+        torch.cuda.synchronize()
+        ev["wall_s"] = time.perf_counter() - t0
+        ev["launches"] = flash_attention_bhsd.launches
+        res[impl] = ev
+        log(f"[zamba2 eval] attn_impl={impl}: {ev['n_shards']} shards, "
+            f"losses {ev['losses']}, mean {ev['mean_loss']:.6f}, perplexity "
+            f"{ev['perplexity']:.3f}, bytes moved {ev['bytes_moved']}, wall "
+            f"{ev['wall_s']:.3f} s, flash launches {ev['launches']}")
+        del session
+        torch.cuda.empty_cache()
+    if res["cuda"]["launches"] != EVAL_BATCHES * sites:
+        fail(f"zamba2 eval: flash_attention launched "
+             f"{res['cuda']['launches']} times; expected batches x sites = "
+             f"{EVAL_BATCHES * sites}")
+    if res["xla"]["launches"] != 0:
+        fail("zamba2 eval: the default attn_impl launched the flash kernel")
+    if res["cuda"]["n_shards"] < 2:
+        fail("zamba2 eval ran unspilled (one shard)")
+
+    batch = as_tensors(next(iter(train_loader(cfg, 10))), "cuda")
+    q, k, v = hybrid_site0_qkv(cfg, params, batch)
+    m = measure_flash(q, k, v, True, None, "bfloat16", flush)
+    log(f"[kernel] flash_attention at the shared block's first site "
+        f"(b {TRAIN_BATCH}, s {TRAIN_SEQ}, {cfg.n_heads}/{cfg.n_kv_heads} "
+        f"heads of {cfg.head_dim}, causal): ms={m['ms']:.4f} plain_ms="
+        f"{m['plain_ms']:.4f} library_ms={m['library_ms']:.4f} bound_ms="
+        f"{m['bound_ms']:.4f} ({m['bound_by']}) max_abs_err="
+        f"{m['max_abs_err']:.3g}")
+    if not m["within_tol"]:
+        fail("flash_attention kernel disagrees with its plain version at "
+             "the shared block's shape")
+    res["flash_hybrid_shape"] = m
+    del q, k, v
+
+    # (c) the forward through the SSD kernel, gated both ways
+    torch.cuda.synchronize()
+    ssd_scan_bshpn.launches = 0
+    t0 = time.perf_counter()
+    kernel_logits = plan_forward(cfg, params, batch, True)
+    torch.cuda.synchronize()
+    fwd_s = time.perf_counter() - t0
+    launches = ssd_scan_bshpn.launches
+    logits = {"cuda": kernel_logits,
+              "ref": plan_forward(cfg, params, batch, False),
+              "f32": plan_forward(cfg.replace(dtype="float32"), params,
+                                  batch, False)}
+    log(f"[zamba2 kernel forward] every Mamba2 scan through ssd_scan_bshpn: "
+        f"{launches} launches, forward {fwd_s:.3f} s")
+    if launches != cfg.n_layers:
+        fail(f"ssd_scan_bshpn launched {launches} times in the kernel "
+             f"forward; expected one per Mamba2 layer = {cfg.n_layers}")
+    res["kernel_forward"] = {"launches": launches, "wall_s": fwd_s,
+                             **logit_gate("zamba2 forward through the SSD "
+                                          "kernel (2 x 1024)", logits)}
+    del logits, kernel_logits
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        lp = layer_slices(params["layers"], 1)[0]
+        x = nn.embed(params["embed"], batch["tokens"], torch.bfloat16)
+        xdt, la, bc, cc, _, _ = ssm.mamba2_scan_inputs(
+            lp["mamba"], nn.rms_norm(lp["norm"], x), cfg)
+    m = measure_ssd(xdt, la, bc, cc, cfg.ssm_chunk, "bfloat16", flush)
+    log(f"[kernel] ssd_scan at the kernel forward's layer 0 inputs (b "
+        f"{TRAIN_BATCH}, s {TRAIN_SEQ}, h {xdt.shape[2]}, p {xdt.shape[3]}, "
+        f"n {bc.shape[3]}, B/C broadcast): ms={m['ms']:.4f} plain_ms="
+        f"{m['plain_ms']:.4f} bound_ms={m['bound_ms']:.4f} "
+        f"({m['bound_by']}) max_abs_err={m['max_abs_err']:.3g}")
+    if not m["within_tol"]:
+        fail("ssd_scan kernel disagrees with its plain version at the "
+             "kernel forward's inputs")
+    res["main_path_kernel"] = m
+    return res
+
+
+def phase_small_hybrid_f32():
+    """A small float32 zamba2 engine (smoke width): lanes at different
+    positions in one pooled step give each request the tokens it gets
+    decoded alone."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.serving.engine import InferenceEngine
+
+    cfg = get_config("zamba2-1.2b", smoke=True).replace(
+        dtype="float32", kv_cache_dtype="float32")
+    params = api.init_params(cfg, torch.Generator("cuda").manual_seed(5),
+                             "cuda")
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab_size, n, dtype=np.int32)
+               for n in (5, 17, 9, 12)]
+
+    def serve(ps, capacity, stagger):
+        eng = InferenceEngine(cfg, params, capacity=capacity, max_seq=40,
+                              device="cuda")
+        pending = list(enumerate(ps))
+        while pending or eng.has_work():
+            for i, p in pending[:stagger]:
+                eng.submit(p, 10, request_id=f"h{i}")
+            pending = pending[stagger:]
+            eng.step()
+        eng.run()
+        return {r.request_id: r.generated for r in eng.completed}
+
+    pooled = serve(prompts, 3, 1)
+    alone = {}
+    for i, p in enumerate(prompts):
+        alone.update({f"h{i}": serve([p], 1, 1)["h0"]})
+    same = sum(pooled[k] == alone[k] for k in alone)
+    log(f"[small f32] zamba2 smoke engine, 3 lanes joining one tick apart: "
+        f"{same} of {len(alone)} requests token-identical to decoding "
+        f"alone")
+    if same != len(alone):
+        fail("zamba2 smoke f32: pooled lanes at different positions did "
+             "not give the tokens each request gets alone")
+    return {"requests": len(alone), "identical": same}
+
+
 def kernel_entry(name, source, replaces, launches, m):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -1891,6 +2365,18 @@ def kernel_entry(name, source, replaces, launches, m):
 
 
 def main() -> None:
+    import argparse
+    global LOG_FILE
+    ap = argparse.ArgumentParser(description="chip smoke run of the port")
+    ap.add_argument("--out-dir", default=None,
+                    help="write chip_smoke.json and chip_smoke.log here "
+                    "(default: chip_smoke.json under build/, no log copy)")
+    args = ap.parse_args()
+    out_dir = Path(args.out_dir) if args.out_dir else ROOT / "build"
+    if args.out_dir:
+        out_dir.mkdir(parents=True, exist_ok=True)
+        LOG_FILE = out_dir / "chip_smoke.log"
+        LOG_FILE.write_text("")
     try:
         import torch
     except ImportError:
@@ -1922,16 +2408,16 @@ def main() -> None:
     report["env"] = {"torch": torch.__version__, "cuda": torch.version.cuda,
                      "device": name, "nvidia_smi": smi}
 
-    # 2. build: paged_attention.cu (fp and int8 entry points),
-    #    paged_verify.cu, flash_attention.cu, fused_decode.cu, rmsnorm.cu
-    #    and swiglu.cu, one nvcc each, in parallel
+    # 2 (and 14). build: paged_attention.cu (fp and int8 entry points),
+    #    paged_verify.cu, flash_attention.cu, fused_decode.cu, rmsnorm.cu,
+    #    swiglu.cu and ssd_scan.cu, one nvcc each, in parallel
     t0 = time.perf_counter()
     kernels.build_all()
     build_s = time.perf_counter() - t0
     log(f"[build] {', '.join(kernels.KERNELS)} (paged_attention_lanes, "
         f"paged_attention_quant_lanes, paged_verify_lanes, "
         f"flash_attention_bhsd, fused_decode_layer, rms_norm_2d, "
-        f"swiglu_2d) built in "
+        f"swiglu_2d, ssd_scan_bshpn) built in "
         f"{build_s:.2f} s (nvcc {_build.nvcc_path()}, sm_90a)")
     for k, text in _build.build_logs.items():
         for line in text.strip().splitlines():
@@ -2081,6 +2567,27 @@ def main() -> None:
 
     # 13. the machine profiler, and plans priced with its facts
     report["profiler"] = phase_profiler(cfg, report["sharp_train"])
+    torch.cuda.empty_cache()
+
+    # 15. the SSD scan kernel against its plain version over its sweep
+    report["ssd_sweep"] = phase_ssd_sweep(flush)
+
+    # 16. full-width zamba2-1.2b: (a) serve, (b) spilled eval and (c) a
+    #     forward through the SSD kernel, (d) SHARP, (e) small f32 engine
+    zcfg = get_config("zamba2-1.2b")
+    zparams = api.init_params(zcfg, torch.Generator("cuda").manual_seed(0),
+                              "cuda")
+    report["zamba_serve"] = phase_zamba_serve(zcfg, zparams,
+                                              zamba_prompts(zcfg.vocab_size))
+    report["zamba_eval"] = phase_zamba_eval(zcfg, zparams, flush)
+    ssd_path = report["zamba_eval"]["main_path_kernel"]
+    del zparams
+    torch.cuda.empty_cache()
+    zsession, report["zamba_sharp"] = phase_sharp_train(
+        zcfg, Z_TRAIN_BUDGET, Z_TRAIN_STEPS)
+    del zsession
+    torch.cuda.empty_cache()
+    report["zamba_small_f32"] = phase_small_hybrid_f32()
     report["total_s"] = time.perf_counter() - t_start
 
     src = "src/repro_torch/kernels/csrc/"
@@ -2111,16 +2618,19 @@ def main() -> None:
                      "src/repro/kernels/swiglu.py:44",
                      report["profiler"]["launches"]["swiglu_2d"],
                      probe_shape["swiglu"]),
+        kernel_entry("ssd_scan_bshpn", src + "ssd_scan.cu",
+                     "src/repro/kernels/ssd_scan.py:60",
+                     report["zamba_eval"]["kernel_forward"]["launches"],
+                     ssd_path),
     ]}
-    out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     log(f"[done] {report['total_s']:.1f} s")
-    print(json.dumps(kernel_line), flush=True)
-    print(smi, flush=True)
-    print(json.dumps({"ok": True, "device": {
+    log(json.dumps(kernel_line))
+    log(smi)
+    log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
-        "count": torch.cuda.device_count()}}), flush=True)
+        "count": torch.cuda.device_count()}}))
 
 
 if __name__ == "__main__":

@@ -2,7 +2,9 @@
 
 Parameters keep the JAX package's layout (nested dicts, stacked layers on
 axis 0, weights ``(in, out)``), so crossing over is a leaf-by-leaf
-conversion.  A caller holding JAX parameters passes
+conversion for every ported family: the dense layers, the xLSTM groups
+(the sLSTM recurrent ``r`` of ``(G, h, p, 4p)`` included) and the
+zamba2 Mamba2 stack with its unstacked ``shared_attn`` subtree.  A caller holding JAX parameters passes
 ``jax.tree.map(np.asarray, params)``: the port itself never sees JAX.
 """
 

@@ -1,6 +1,6 @@
 """Architecture config dataclass + registry (port of ``repro.configs.base``,
-with the fields the ported families read; the MoE, SSM, hybrid and
-encoder-decoder fields come with those families).
+with the fields the ported families read: dense, ssm and hybrid; the
+MoE and encoder-decoder fields come with those families).
 
 ``attn_impl`` follows the port's kernel vocabulary: ``"xla"`` (the
 default, as in the JAX package: plain attention, no kernel) or ``"cuda"``
@@ -57,6 +57,16 @@ class ArchConfig:
     window: Optional[int] = None      # native sliding window
     attn_impl: str = "xla"            # xla | cuda (see ATTN_IMPLS)
 
+    # SSM / recurrent
+    ssm_state: int = 0                # Mamba2 state dim N
+    ssm_expand: int = 2
+    ssm_chunk: int = 256
+    conv_kernel: int = 4
+    slstm_ratio: int = 0              # xLSTM: 1 sLSTM per this many blocks (0=off)
+
+    # hybrid (zamba2-style)
+    attn_every: int = 0               # shared attention block every k core layers
+
     # norms / mlp family / misc
     norm: str = "rms"                 # rms | layer
     mlp: str = "swiglu"               # swiglu | gelu
@@ -97,6 +107,9 @@ class ArchConfig:
 
     @property
     def layer_params(self) -> int:
+        if self.family == "ssm":
+            d_in = self.d_model * self.ssm_expand
+            return 2 * self.d_model * d_in + d_in * (2 * self.ssm_state + 2)
         return self.attn_params + self.mlp_params
 
     @property

@@ -1,6 +1,8 @@
 """Model-as-a-queue-of-segments: the structural substrate for Hydra (port
-of ``repro.core.shard_graph``, the dense and vlm plans; the other families
-come with their model code).
+of ``repro.core.shard_graph``: the dense and vlm plans, the ssm plan
+(one segment per xLSTM group) and the hybrid plan (one segment per Mamba2
+layer, the shared attention block a shared group); the MoE and audio
+plans come with their model code).
 
 A *segment* is the finest cut-point granularity (one layer, or the embed /
 head ends).  The partitioner groups contiguous segments into *shards*;
@@ -12,7 +14,7 @@ Two parameter classes:
 * **own** params — spillable; live host-side, promoted with their shard,
   optimizer-stepped right after the shard's backward unit.
 * **shared** params — referenced by more than one segment (the tied
-  embedding table).  One host copy, promoted alongside any shard that
+  embedding table; zamba2's shared attention block).  One host copy, promoted alongside any shard that
   references it; gradients accumulate across backward units and step once
   when the model's mini-batch completes.
 
@@ -25,10 +27,12 @@ import functools
 from dataclasses import dataclass
 from typing import Any, Callable, Optional
 
+import numpy as np
 import torch
 
+from repro_torch.configs import torch_dtype
+from repro_torch.models import hybrid, ssm, transformer
 from repro_torch.models import layers as nn
-from repro_torch.models import transformer
 from repro_torch.training.losses import softmax_xent
 from repro_torch.tree import tree_map
 
@@ -125,8 +129,67 @@ def _dense_plan(cfg) -> ShardPlan:
     return ShardPlan(cfg, segs, {"embed": ("embed",)}, _xent_loss)
 
 
+def _slice1(lp):
+    return tree_map(lambda a: a[0], lp)
+
+
+def _embed_apply(cfg, own, shared, act, batch):
+    return {"x": nn.embed(shared["embed"], batch["tokens"],
+                          torch_dtype(cfg.dtype))}
+
+
+def _rms_head_apply(cfg, own, shared, act, batch):
+    x = nn.rms_norm(own, act["x"])
+    return {"logits": nn.unembed(shared["embed"], x)}
+
+
+def _ssm_plan(cfg) -> ShardPlan:
+    def group_apply(cfg, own, shared, act, batch):
+        return {"x": ssm.apply_layer_range(cfg, own, act["x"])}
+
+    segs = [Segment("embed", None, ("embed",), _embed_apply, 0.1)]
+    for i in range(ssm.n_groups(cfg)):
+        segs.append(Segment(f"group{i}", ("stack_slice", "layers", i, i + 1),
+                            (), group_apply, 2.0))
+    segs.append(Segment("head", ("final_norm",), ("embed",), _rms_head_apply,
+                        0.5))
+    return ShardPlan(cfg, segs, {"embed": ("embed",)}, _xent_loss)
+
+
+def hybrid_layer_apply(use_attn: bool, *, use_kernel: bool = False):
+    """The segment apply of one hybrid layer: a Mamba2 layer, then the
+    shared block where ``use_attn``.  ``use_kernel`` is
+    ``ssm.mamba2_forward``'s switch; ``build_plan`` never sets it, as the
+    JAX package's plan does not."""
+    def layer_apply(cfg, own, shared, act, batch):
+        lp = _slice1(own)
+        x = act["x"]
+        x = x + ssm.mamba2_forward(lp["mamba"], nn.rms_norm(lp["norm"], x),
+                                   cfg, use_kernel=use_kernel)
+        if use_attn:
+            x, _ = hybrid.apply_shared_attn(cfg, shared["attn"], x)
+        return {"x": x}
+
+    return layer_apply
+
+
+def _hybrid_plan(cfg) -> ShardPlan:
+    flags = np.asarray(hybrid.attn_flags(cfg))
+    segs = [Segment("embed", None, ("embed",), _embed_apply, 0.1)]
+    for i in range(cfg.n_layers):
+        shared_names = ("attn",) if flags[i] else ()
+        segs.append(Segment(f"mamba{i}", ("stack_slice", "layers", i, i + 1),
+                            shared_names, hybrid_layer_apply(bool(flags[i])),
+                            2.0 if flags[i] else 1.0))
+    segs.append(Segment("head", ("final_norm",), ("embed",), _rms_head_apply,
+                        0.5))
+    return ShardPlan(cfg, segs,
+                     {"embed": ("embed",), "attn": ("shared_attn",)},
+                     _xent_loss)
+
+
 def prepare_host_params(cfg, params) -> ParamTree:
-    """Family-specific host-tree tweaks (none for the dense families)."""
+    """Family-specific host-tree tweaks (none for the ported families)."""
     return dict(params)
 
 
@@ -139,6 +202,10 @@ def restore_model_params(cfg, host_params) -> ParamTree:
 def build_plan(cfg) -> ShardPlan:
     if cfg.family in ("dense", "vlm"):
         return _dense_plan(cfg)
+    if cfg.family == "ssm":
+        return _ssm_plan(cfg)
+    if cfg.family == "hybrid":
+        return _hybrid_plan(cfg)
     raise NotImplementedError(
         f"{cfg.name} ({cfg.family}): the shard plan of this family comes "
         "with its model code in a later slice of the port")

@@ -3,7 +3,7 @@
 
 # every CUDA kernel source under csrc/, built together by build_all()
 KERNELS = ("paged_attention", "paged_verify", "flash_attention",
-           "fused_decode", "rmsnorm", "swiglu")
+           "fused_decode", "rmsnorm", "swiglu", "ssd_scan")
 
 
 def build_all() -> None:

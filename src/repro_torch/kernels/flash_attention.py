@@ -38,14 +38,17 @@ def _lib():
     return fn
 
 
-def refuse_grad(q, k, v) -> None:
-    """Raise when autograd would need a gradient through the kernel."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+def refuse_grad(*tensors, name: str = "flash_attention_bhsd") -> None:
+    """Raise when autograd would need a gradient through kernel ``name``."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        advice = ("train with the default attn_impl='xla'"
+                  if name == "flash_attention_bhsd" else
+                  "train with the default use_kernel=False")
         raise RuntimeError(
-            "flash_attention_bhsd has no gradient: the JAX package cannot "
-            "differentiate it either (jax.grad through its pallas_call "
-            "raises), so it runs only on forward-only paths; train with "
-            "the default attn_impl='xla', or call it under torch.no_grad()")
+            f"{name} has no gradient: the JAX package cannot differentiate "
+            "it either (jax.grad through its pallas_call raises), so it "
+            f"runs only on forward-only paths; {advice}, or call it under "
+            "torch.no_grad()")
 
 
 def flash_attention_bhsd(q, k, v, *, causal: bool = True, window=None):

@@ -19,6 +19,7 @@ from repro_torch.kernels.paged_attention import (paged_attention_lanes,
                                                  paged_attention_quant_lanes)
 from repro_torch.kernels.paged_verify import paged_verify_lanes
 from repro_torch.kernels.rmsnorm import rms_norm_2d
+from repro_torch.kernels.ssd_scan import ssd_scan_bshpn
 from repro_torch.kernels.swiglu import swiglu_2d
 
 IMPLS = ("cuda", "ref")
@@ -133,6 +134,25 @@ def swiglu(x, w_gate, w_up, w_down, *, impl=None):
         y = swiglu_2d(x2.contiguous(), w_gate.contiguous(),
                       w_up.contiguous(), w_down.contiguous())
     return y.reshape(*shape[:-1], w_down.shape[-1])
+
+
+def ssd_scan(x, log_a, b_coef, c_coef, *, chunk: int = 256,
+             initial_state=None, impl=None):
+    """The chunked SSD scan (``ssd_scan.ssd_scan_bshpn``; shapes there).
+    Returns ``(y, None)``: the kernel route exports no final state, as in
+    the JAX package (training needs none).  Where the JAX op asserts on
+    ``s % chunk`` or silently drops ``initial_state``, this one raises
+    ``ValueError``.  ``impl``: 'cuda' | 'ref' | None (by device)."""
+    if initial_state is not None:
+        raise ValueError("ssd_scan: the kernel route takes no "
+                         "initial_state (the JAX op drops it silently); "
+                         "use the plain ssd_chunked to carry a state in")
+    if _impl("ssd_scan", impl, x) == "ref":
+        if x.shape[1] % chunk:
+            raise ValueError(f"ssd_scan: s % chunk must be 0 (s="
+                             f"{x.shape[1]}, chunk={chunk})")
+        return ref.ssd_chunked_ref(x, log_a, b_coef, c_coef, chunk)[0], None
+    return ssd_scan_bshpn(x, log_a, b_coef, c_coef, chunk=chunk), None
 
 
 def _impl(op: str, impl, q) -> str:

@@ -235,3 +235,80 @@ def fused_decode_layer_ref(h, q, k_pages, v_pages, tables, lengths, wo,
     u = hn @ w_up.float()
     out = h1 + (F.silu(g) * u) @ w_down.float()
     return out.to(h.dtype)
+
+
+# ---------------------------------------------------------------------------
+# SSD (Mamba2 state-space duality) scan
+# ---------------------------------------------------------------------------
+
+def ssd_scan_ref(x, log_a, b_coef, c_coef, *, chunk: int):
+    """Sequential-recurrence oracle (O(s) loop, independent of the chunked
+    algorithm): ``S_t = exp(a_t) S_{t-1} + x_t B_t^T; y_t = S_t . C_t``.
+
+    x: (b, s, h, p); log_a: (b, s, h); b_coef / c_coef: (b, s, h, n).
+    ``chunk`` is unused (the signature of the kernel it checks).  f32
+    state; returns y in x's dtype."""
+    bsz, s, h, p = x.shape
+    n = b_coef.shape[-1]
+    state = torch.zeros((bsz, h, p, n), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(s):
+        state = state * torch.exp(log_a[:, t].float())[..., None, None] \
+            + x[:, t].float()[..., None] * b_coef[:, t].float()[..., None, :]
+        ys.append(torch.einsum("bhpn,bhn->bhp", state, c_coef[:, t].float()))
+    return torch.stack(ys, dim=1).to(x.dtype)
+
+
+def ssd_chunked_ref(x, log_a, b_coef, c_coef, chunk: int,
+                    initial_state=None):
+    """The chunked SSD scan in plain products — the function
+    ``ssd_scan.ssd_scan_bshpn`` computes, and the body of
+    ``models.ssm.ssd_chunked`` without its kernel switch.
+
+    Quadratic within a chunk (``(C B^T ⊙ decay) x``, the decay masked
+    BEFORE the exp), a linear recurrence of the (p, n) f32 state across
+    chunks.  x: (b, s, h, p) with ``s % chunk == 0``; log_a: (b, s, h);
+    b_coef / c_coef: (b, s, h, n); initial_state: None or (b, h, p, n).
+    Returns ``(y (b, s, h, p) in x's dtype, final_state (b, h, p, n)
+    f32)``."""
+    bsz, s, h, p = x.shape
+    n = b_coef.shape[-1]
+    nc = s // chunk
+    f32 = torch.float32
+    xc = x.reshape(bsz, nc, chunk, h, p).to(f32)
+    ac = log_a.reshape(bsz, nc, chunk, h).to(f32)
+    bc = b_coef.reshape(bsz, nc, chunk, h, n).to(f32)
+    cc = c_coef.reshape(bsz, nc, chunk, h, n).to(f32)
+
+    a_cum = torch.cumsum(ac, dim=2)                          # (b,nc,Q,h)
+    a_tot = a_cum[:, :, -1]                                  # (b,nc,h)
+
+    # intra-chunk: L[i,j] = exp(a_cum[i] - a_cum[j]) for i >= j, else 0
+    li = a_cum[:, :, :, None, :] - a_cum[:, :, None, :, :]   # (b,nc,Q,Q,h)
+    mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                 device=x.device))
+    # mask BEFORE exp: the i<j region has li > 0 and exp overflows (its
+    # gradient would be inf * 0 = NaN)
+    li = torch.where(mask[None, None, :, :, None], li,
+                     torch.full_like(li, NEG_INF))
+    decay = torch.exp(li)
+    scores = torch.einsum("bcqhn,bckhn->bcqkh", cc, bc) * decay
+    y_diag = torch.einsum("bcqkh,bckhp->bcqhp", scores, xc)
+
+    # state contribution of chunk c: sum_j exp(a_tot - a_cum[j]) B_j x_j^T
+    w = torch.exp(a_tot[:, :, None, :] - a_cum)              # (b,nc,Q,h)
+    chunk_states = torch.einsum("bcqh,bcqhn,bcqhp->bchpn", w, bc, xc)
+
+    state = (torch.zeros((bsz, h, p, n), dtype=f32, device=x.device)
+             if initial_state is None else initial_state.to(f32))
+    decay_chunk = torch.exp(a_tot)                           # (b,nc,h)
+    prev_states = []
+    for c in range(nc):             # emit the state BEFORE each chunk
+        prev_states.append(state)
+        state = state * decay_chunk[:, c, :, None, None] + chunk_states[:, c]
+    prev = torch.stack(prev_states, dim=1)                   # (b,nc,h,p,n)
+
+    y_off = torch.einsum("bcqh,bcqhn,bchpn->bcqhp", torch.exp(a_cum), cc,
+                         prev)
+    y = (y_diag + y_off).reshape(bsz, s, h, p).to(x.dtype)
+    return y, state

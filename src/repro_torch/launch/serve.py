@@ -19,6 +19,12 @@ late arrivals join mid-flight.  Prints the same ``engines`` / ``requests``
       --draft-model qwen3-0.6b --draft-k 4 --spec-inner paged
   python -m repro_torch.launch.serve --arch qwen3-0.6b --smoke \\
       --device cpu --batch 3 --prompt-len 12 --gen 6 --capacity 2
+  python -m repro_torch.launch.serve --arch zamba2-1.2b \\
+      --batch 8 --prompt-len 64 --gen 16 --capacity 8
+
+The recurrent families (``zamba2-1.2b``, hybrid; ``xlstm-350m``, ssm)
+serve from the slot backend and prefill token by token; ``--backend
+paged`` or ``spec`` falls back to slot with a warning, as in the JAX CLI.
 
 (The session API, multi-model serving and HTTP come with later slices.)
 """

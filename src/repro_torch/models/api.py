@@ -48,28 +48,39 @@ def make_dummy_batch(cfg, batch_size: int, seq_len: int, generator=None,
     return {"tokens": draw(), "labels": draw()}
 
 
+# weights the layer code reads in f32 whatever the compute dtype (the
+# Mamba2 conv taps, the sLSTM recurrent matrix): cast copies would change
+# their numbers, so they stay as they are
+_F32_AT_USE = ("conv_w", "r")
+
+
 def prepare_params(cfg, params, device="cuda"):
     """Params ready to serve on ``device``: every tensor moved there, and
-    the >= 2-D ``layers`` weights held in ``cfg.dtype``.  The layer code
-    casts each weight to the compute dtype at use, as the JAX package's
+    the weight matrices — >= 3-D ``layers`` leaves (stacked) and >= 2-D
+    ``shared_attn`` leaves — held in ``cfg.dtype``.  The layer code casts
+    each such weight to the compute dtype at use, as the JAX package's
     per-use ``astype`` does; holding the cast copy makes that cast a no-op
     with the same numbers instead of a full weight copy every step.  The
-    embedding table and 1-D norm scales stay as they are (embed gathers
-    then casts; unembed runs in f32)."""
+    embedding table, 1-D norm scales and the weights read in f32
+    (``_F32_AT_USE``) stay as they are (embed gathers then casts; unembed
+    runs in f32)."""
     device = resolve_device(device)
     dt = torch_dtype(cfg.dtype)
 
-    def conv(tree, in_layers):
+    def conv(tree, min_dim):
         out = {}
         for k, v in tree.items():
             if isinstance(v, dict):
-                out[k] = conv(v, in_layers or k == "layers")
+                sub = {"layers": 3, "shared_attn": 2}.get(k, min_dim)
+                out[k] = conv(v, sub)
             else:
                 v = v.to(device)
-                out[k] = v.to(dt) if in_layers and v.dim() >= 3 else v
+                cast = min_dim and v.dim() >= min_dim \
+                    and k not in _F32_AT_USE
+                out[k] = v.to(dt) if cast else v
         return out
 
-    return conv(params, False)
+    return conv(params, 0)
 
 
 def init_decode_state(cfg, batch: int, max_seq: int, device="cuda"):

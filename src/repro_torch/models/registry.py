@@ -2,8 +2,9 @@
 (port of ``repro.models.registry``).
 
 Execution layers ask ``spec(cfg)`` what a family can do instead of
-testing family names.  Only the ``dense`` family is ported so far; other
-families raise ``KeyError`` naming what is available.
+testing family names.  The ``dense``, ``ssm`` and ``hybrid`` families are
+ported so far; other families raise ``KeyError`` naming what is
+available.
 """
 
 from __future__ import annotations
@@ -67,7 +68,9 @@ class FamilySpec:
 _REGISTRY: dict[str, FamilySpec] = {}
 
 # family -> module that registers it (lazy import on first lookup)
-_FAMILY_MODULES = {"dense": "repro_torch.models.transformer"}
+_FAMILY_MODULES = {"dense": "repro_torch.models.transformer",
+                   "ssm": "repro_torch.models.ssm",
+                   "hybrid": "repro_torch.models.hybrid"}
 
 
 def register(spec: FamilySpec) -> FamilySpec:

@@ -13,8 +13,9 @@ CPU) and has a ``quick`` mode sized for CI smoke:
   included — the seconds a serving plan pays).  The first engine step is
   a warm-up; later steps are timed through the engine's own
   ``decode_s``/``decode_steps`` counters, and prefill on a second
-  admission wave.  Families the port has not ported fail, and land in
-  ``_errors``.
+  admission wave.  The recurrent families (ssm, hybrid) prefill token by
+  token, as they serve.  A family the port has not ported (moe) fails,
+  and lands in ``_errors``.
 * ``probe_kernels``  — every ``kernels/ops.py`` entry point against its
   plain version at the JAX probe's shapes (f32): on the card the CUDA
   kernel, on the CPU the plain version itself (``default_impl`` says
@@ -37,8 +38,8 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.profiler.facts import MachineFacts, current_fingerprint
 
-# one servable smoke arch per probe family (the JAX probe's map; only the
-# dense family is ported so far — the others fail into ``_errors``)
+# one servable smoke arch per probe family (the JAX probe's map; dense,
+# ssm and hybrid are ported — moe fails into ``_errors``)
 PROBE_FAMILY_ARCHS = {"dense": "qwen3-0.6b", "ssm": "xlstm-350m",
                       "hybrid": "zamba2-1.2b", "moe": "mixtral-8x22b"}
 
@@ -274,8 +275,10 @@ def probe_accept_rates(*, quick: bool = False, device="cuda") -> dict:
     family: a tiny spec workload with the canonical shrunk draft (the
     family's smoke arch at half depth, same vocab) through the real
     ``SpecDecodeBackend``.  ``CostModel.draft_plan`` prefers these over
-    its fixed 0.8 prior.  A family whose probe fails (here: every family
-    not ported yet) is simply absent, recorded in ``_errors``.
+    its fixed 0.8 prior.  Families that are not spec-draftable (ssm,
+    hybrid) are skipped, as in the JAX probe; a family whose probe fails
+    (here: moe, not ported yet) is simply absent, recorded in
+    ``_errors``.
     """
     from repro_torch.configs import get_config
     from repro_torch.models import api as mapi

@@ -85,27 +85,35 @@ def make_train_step(cfg, opt_cfg: opt.OptimizerConfig, *,
 
 
 def make_prefill_into_cache(cfg, *, window: Optional[int] = None):
-    """Fill the decode cache with a whole prompt, returning the logits the
-    first generated token is sampled from.
+    """Fill the decode cache/state with a whole prompt, returning the
+    logits the first generated token is sampled from.
 
     Attention families consume the full ``(b, plen)`` prompt in ONE
     ``decode_step``: the KV write is one slice assignment of ``plen`` rows
     and the causal chunk mask keeps intra-prompt attention correct.
-    Returns ``prefill(params, state, tokens) -> (last_logits (b, V),
-    state)``; the state's cache planes are written in place."""
-    spec = registry.spec(cfg)
-    if not spec.batched_prefill:
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}): token-by-token prefill of recurrent "
-            "families is ported in a later slice")
+    Recurrent and hybrid states advance strictly token by token, so they
+    fall back to a loop of one-token ``decode_step``s over the prompt
+    (the JAX package's ``lax.scan``; here each step is eager) — same
+    signature.  Returns ``prefill(params, state, tokens) -> (last_logits
+    (b, V), state)``; the state's tensors are written in place."""
+    if registry.spec(cfg).batched_prefill:
+        @torch.no_grad()
+        def prefill(params, state, tokens):
+            logits, state = api.decode_step(cfg, params, state, tokens,
+                                            window=window)
+            return logits[:, -1, :], state
+
+        return prefill
 
     @torch.no_grad()
-    def prefill(params, state, tokens):
-        logits, state = api.decode_step(cfg, params, state, tokens,
-                                        window=window)
+    def prefill_steps(params, state, tokens):
+        for t in range(tokens.shape[1]):
+            logits, state = api.decode_step(cfg, params, state,
+                                            tokens[:, t:t + 1],
+                                            window=window)
         return logits[:, -1, :], state
 
-    return prefill
+    return prefill_steps
 
 
 def make_paged_decode_step(cfg, *, window: Optional[int] = None, impl=None):

@@ -11,8 +11,9 @@ sides; losses and logits at 2e-4 (matmul chains, as
 ``tests/test_kernel_oracles.py``); SHARP against the port's own
 sequential reference at rtol = atol = 3e-4, the reference's
 ``tests/test_orchestrator.py`` bound.  Training budgets are that file's
-(qwen3-0.6b 18 MB, bert-large-1b 6 MB); eval and spilled inference get
-budgets small enough to cut the model into at least two shards.
+(qwen3-0.6b 18 MB, bert-large-1b 6 MB, zamba2-1.2b 30 MB, xlstm-350m
+60 MB); eval and spilled inference get budgets small enough to cut the
+model into at least two shards.
 """
 
 import random
@@ -50,7 +51,9 @@ from repro_torch.optim.optimizers import OptimizerConfig
 
 MM_TOL = 2e-4
 SEQ_TOL = 3e-4
-BUDGET = {"qwen3-0.6b": 18 * 10**6, "bert-large-1b": 6 * 10**6}
+BUDGET = {"qwen3-0.6b": 18 * 10**6, "bert-large-1b": 6 * 10**6,
+          "zamba2-1.2b": 30 * 10**6, "xlstm-350m": 60 * 10**6}
+EVAL_BUDGET = {"qwen3-0.6b": 4 * 10**6, "zamba2-1.2b": 8 * 10**6}
 STEPS, SEQ = 3, 64
 LRS = (1e-3, 1e-4)                  # the quickstart's two candidates
 
@@ -80,7 +83,8 @@ def _loaders(cfg, seed, batch=2):
 # partitioner
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ["qwen3-0.6b", "bert-large-1b"])
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "bert-large-1b",
+                                  "zamba2-1.2b", "xlstm-350m"])
 @pytest.mark.parametrize("train", [True, False])
 def test_partition_matches_jax(arch, train):
     """Same shards, bytes and analytic runtimes at the reference's test
@@ -211,7 +215,8 @@ def _sessions(arch):
     return js, ps, cfg
 
 
-@pytest.fixture(scope="module", params=["qwen3-0.6b", "bert-large-1b"])
+@pytest.fixture(scope="module",
+                params=["qwen3-0.6b", "bert-large-1b", "zamba2-1.2b"])
 def sharp_runs(request):
     js, ps, cfg = _sessions(request.param)
     jplan, plan = js.plan(), ps.plan()
@@ -295,17 +300,18 @@ def test_model_orchestrator_wraps_a_session():
 # forward-only: EvalJob and SpilledInference
 # ---------------------------------------------------------------------------
 
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "zamba2-1.2b"])
 @pytest.mark.parametrize("attn_impl", ["xla", "pallas_interpret"])
-def test_eval_job_matches_jax(attn_impl):
+def test_eval_job_matches_jax(arch, attn_impl):
     """Forward-only shard queue, two batches; the kernel config goes
     through the flash kernel's plain version here and the Pallas kernel in
-    interpret mode there."""
-    jcfg, cfg = _cfgs("qwen3-0.6b")
+    interpret mode there (zamba2: at each shared-block invocation)."""
+    jcfg, cfg = _cfgs(arch)
     jcfg = jcfg.replace(attn_impl=attn_impl)
     cfg = cfg.replace(attn_impl="xla" if attn_impl == "xla" else "cuda")
     jparams, params = _params(jcfg, 0)
     jl, pl = _loaders(cfg, 5)
-    hc = dict(n_devices=1, device_budget_bytes=4 * 10**6)
+    hc = dict(n_devices=1, device_budget_bytes=EVAL_BUDGET[arch])
     js = JSession(JHydraConfig(**hc), profile=None)
     ps = Session(HydraConfig(**hc), device="cpu", profile=None)
     js.submit(JEvalJob(jcfg, jl, n_batches=2, params=jparams, seq=SEQ))
@@ -318,13 +324,15 @@ def test_eval_job_matches_jax(attn_impl):
     assert ev["perplexity"] == pytest.approx(jev["perplexity"], rel=MM_TOL)
 
 
-def test_spilled_inference_matches_jax():
-    jcfg, cfg = _cfgs("bert-large-1b")
+@pytest.mark.parametrize("arch,budget", [("bert-large-1b", 1_500_000),
+                                         ("zamba2-1.2b", 8 * 10**6)])
+def test_spilled_inference_matches_jax(arch, budget):
+    jcfg, cfg = _cfgs(arch)
     jparams, params = _params(jcfg, 1)
     batch = next(iter(_loaders(cfg, 2)[1]))
-    jinf = JSpilledInference(jcfg, jparams, device_budget_bytes=1_500_000,
+    jinf = JSpilledInference(jcfg, jparams, device_budget_bytes=budget,
                              batch=2, seq=SEQ)
-    inf = SpilledInference(cfg, params, device_budget_bytes=1_500_000,
+    inf = SpilledInference(cfg, params, device_budget_bytes=budget,
                            batch=2, seq=SEQ, device="cpu")
     assert inf.n_shards == jinf.n_shards >= 2
     exp = jinf(batch)
