@@ -9,10 +9,14 @@ Phases (any failure exits non-zero before the result line):
 1. environment — torch / CUDA versions, the card's name and power limit;
 2. build — every CUDA kernel of the port, from ``src/repro_torch/kernels/
    csrc`` (``paged_attention.cu``: the fp and int8 decode kernels;
-   ``paged_verify.cu``: the verify kernel; ``flash_attention.cu``: the
-   flash kernel; ``fused_decode.cu``: the fused decode layer;
-   ``rmsnorm.cu``, ``swiglu.cu`` and ``ssd_scan.cu``), with nvcc for
-   sm_90a, one nvcc per source, in parallel;
+   ``paged_verify.cu``: the split-KV verify kernel, two CUDA launches per
+   op call — the splits of 256 rows, grid (kv_head, lane, split), then
+   their merge in a fixed order; ``flash_attention.cu``: the bf16 flash
+   kernel on the tensor cores (wgmma, 128-byte-swizzled cp.async ring)
+   and the f32 flash kernel on the CUDA cores beside it, chosen by dtype;
+   ``fused_decode.cu``: the fused decode layer; ``rmsnorm.cu``,
+   ``swiglu.cu`` and ``ssd_scan.cu``; shared device code in ``*.cuh``),
+   with nvcc for sm_90a, one nvcc per source, in parallel;
 3. kernel vs plain — each kernel against its plain PyTorch version at the
    serving shapes of qwen3-0.6b (16 heads, 8 KV heads, head_dim 128,
    block 16; 8 and 32 lanes; ragged lengths up to 4096 with block
@@ -22,7 +26,8 @@ Phases (any failure exits non-zero before the result line):
    q over int8 pages (2e-2).  Each with CUDA-event times of the kernel,
    the plain version and ``scaled_dot_product_attention`` over K/V
    gathered (and for int8 dequantized) ahead with an explicit mask — the
-   library yardstick, which the port never calls; the fused decode layer
+   library yardstick, which the port never calls (every ``[kernel]`` line
+   also gives ``bound_share`` = bound_ms / ms); the fused decode layer
    (d 1024, f 3072; 8 and 32 lanes, the same ragged lengths, garbage lane
    and window case) in bf16 (2e-2) and f32 (2e-4); RMSNorm and SwiGLU at
    rows {1, 8, 127, 2048} of d 1024 (f 3072) and at the profiler's probe
@@ -63,8 +68,9 @@ Phases (any failure exits non-zero before the result line):
    paged engine must each give identical tokens;
 9. flash kernel vs plain — 16/8 heads, head_dim 128, b 1 and 2, sq = sk
    in {64, 127, 128, 129, 1000, 2048, 4096} and two sq < sk, causal and
-   not, window 512, bf16 (2e-2) and f32 (2e-5), with the kernel's, the
-   plain version's and SDPA's times (same mask) and the bound;
+   not, window 512, bf16 (2e-2: the tensor-core kernel) and f32 (2e-5:
+   the CUDA-core kernel), with the kernel's, the plain version's and
+   SDPA's times (same mask) and the bound;
 10. SHARP training — two full-width qwen3-0.6b TrainJobs (seeds 0 and 1,
    lr 1e-4 and 3e-4, AdamW, SyntheticTokens batch 2 x seq 1024, 3 steps)
    through ``Session`` on two virtual devices of 5 GB: at least 3 shards a
@@ -226,6 +232,13 @@ def bound_ms(nbytes, flops, dtype_name):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def set_bound(res, nbytes, flops, dtype_name):
+    """Put the bound (ms, what bounds it) and the bound's share of the
+    measured time, ``bound_ms / ms``, into a kernel's result."""
+    res["bound_ms"], res["bound_by"] = bound_ms(nbytes, flops, dtype_name)
+    res["bound_share"] = res["bound_ms"] / res["ms"]
+
+
 def measure_paged(q, kp, vp, tables, lengths, window, dtype_name, flush):
     """Kernel vs plain on one set of inputs: error, times, bound."""
     import torch
@@ -274,7 +287,7 @@ def measure_paged(q, kp, vp, tables, lengths, window, dtype_name, flush):
     }
     nbytes, flops = paged_bytes_flops(
         lengths.tolist(), B, kp.element_size(), q.element_size(), n, window)
-    res["bound_ms"], res["bound_by"] = bound_ms(nbytes, flops, dtype_name)
+    set_bound(res, nbytes, flops, dtype_name)
     res["bytes"], res["flops"] = nbytes, flops
     del k, v
     return res
@@ -326,7 +339,8 @@ def phase_kernel_sweep(flush):
         log(f"[kernel] paged_attention {dt} lanes={n} window={window}: "
             f"max_abs_err={r['max_abs_err']:.3g} (tol {TOL[dt]}) "
             f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
-            f"library_ms={r['library_ms']:.4f} bound_ms={r['bound_ms']:.4f}")
+            f"library_ms={r['library_ms']:.4f} bound_ms={r['bound_ms']:.4f}"
+            f" bound_share={r['bound_share']:.3f}")
         if not r["within_tol"]:
             fail(f"paged_attention kernel disagrees with its plain version "
                  f"({dt}, {n} lanes, window={window}): max abs err "
@@ -420,7 +434,7 @@ def measure_verify(q, kp, vp, tables, lengths, window, dtype_name, flush,
     nbytes, flops = verify_bytes_flops(
         lengths.tolist(), kq, B, kp.element_size(), q.element_size(), n,
         window)
-    res["bound_ms"], res["bound_by"] = bound_ms(nbytes, flops, dtype_name)
+    set_bound(res, nbytes, flops, dtype_name)
     res["bytes"], res["flops"] = nbytes, flops
     del k, v
     return res
@@ -473,7 +487,8 @@ def phase_verify_sweep(flush):
         log(f"[kernel] paged_verify {dt} lanes={n} k={kq} window={window}: "
             f"max_abs_err={r['max_abs_err']:.3g} (tol {TOL[dt]}) "
             f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
-            f"library_ms={r['library_ms']:.4f} bound_ms={r['bound_ms']:.4f}")
+            f"library_ms={r['library_ms']:.4f} bound_ms={r['bound_ms']:.4f}"
+            f" bound_share={r['bound_share']:.3f}")
         if not r["within_tol"]:
             fail(f"paged_verify kernel disagrees with its plain version "
                  f"({dt}, {n} lanes, k={kq}, window={window}): max abs err "
@@ -549,7 +564,7 @@ def measure_quant(q, kq8, vq8, ks, vs, tables, lengths, window, flush):
     }
     nbytes, flops = quant_bytes_flops(lengths.tolist(), B, q.element_size(),
                                       n, window)
-    res["bound_ms"], res["bound_by"] = bound_ms(nbytes, flops, "bfloat16")
+    set_bound(res, nbytes, flops, "bfloat16")
     res["bytes"], res["flops"] = nbytes, flops
     del k, v
     return res
@@ -577,7 +592,7 @@ def phase_quant_sweep(flush):
             f"window={window}: max_abs_err={r['max_abs_err']:.3g} (tol "
             f"{TOL['bfloat16']}) ms={r['ms']:.4f} plain_ms="
             f"{r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} "
-            f"bound_ms={r['bound_ms']:.4f}")
+            f"bound_ms={r['bound_ms']:.4f} bound_share={r['bound_share']:.3f}")
         if not r["within_tol"]:
             fail(f"paged_attention_quant kernel disagrees with its plain "
                  f"version ({n} lanes, window={window}): max abs err "
@@ -644,7 +659,7 @@ def measure_fused(h, q, kp, vp, tables, lengths, weights, window,
     nbytes, flops = fused_bytes_flops(
         lengths.tolist(), tables.shape[1], h.shape[0], window,
         h.element_size(), kp.element_size())
-    res["bound_ms"], res["bound_by"] = bound_ms(nbytes, flops, dtype_name)
+    set_bound(res, nbytes, flops, dtype_name)
     res["bytes"], res["flops"] = nbytes, flops
     return res
 
@@ -667,7 +682,8 @@ def phase_fused_sweep(flush):
         log(f"[kernel] fused_decode_layer {dt} lanes={n} window={window}: "
             f"max_abs_err={r['max_abs_err']:.3g} (tol {MM_TOL[dt]}) "
             f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
-            f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']})")
+            f"bound_ms={r['bound_ms']:.4f}"
+            f" bound_share={r['bound_share']:.3f} ({r['bound_by']})")
         if not r["within_tol"]:
             fail(f"fused_decode_layer kernel disagrees with its plain "
                  f"version ({dt}, {n} lanes, window={window}): max abs err "
@@ -721,14 +737,15 @@ def measure_rms_swiglu(rows, d, f, dtype_name, flush):
              "library_ms": None if lib is None else cuda_ms(lib, flush=flush),
              "rows": rows, "d": d, "f": f if name == "swiglu" else None,
              "dtype": dtype_name}
-        r["bound_ms"], r["bound_by"] = bound_ms(nbytes, flops, dtype_name)
+        set_bound(r, nbytes, flops, dtype_name)
         out[name] = r
         lib_s = ("" if r["library_ms"] is None
                  else f" library_ms={r['library_ms']:.4f}")
         log(f"[kernel] {name} {dtype_name} rows={rows} d={d}"
             f"{'' if name == 'rms_norm' else f' f={f}'}: max_abs_err="
             f"{r['max_abs_err']:.3g} (tol {tol}) ms={r['ms']:.4f} plain_ms="
-            f"{r['plain_ms']:.4f}{lib_s} bound_ms={r['bound_ms']:.4f} "
+            f"{r['plain_ms']:.4f}{lib_s} bound_ms={r['bound_ms']:.4f}"
+            f" bound_share={r['bound_share']:.3f} "
             f"({r['bound_by']})")
         if not r["within_tol"]:
             fail(f"{name} kernel disagrees with its plain version "
@@ -1321,7 +1338,8 @@ def phase_fused_serve(cfg, params, prompts, fp_res, fp_profile, flush):
     m["lengths"] = le.tolist()
     log(f"[kernel] fused_decode_layer at the fused serve path's inputs "
         f"(lengths {m['lengths']}): ms={m['ms']:.4f} "
-        f"plain_ms={m['plain_ms']:.4f} bound_ms={m['bound_ms']:.4f} "
+        f"plain_ms={m['plain_ms']:.4f} bound_ms={m['bound_ms']:.4f}"
+        f" bound_share={m['bound_share']:.3f} "
         f"({m['bound_by']}) max_abs_err={m['max_abs_err']:.3g}")
     if not m["within_tol"]:
         fail("fused_decode_layer kernel disagrees with its plain version at "
@@ -1485,7 +1503,7 @@ def measure_flash(q, k, v, causal, window, dtype_name, flush):
     item = q.element_size()
     nbytes = (2 * b * sq * nh * hd + 2 * b * sk * nkv * hd) * item
     flops = 4 * hd * nh * b * visible_pairs(sq, sk, causal, window)
-    res["bound_ms"], res["bound_by"] = bound_ms(nbytes, flops, dtype_name)
+    set_bound(res, nbytes, flops, dtype_name)
     res["bytes"], res["flops"] = nbytes, flops
     del kh, vh, mask
     return res
@@ -1528,7 +1546,8 @@ def phase_flash_sweep(flush):
             f"causal={causal} window={window}: max_abs_err="
             f"{r['max_abs_err']:.3g} (tol {TOL[dt]}) ms={r['ms']:.4f} "
             f"plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f}"
-            f" bound_ms={r['bound_ms']:.4f} ({r['bound_by']})")
+            f" bound_ms={r['bound_ms']:.4f}"
+            f" bound_share={r['bound_share']:.3f} ({r['bound_by']})")
         if not r["within_tol"]:
             fail(f"flash_attention kernel disagrees with its plain version "
                  f"({dt}, b={b}, sq={sq}, sk={sk}, causal={causal}, "
@@ -1749,7 +1768,8 @@ def phase_spilled_eval(cfg, trained, flush):
     log(f"[kernel] flash_attention at the eval path's layer 0 q/k/v "
         f"(b {TRAIN_BATCH}, s {TRAIN_SEQ}, causal): ms={m['ms']:.4f} "
         f"plain_ms={m['plain_ms']:.4f} library_ms={m['library_ms']:.4f} "
-        f"bound_ms={m['bound_ms']:.4f} ({m['bound_by']}) "
+        f"bound_ms={m['bound_ms']:.4f}"
+        f" bound_share={m['bound_share']:.3f} ({m['bound_by']}) "
         f"max_abs_err={m['max_abs_err']:.3g}")
     if not m["within_tol"]:
         fail("flash_attention kernel disagrees with its plain version at "
@@ -1978,7 +1998,7 @@ def measure_ssd(x, log_a, b_coef, c_coef, chunk, dtype_name, flush):
     nbytes = sum(distinct_bytes(t) for t in (x, log_a, b_coef, c_coef)) \
         + x.numel() * x.element_size()
     flops = ssd_flops(bsz, s, h, p, n, chunk)
-    res["bound_ms"], res["bound_by"] = bound_ms(nbytes, flops, dtype_name)
+    set_bound(res, nbytes, flops, dtype_name)
     res["bytes"], res["flops"] = nbytes, flops
     del out, exp, diff
     return res
@@ -2037,7 +2057,8 @@ def phase_ssd_sweep(flush):
                 f"chunk={chunk} broadcast_bc={bc} log_a={la}: max_abs_err="
                 f"{r['max_abs_err']:.3g} (tol {SSD_TOL[dt]} rel+abs, max "
                 f"|ref| {r['max_abs_ref']:.3g}) ms={r['ms']:.4f} plain_ms="
-                f"{r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
+                f"{r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f}"
+                f" bound_share={r['bound_share']:.3f} "
                 f"({r['bound_by']})")
             if not r["within_tol"]:
                 fail(f"ssd_scan kernel disagrees with its plain version "
@@ -2263,7 +2284,8 @@ def phase_zamba_eval(cfg, params, flush):
         f"(b {TRAIN_BATCH}, s {TRAIN_SEQ}, {cfg.n_heads}/{cfg.n_kv_heads} "
         f"heads of {cfg.head_dim}, causal): ms={m['ms']:.4f} plain_ms="
         f"{m['plain_ms']:.4f} library_ms={m['library_ms']:.4f} bound_ms="
-        f"{m['bound_ms']:.4f} ({m['bound_by']}) max_abs_err="
+        f"{m['bound_ms']:.4f} bound_share={m['bound_share']:.3f} "
+        f"({m['bound_by']}) max_abs_err="
         f"{m['max_abs_err']:.3g}")
     if not m["within_tol"]:
         fail("flash_attention kernel disagrees with its plain version at "
@@ -2302,7 +2324,8 @@ def phase_zamba_eval(cfg, params, flush):
     log(f"[kernel] ssd_scan at the kernel forward's layer 0 inputs (b "
         f"{TRAIN_BATCH}, s {TRAIN_SEQ}, h {xdt.shape[2]}, p {xdt.shape[3]}, "
         f"n {bc.shape[3]}, B/C broadcast): ms={m['ms']:.4f} plain_ms="
-        f"{m['plain_ms']:.4f} bound_ms={m['bound_ms']:.4f} "
+        f"{m['plain_ms']:.4f} bound_ms={m['bound_ms']:.4f}"
+        f" bound_share={m['bound_share']:.3f} "
         f"({m['bound_by']}) max_abs_err={m['max_abs_err']:.3g}")
     if not m["within_tol"]:
         fail("ssd_scan kernel disagrees with its plain version at the "
@@ -2361,7 +2384,8 @@ def kernel_entry(name, source, replaces, launches, m):
             "replaces": replaces, "launches": launches,
             "max_abs_err": m["max_abs_err"], "ms": m["ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
-            "bound_by": m["bound_by"], "library_ms": m["library_ms"]}
+            "bound_by": m["bound_by"], "library_ms": m["library_ms"],
+            "bound_share": m["bound_share"]}
 
 
 def main() -> None:
@@ -2453,7 +2477,8 @@ def main() -> None:
         f"(lengths {main_path['lengths']}): ms={main_path['ms']:.4f} "
         f"plain_ms={main_path['plain_ms']:.4f} "
         f"library_ms={main_path['library_ms']:.4f} "
-        f"bound_ms={main_path['bound_ms']:.4f} "
+        f"bound_ms={main_path['bound_ms']:.4f}"
+        f" bound_share={main_path['bound_share']:.3f} "
         f"max_abs_err={main_path['max_abs_err']:.3g}")
     if not main_path["within_tol"]:
         fail("paged_attention kernel disagrees with its plain version at "
@@ -2502,7 +2527,8 @@ def main() -> None:
         f"{verify_path['lanes_in_round']} lanes in the round): "
         f"ms={verify_path['ms']:.4f} plain_ms={verify_path['plain_ms']:.4f} "
         f"library_ms={verify_path['library_ms']:.4f} "
-        f"bound_ms={verify_path['bound_ms']:.4f} "
+        f"bound_ms={verify_path['bound_ms']:.4f}"
+        f" bound_share={verify_path['bound_share']:.3f} "
         f"max_abs_err={verify_path['max_abs_err']:.3g}")
     if not verify_path["within_tol"]:
         fail("paged_verify kernel disagrees with its plain version at the "
@@ -2528,7 +2554,8 @@ def main() -> None:
         f"(lengths {quant_path['lengths']}): ms={quant_path['ms']:.4f} "
         f"plain_ms={quant_path['plain_ms']:.4f} "
         f"library_ms={quant_path['library_ms']:.4f} "
-        f"bound_ms={quant_path['bound_ms']:.4f} "
+        f"bound_ms={quant_path['bound_ms']:.4f}"
+        f" bound_share={quant_path['bound_share']:.3f} "
         f"max_abs_err={quant_path['max_abs_err']:.3g}")
     if not quant_path["within_tol"]:
         fail("paged_attention_quant kernel disagrees with its plain version "

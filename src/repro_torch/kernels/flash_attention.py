@@ -4,7 +4,11 @@ wrapper around the hand-written Hopper kernel ``csrc/flash_attention.cu``.
 Replaces the TPU kernel ``flash_attention_bhsd`` in
 ``src/repro/kernels/flash_attention.py``.  What bounds it on an H100, at
 the shapes the eval path gives it, is the flops of q.k and p.v over the
-visible (query, key) pairs; the design notes are in the CUDA source.
+visible (query, key) pairs.  bf16 inputs run both products on the tensor
+cores (``wgmma``: Q.K^T from shared memory, P.V with P from registers);
+f32 inputs run a CUDA-core kernel, as no single-pass tensor-core product
+meets the f32 tolerance.  The dtype picks the kernel: neither falls back
+to the other.  The design notes are in the CUDA source.
 
 The kernel is forward-only, as the TPU kernel is: the JAX package has no
 gradient through ``flash_attention_bhsd`` (``jax.grad`` through its

@@ -4,9 +4,12 @@ around the hand-written Hopper kernel ``csrc/paged_verify.cu``.
 Replaces the TPU kernel ``paged_verify_lanes`` in
 ``src/repro/kernels/paged_verify.py``.  Each lane carries k query
 positions; query ``i`` attends the rows ``[0, lengths + i]``.  What bounds
-it on an H100 is the bytes: a launch reads each lane's K/V rows once and
+it on an H100 is the bytes: a call reads each lane's K/V rows once and
 does ~4·k·groups flops per element read, so its floor is those bytes over
-3.35 TB/s.  The design notes are in the CUDA source.
+3.35 TB/s.  The kernel splits each lane's rows into fixed splits of 256
+rows (grid ``(kv_head, lane, split)``) and merges the splits' partial
+softmax states in a second launch, in a fixed order; the wrapper allocates
+the f32 scratch between them.  The design notes are in the CUDA source.
 
 For a CUDA tensor the wrapper launches the kernel or raises; it never
 falls back.  For a tensor on the CPU, where no kernel exists, it runs the
@@ -26,16 +29,18 @@ from repro_torch.kernels.ref import paged_verify_ref
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_ROWS = 64              # kMaxRows in the CUDA source: k * groups
-_TILE_BYTES = 16 * 1024     # kTileBytes: one K (or V) tile in shared memory
 
 
 def _lib():
-    fn = _build.load("paged_verify").paged_verify_fwd
+    lib = _build.load("paged_verify")
+    fn = lib.paged_verify_fwd
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 \
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    return fn
+        lib.paged_verify_splits.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.paged_verify_splits.restype = ctypes.c_int
+    return lib
 
 
 def paged_verify_lanes(q, k_pages, v_pages, tables, lengths, *,
@@ -45,8 +50,10 @@ def paged_verify_lanes(q, k_pages, v_pages, tables, lengths, *,
     (every entry a valid block — pad with the garbage block); lengths: (n,)
     int32 rows committed BEFORE the round (query ``i`` attends through row
     ``lengths + i``).  Returns (n, k, nh, hd) in q's dtype.  On CUDA
-    tensors each call is one kernel launch, counted in
-    ``paged_verify_lanes.launches``."""
+    tensors each call is counted once in ``paged_verify_lanes.launches``;
+    it is two CUDA launches (the split kernel and the merge).  The number
+    of splits follows from the table's width, never from ``lengths``, so
+    the call does not sync the device."""
     if q.dim() != 4 or k_pages.dim() != 4 or tables.dim() != 2 \
             or lengths.dim() != 1:
         raise ValueError("expected q (n, k, nh, hd), pages (P, bs, nkv, hd),"
@@ -79,8 +86,7 @@ def paged_verify_lanes(q, k_pages, v_pages, tables, lengths, *,
     item = k_pages.element_size()
     vec = 16 // item                          # elements per 16-B load
     dpl = next(d for d in (1, 2, 4, 8, 16) if hd <= 32 * d)  # dims per lane
-    if rows > _MAX_ROWS or hd > 256 or hd % vec or hd % dpl \
-            or _TILE_BYTES // (hd * item) < 8:
+    if rows > _MAX_ROWS or hd > 256 or hd % vec or hd % dpl:
         raise ValueError(f"paged_verify_lanes: {kk} queries x {nh // nkv} "
                          f"heads per KV head at head_dim {hd} is not what "
                          f"the kernel takes (k * groups <= {_MAX_ROWS}, "
@@ -92,14 +98,22 @@ def paged_verify_lanes(q, k_pages, v_pages, tables, lengths, *,
     out = torch.empty_like(q)
     if n == 0:
         return out
-    fn = _lib()
+    lib = _lib()
+    splits = lib.paged_verify_splits(tables.shape[1], bs)
+    # per (lane, KV head, split, query row): (m, l), and acc over head_dim
+    part_ml = torch.empty((n, nkv, splits, rows, 2), dtype=torch.float32,
+                          device=q.device)
+    part_acc = torch.empty((n, nkv, splits, rows, hd), dtype=torch.float32,
+                           device=q.device)
     with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                 tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-                 n, kk, nh, nkv, hd, bs, tables.shape[1],
-                 0 if window is None else int(window),
-                 _DTYPE_CODES[q.dtype], _DTYPE_CODES[k_pages.dtype],
-                 torch.cuda.current_stream(q.device).cuda_stream)
+        err = lib.paged_verify_fwd(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+            part_ml.data_ptr(), part_acc.data_ptr(),
+            n, kk, nh, nkv, hd, bs, tables.shape[1],
+            0 if window is None else int(window),
+            _DTYPE_CODES[q.dtype], _DTYPE_CODES[k_pages.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"paged_verify kernel launch failed: CUDA error "
                            f"{err}")

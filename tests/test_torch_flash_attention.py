@@ -10,8 +10,14 @@ lengths around the TPU kernel's 128-row tile (127, 128, 129, 200),
 causal and non-causal attention and a sliding window.  Tolerances are
 ``tests/test_kernel_oracles.py``'s: 2e-5 in f32, 2e-2 in bf16.
 
-The CUDA kernel runs only on a card: its cases compare the kernel with its
-plain version there and skip elsewhere.  JAX is imported by a fixture, so
+The bf16 kernel feeds P to its second product (P.V on the tensor cores)
+in bf16, where the plain version keeps it in f32: a test-local plain
+version with P rounded the same way stays within the bf16 tolerance of the
+JAX oracle at the eval paths' full per-batch shapes (qwen3-0.6b: 16/8
+heads of 128, s 1024; zamba2-1.2b's shared block: 32/32 heads of 64).
+
+The CUDA kernels run only on a card: their cases compare each kernel with
+its plain version there and skip elsewhere.  JAX is imported by a fixture, so
 on a machine with a card but no JAX the CUDA cases still run
 (``python -m pytest --noconftest -m cuda
 tests/test_torch_flash_attention.py``).
@@ -129,6 +135,47 @@ def test_cuda_impl_on_cpu_tensors_raises():
         ops.flash_attention(q, k, v, impl="cuda")
 
 
+def _flash_p_bf16(q, k, v, *, causal=True, window=None):
+    """The plain version with the probabilities rounded to bf16 before
+    P.V, as the tensor-core kernel feeds them to its second product: p =
+    exp(s - max) in f32, rounded to bf16 for P.V, summed in f32 for the
+    denominator.  q: (b, nh, sq, hd), k/v: (b, nkv, sk, hd)."""
+    b, nh, sq, hd = q.shape
+    nkv, sk = k.shape[1], k.shape[2]
+    g = nh // nkv
+    qg = q.reshape(b, nkv, g, sq, hd).float()
+    s = torch.einsum("bkgqh,bksh->bkgqs", qg, k.float()) / np.sqrt(hd)
+    qp = torch.arange(sq)[:, None]
+    kp = torch.arange(sk)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool)
+    if causal:
+        mask &= kp <= qp
+    if window is not None:
+        mask &= kp > qp - window
+    s = torch.where(mask, s, torch.full_like(s, -1e30))
+    p = torch.exp(s - s.amax(-1, keepdim=True)) * mask
+    out = torch.einsum("bkgqs,bksh->bkgqh", p.bfloat16().float(), v.float())
+    out = out / p.sum(-1, keepdim=True).clamp_min(1e-30)
+    return out.reshape(b, nh, sq, hd).to(q.dtype)
+
+
+@pytest.mark.parametrize("nh,nkv,hd", [(16, 8, 128), (32, 32, 64)],
+                         ids=["qwen3-eval", "zamba2-shared-block"])
+def test_bf16_probabilities_stay_within_bf16_tolerance(jx, nh, nkv, hd):
+    """P in bf16 before P.V (the tensor-core kernel's second product) at
+    the eval paths' per-batch shapes: within BF16_TOL of the JAX oracle,
+    which keeps P in f32."""
+    q, k, v = _inputs(1, nh, nkv, 1024, 1024, hd, "bfloat16", seed=3)
+    bhsd = (0, 2, 1, 3)
+    out = _flash_p_bf16(*(_torch(a, "bfloat16").permute(*bhsd)
+                          for a in (q, k, v)))
+    exp = jx.ref.flash_attention_ref(
+        *(_jax(jx, a, "bfloat16").transpose(*bhsd) for a in (q, k, v)),
+        causal=True)
+    assert out.shape == (1, nh, 1024, hd)
+    _close(out.float().numpy(), exp, "bfloat16")
+
+
 GPU_CASES = [  # b, nh, nkv, sq, sk, hd, causal, window, dtype
     (2, 16, 8, 1, 1, 128, True, None, "bfloat16"),
     (2, 16, 8, 127, 127, 128, True, None, "bfloat16"),
@@ -140,6 +187,18 @@ GPU_CASES = [  # b, nh, nkv, sq, sk, hd, causal, window, dtype
     (1, 4, 1, 200, 200, 64, True, None, "float32"),
     (1, 4, 4, 70, 70, 32, False, 16, "bfloat16"),
     (1, 2, 1, 90, 90, 256, True, None, "bfloat16"),
+    # the tensor-core (bf16) kernel: zamba2's shared block, sq < sk with a
+    # ragged last tile, head dims that are not a multiple of 16 or of 64,
+    # GQA groups of 3 and 4, a window, and b 2 at s 4096
+    (2, 32, 32, 1024, 1024, 64, True, None, "bfloat16"),
+    (1, 16, 8, 100, 333, 128, True, None, "bfloat16"),
+    (1, 4, 2, 70, 70, 40, True, None, "bfloat16"),
+    (1, 4, 2, 150, 150, 96, True, None, "bfloat16"),
+    (1, 2, 1, 130, 130, 192, False, None, "bfloat16"),
+    (1, 6, 2, 200, 200, 64, True, 100, "bfloat16"),
+    (1, 8, 2, 129, 300, 128, False, 64, "bfloat16"),
+    (1, 16, 8, 1000, 1000, 128, True, 512, "bfloat16"),
+    (2, 16, 8, 4096, 4096, 128, True, None, "bfloat16"),
 ]
 
 
@@ -160,3 +219,19 @@ def test_cuda_kernel_matches_plain_version(b, nh, nkv, sq, sk, hd, causal,
     assert flash_attention_bhsd.launches == before + 1
     assert out.shape == (b, sq, nh, hd) and out.dtype == q.dtype
     _close(out.float().cpu().numpy(), exp.float().cpu().numpy(), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nh,nkv,hd,dtype", [(16, 8, 128, "bfloat16"),
+                                             (32, 32, 64, "bfloat16"),
+                                             (16, 8, 128, "float32")])
+def test_cuda_kernel_repeats_bitwise(nh, nkv, hd, dtype):
+    """Two calls on the same inputs give the same bits (the eval shapes)."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the flash kernel runs only on a card")
+    q, k, v = (_torch(a, dtype, "cuda")
+               for a in _inputs(2, nh, nkv, 1024, 1024, hd, dtype, seed=4))
+    first = ops.flash_attention(q, k, v, impl="cuda")
+    second = ops.flash_attention(q, k, v, impl="cuda")
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)

@@ -12,6 +12,12 @@ in f32, 2e-2 in bf16 (bf16 rounding of the output dominates).
 ``quantize_kv`` must give the JAX int8 values bit for bit on f32 input,
 with scales within 1e-7 relative.
 
+The verify kernel splits each lane's rows into fixed splits and merges the
+splits' partial softmax states in a fixed order: a test-local emulation of
+that split-and-merge (empty splits as m = -1e30, l = 0) equals the plain
+version and the JAX oracle in f32, with splits cut at row 0, at block
+edges and inside a window, and a lane on the garbage block.
+
 The CUDA kernels run only on a card: their cases compare each kernel with
 its plain version there and skip elsewhere.  JAX is imported by a fixture,
 so on a machine with a card but no JAX the CUDA cases still run
@@ -220,6 +226,146 @@ def test_cpu_wrappers_and_default_impl_run_the_plain_versions(dtype):
         ops.paged_verify(*v, impl="cuda")
     with pytest.raises(ValueError, match="CUDA"):
         ops.paged_attention_quant(*qa, impl="cuda")
+
+
+NEG = -1e30
+
+
+def _split_merge(q, kp, vp, tables, lengths, window, split):
+    """The verify kernel's split-and-merge in plain torch: each lane's
+    logical rows in fixed splits of ``split`` rows; per split and query
+    row a partial (m, l, acc) with masked scores at -1e30 (an empty split
+    keeps m = -1e30, l = 0); the merge walks the splits in order, skipping
+    those with l = 0."""
+    n, kk, nh, hd = q.shape
+    _, bs, nkv, _ = kp.shape
+    cap = tables.shape[1] * bs
+    g = nh // nkv
+    k = kp[tables.long()].reshape(n, cap, nkv, hd).float()
+    v = vp[tables.long()].reshape(n, cap, nkv, hd).float()
+    qg = q.reshape(n, kk, nkv, g, hd).float()
+    pos = lengths.long()[:, None] + torch.arange(kk)[None, :]     # (n, k)
+    out = torch.zeros(n, kk, nkv, g, hd)
+    big = torch.full((n, kk, nkv, g), NEG)
+    parts = []
+    for lo in range(0, cap, split):
+        rows = torch.arange(lo, min(lo + split, cap))
+        mask = rows[None, None, :] <= pos[:, :, None]
+        if window is not None:
+            mask &= rows[None, None, :] > pos[:, :, None] - window
+        mask = mask[:, :, None, None, :]                        # n k 1 1 s
+        logits = torch.einsum("nqkgh,nskh->nqkgs", qg, k[:, rows]) \
+            / np.sqrt(hd)
+        logits = torch.where(mask, logits, torch.full_like(logits, NEG))
+        m = logits.amax(-1)
+        mu = torch.where(m == NEG, torch.zeros_like(m), m)
+        p = torch.exp(logits - mu[..., None]) * mask
+        acc = torch.einsum("nqkgs,nskh->nqkgh", p, v[:, rows])
+        parts.append((m, p.sum(-1), acc))
+        big = torch.maximum(big, m)
+    den = torch.zeros_like(big)
+    for m, l, acc in parts:                                     # in order
+        w = torch.where(l > 0, torch.exp(m - big), torch.zeros_like(m))
+        den += l * w
+        out += acc * w[..., None]
+    out = out / den.clamp_min(1e-30)[..., None]
+    return out.reshape(n, kk, nh, hd).to(q.dtype)
+
+
+@pytest.mark.parametrize("split", [8, 16])
+@pytest.mark.parametrize("n,kk,nh,nkv,hd,bs,B,window,dtype",
+                         [c for c in VERIFY if c[-1] == "float32"])
+def test_split_merge_matches_ref_and_jax(jx, split, n, kk, nh, nkv, hd, bs,
+                                         B, window, dtype):
+    """Splits of 8 or 16 rows over blocks of 4, 8 or 16: splits cut at
+    row 0 (lane 0 has length 0), at block edges, inside the window (5
+    rows), and the last lane reads only the garbage block."""
+    args = _verify_inputs(n * 10 + kk, n, kk, nh, nkv, hd, bs, B)
+    t = _cast(args, dtype, (0, 1, 2))
+    out = _split_merge(*t, window, split)
+    _close(_np(out), _np(ref.paged_verify_ref(*t, window=window)), F32_TOL)
+    jargs = _jcast(jx, args, dtype, (0, 1, 2))
+    _close(_np(out), jx.ref.paged_verify_ref(*jargs, window=window),
+           F32_TOL)
+
+
+def _long_verify_inputs(seed, lengths, kk, nh, nkv, hd, bs, B, q_dtype,
+                        kv_dtype, device="cuda"):
+    """Lanes of the given committed lengths, each on distinct random
+    blocks for the rows it holds and the garbage block 0 elsewhere."""
+    rng = np.random.default_rng(seed)
+    need = [-(-(int(x) + kk) // bs) for x in lengths]
+    P = sum(need) + 1
+    perm = rng.permutation(P - 1) + 1
+    tables = np.zeros((len(lengths), B), np.int32)
+    at = 0
+    for i, nb in enumerate(need):
+        tables[i, :nb] = perm[at:at + nb]
+        at += nb
+    q = rng.standard_normal((len(lengths), kk, nh, hd), np.float32)
+    kp = rng.standard_normal((P, bs, nkv, hd), np.float32)
+    vp = rng.standard_normal((P, bs, nkv, hd), np.float32)
+    return (torch.from_numpy(q).to(device, getattr(torch, q_dtype)),
+            torch.from_numpy(kp).to(device, getattr(torch, kv_dtype)),
+            torch.from_numpy(vp).to(device, getattr(torch, kv_dtype)),
+            torch.from_numpy(tables).to(device),
+            torch.from_numpy(np.asarray(lengths, np.int32)).to(device))
+
+
+LONG_VERIFY = [  # lengths, k, nh, nkv, hd, bs, B, window, q dtype, kv dtype
+    # a lane over 8 splits of 256 rows, a lane of length 0, block edges
+    ((2500, 0, 15, 256, 1023), 4, 16, 8, 128, 16, 170, None, "bfloat16",
+     "bfloat16"),
+    # a window across a split edge (rows 301..603 cross row 512)
+    ((600, 530, 3000), 4, 16, 8, 128, 16, 200, 300, "bfloat16",
+     "bfloat16"),
+    # k * groups = 64 rows
+    ((700, 0, 257), 8, 16, 2, 128, 16, 48, None, "bfloat16", "bfloat16"),
+    ((700, 0, 257), 8, 16, 2, 128, 16, 48, None, "float32", "float32"),
+    # the four (q, kv) dtype pairs
+    ((1100, 37, 511), 4, 16, 8, 128, 16, 80, None, "float32", "float32"),
+    ((1100, 37, 511), 4, 16, 8, 128, 16, 80, None, "float32", "bfloat16"),
+    ((1100, 37, 511), 4, 16, 8, 128, 16, 80, None, "bfloat16", "float32"),
+    ((1100, 37, 511), 4, 16, 8, 128, 16, 80, None, "bfloat16", "bfloat16"),
+    # head_dim 256 with 64 rows in f32 (32-row tiles fit shared memory)
+    ((600, 3), 8, 16, 2, 256, 16, 40, 100, "float32", "float32"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lengths,kk,nh,nkv,hd,bs,B,window,q_dtype,kv_dtype",
+                         LONG_VERIFY)
+def test_cuda_split_verify_matches_plain_version(lengths, kk, nh, nkv, hd, bs,
+                                                 B, window, q_dtype,
+                                                 kv_dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    args = _long_verify_inputs(len(lengths) + kk, lengths, kk, nh, nkv, hd,
+                               bs, B, q_dtype, kv_dtype)
+    before = paged_verify_lanes.launches
+    out = ops.paged_verify(*args, window=window, impl="cuda")
+    exp = ref.paged_verify_ref(*args, window=window)
+    torch.cuda.synchronize()
+    assert paged_verify_lanes.launches == before + 1
+    assert out.dtype == args[0].dtype
+    tol = F32_TOL if q_dtype == "float32" else BF16_TOL
+    _close(_np(out), _np(exp), tol)
+
+
+@pytest.mark.cuda
+def test_cuda_verify_repeats_bitwise():
+    """Two calls at the spec serve path's shape (8 lanes, k 4, 16/8 heads
+    of 128, bf16, lengths up to ~1,050) give the same bits: the merge
+    takes the splits in a fixed order."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    lengths = (1050, 981, 700, 512, 255, 64, 16, 0)
+    args = _long_verify_inputs(8, lengths, 4, 16, 8, 128, 16, 80,
+                               "bfloat16", "bfloat16")
+    first = ops.paged_verify(*args, impl="cuda")
+    second = ops.paged_verify(*args, impl="cuda")
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 @pytest.mark.cuda
