@@ -8,10 +8,13 @@ Phases (any failure exits non-zero before the result line):
 
 1. environment — torch / CUDA versions, the card's name and power limit;
 2. build — every CUDA kernel of the port, from ``src/repro_torch/kernels/
-   csrc`` (``paged_attention.cu``: the fp and int8 decode kernels;
+   csrc`` (``paged_attention.cu``: the split-KV fp and int8 decode
+   kernels, two CUDA launches per op call — splits of 128 rows, grid
+   (kv_head, lane, split), then their merge in a fixed order;
    ``paged_verify.cu``: the split-KV verify kernel, two CUDA launches per
    op call — the splits of 256 rows, grid (kv_head, lane, split), then
-   their merge in a fixed order; ``flash_attention.cu``: the bf16 flash
+   their merge in a fixed order (``split_kv.cuh``, shared by both);
+   ``flash_attention.cu``: the bf16 flash
    kernel on the tensor cores (wgmma, 128-byte-swizzled cp.async ring)
    and the f32 flash kernel on the CUDA cores beside it, chosen by dtype;
    ``fused_decode.cu``: the fused decode layer; ``rmsnorm.cu``,
@@ -23,7 +26,9 @@ Phases (any failure exits non-zero before the result line):
    boundaries; one lane on the garbage block; one sliding-window case):
    the paged-attention kernel in bf16 (tolerance 2e-2) and f32 (2e-5); the
    verify kernel at k = 1, 4, 8 in bf16 and f32; the int8 kernel with bf16
-   q over int8 pages (2e-2).  Each with CUDA-event times of the kernel,
+   q over int8 pages (2e-2).  A paged, int8 or verify op call is two CUDA
+   launches (split kernel and merge) counted as one.  Each with
+   CUDA-event times of the kernel,
    the plain version and ``scaled_dot_product_attention`` over K/V
    gathered (and for int8 dequantized) ahead with an explicit mask — the
    library yardstick, which the port never calls (every ``[kernel]`` line
@@ -2414,6 +2419,7 @@ def main() -> None:
         from repro_torch import kernels
         from repro_torch.configs import get_config
         from repro_torch.kernels import _build
+        from repro_torch.kernels.paged_attention import SPLIT_ROWS, n_splits
         from repro_torch.models import api
     except ImportError as e:
         fail(f"cannot import the port from {ROOT / 'src'}: {e}")
@@ -2438,8 +2444,10 @@ def main() -> None:
     t0 = time.perf_counter()
     kernels.build_all()
     build_s = time.perf_counter() - t0
-    log(f"[build] {', '.join(kernels.KERNELS)} (paged_attention_lanes, "
-        f"paged_attention_quant_lanes, paged_verify_lanes, "
+    log(f"[build] {', '.join(kernels.KERNELS)} (paged_attention_lanes "
+        f"and paged_attention_quant_lanes: split-KV, {SPLIT_ROWS}-row "
+        f"splits, then a fixed-order merge, two launches an op call; "
+        f"paged_verify_lanes, "
         f"flash_attention_bhsd, fused_decode_layer, rms_norm_2d, "
         f"swiglu_2d, ssd_scan_bshpn) built in "
         f"{build_s:.2f} s (nvcc {_build.nvcc_path()}, sm_90a)")
@@ -2473,8 +2481,10 @@ def main() -> None:
     main_path = measure_paged(q, snap["pages"]["k"][0], snap["pages"]["v"][0],
                               tb, le, None, "bfloat16", flush)
     main_path["lengths"] = le.tolist()
+    main_path["splits"] = n_splits(tb.shape[1], BS)
     log(f"[kernel] paged_attention at the serve path's inputs "
-        f"(lengths {main_path['lengths']}): ms={main_path['ms']:.4f} "
+        f"(lengths {main_path['lengths']}, {tb.shape[1]}-block tables, "
+        f"splits={main_path['splits']}): ms={main_path['ms']:.4f} "
         f"plain_ms={main_path['plain_ms']:.4f} "
         f"library_ms={main_path['library_ms']:.4f} "
         f"bound_ms={main_path['bound_ms']:.4f}"
@@ -2550,8 +2560,11 @@ def main() -> None:
         torch.from_numpy(isnap["tables"]).cuda(),
         torch.from_numpy(isnap["lengths"] + 1).cuda(), None, flush)
     quant_path["lengths"] = (isnap["lengths"] + 1).tolist()
+    quant_path["splits"] = n_splits(isnap["tables"].shape[1], BS)
     log(f"[kernel] paged_attention_quant at the int8 serve path's inputs "
-        f"(lengths {quant_path['lengths']}): ms={quant_path['ms']:.4f} "
+        f"(lengths {quant_path['lengths']}, {isnap['tables'].shape[1]}-block"
+        f" tables, splits={quant_path['splits']}): "
+        f"ms={quant_path['ms']:.4f} "
         f"plain_ms={quant_path['plain_ms']:.4f} "
         f"library_ms={quant_path['library_ms']:.4f} "
         f"bound_ms={quant_path['bound_ms']:.4f}"

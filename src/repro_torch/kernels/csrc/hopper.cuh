@@ -1,6 +1,6 @@
 // Hopper warpgroup matrix multiply (wgmma), TMA, mbarrier and cp.async
-// helpers for the port's kernels (flash_attention.cu, paged_verify.cu), as
-// inline PTX for sm_90a.
+// helpers for the port's kernels (flash_attention.cu, paged_verify.cu,
+// paged_attention.cu), as inline PTX for sm_90a.
 //
 // Shared-memory operands use the 128-byte swizzle, the layout TMA writes
 // with CU_TENSOR_MAP_SWIZZLE_128B into 1024-byte-aligned boxes of 64 x 64
@@ -28,6 +28,12 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 // 16-byte global -> shared copy that bypasses L1 (cp.async.cg)
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+// 4-byte global -> shared copy through L1 (cp.async.ca; .cg takes 16 only)
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
                "l"(src)
                : "memory");
 }

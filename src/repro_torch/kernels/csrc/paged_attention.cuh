@@ -1,7 +1,34 @@
-// Device code of the paged decode attention kernel, shared by
-// paged_attention.cu (the decode kernels' entry points) and fused_decode.cu
-// (the attention phase of the fused decode layer).  The design notes are
-// in paged_attention.cu.
+// The attention phase of the fused decode layer (fused_decode.cu): paged
+// attention for one decode token per lane, one CUDA block per (kv_head,
+// lane).  It computes what paged_attention.cu's split-KV kernels compute
+// (the same reference, ref.paged_attention_ref, with an f32 output here),
+// in the design the decode entry points ran before they were split; the
+// fused layer's redesign is to take over the split-KV attention.
+//
+// Design (simple first; memory-level parallelism over everything else):
+//  * one CUDA block of 8 warps per (kv_head, lane): the TPU grid's
+//    (lane, kv_head) axes become blockIdx.y / blockIdx.x;
+//  * the TPU's sequential logical-block grid axis becomes a loop inside the
+//    block: warp w takes rows in batches of kRows, batch k covering rows
+//    lo + (k * kWarps + w) * kRows ..., from the first row inside the
+//    window to length - 1 — masked rows are never read;
+//  * the block reads its own table entries (the TPU's scalar prefetch):
+//    lane r of a warp loads the entry of the batch's row r, and shuffles
+//    hand it to the other lanes — one load per batch;
+//  * each warp loads a whole batch of K and V rows before using any
+//    (kRows rows in flight); lane i owns head dims [i*DPL, i*DPL + DPL),
+//    so a row is one vector load per lane and the warp reads it whole in
+//    one coalesced instruction; every load is unconditional at a valid
+//    address (rows past the end read the garbage block) and masked after,
+//    so no branch sits between the loads; K/V are upcast to f32 in
+//    registers (int8 values times their row's scale);
+//  * each warp keeps its own online-softmax state (running max m,
+//    denominator l, accumulator acc, all f32, in registers) with no
+//    barrier inside the loop; at the end the warps' states are merged
+//    through shared memory, rescaling each by exp(m_w - max_w m_w).
+// What holds it back: 64 blocks at 8 lanes x 8 KV heads leave half the
+// SMs idle while the longest lane's chain of load batches sets the time,
+// and each (row, query head) pays a 5-shuffle warp sum.
 
 #pragma once
 

@@ -52,8 +52,9 @@
 //       window start;
 //     - each split writes its (m, l, acc) for every query row to f32
 //       scratch that the wrapper allocates;
-//  2. verify_merge_kernel, grid (kv_head, lane): one warp per query row
-//     merges the splits in split order (loads issued four splits ahead),
+//  2. split_merge_kernel (split_kv.cuh, shared with the decode kernels),
+//     grid (kv_head, lane): one warp per query row merges the splits in
+//     split order (loads issued four splits ahead),
 //     so the result is the same from run to run; an empty split's m is
 //     -1e30, never -inf, so exp(m_s - M) cannot give NaN, and its acc,
 //     never written, is selected away, never multiplied.
@@ -65,6 +66,7 @@
 
 #include "common.cuh"
 #include "hopper.cuh"      // cp.async helpers
+#include "split_kv.cuh"    // Shape, the fixed-order merge
 
 namespace {
 
@@ -72,40 +74,6 @@ constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kMaxRows = 64;             // k * groups
 constexpr int kSplit = 256;              // logical rows per split
-constexpr int kMergeWarps = 8;
-constexpr float kNegInf = -1e30f;        // the TPU kernel's mask value
-constexpr float kLog2e = 1.4426950408889634f;
-
-// 2^x on the special-function unit (flushes results below 2^-126 to 0)
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-template <typename T, int N>
-struct alignas(sizeof(T) * N) Vec {
-  T v[N];
-};
-
-template <typename T, int N>
-__device__ __forceinline__ void load_f32(const T* p, float (&out)[N]) {
-  const Vec<T, N> x = *reinterpret_cast<const Vec<T, N>*>(p);
-#pragma unroll
-  for (int j = 0; j < N; ++j) out[j] = to_f32(x.v[j]);
-}
-
-struct Shape {
-  int kq, nkv, hd, bs, n_table, groups, window, n_split, tile;
-  float sl2;                     // 1/sqrt(hd) * log2(e): scores in log2 units
-};
 
 // shared memory of a split block: query rows f32, the element offset of
 // each of the split's page rows, two stages of K (rows padded by 16 bytes)
@@ -334,64 +302,6 @@ verify_split_kernel(const void* __restrict__ q,           // (n, k, nh, hd)
   }
 }
 
-// One warp per (lane, query row): merge the splits in split order.
-template <typename TQ>
-__global__ void __launch_bounds__(kMergeWarps * 32)
-verify_merge_kernel(const float2* __restrict__ part_ml,
-                    const float* __restrict__ part_acc,
-                    TQ* __restrict__ out, Shape a) {
-  const int kvh = blockIdx.x;
-  const int seq = blockIdx.y;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int rows = a.kq * a.groups;
-  const int hd = a.hd;
-  const int nh = a.nkv * a.groups;
-  const size_t pb = ((size_t)seq * a.nkv + kvh) * a.n_split * rows;
-  for (int r = warp; r < rows; r += kMergeWarps) {
-    float big = kNegInf;
-    for (int s = lane; s < a.n_split; s += 32)
-      big = fmaxf(big, part_ml[pb + (size_t)s * rows + r].x);
-    big = warp_max(big);
-    float acc[8];
-#pragma unroll
-    for (int k = 0; k < 8; ++k) acc[k] = 0.f;
-    float den = 0.f;
-    // four splits at a time, their loads issued before any is used; an
-    // empty split (l = 0) adds nothing, and its acc, never written, is
-    // selected away rather than multiplied by 0
-    for (int s0 = 0; s0 < a.n_split; s0 += 4) {
-      float2 ml[4];
-      float v[4][8];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int s = min(s0 + u, a.n_split - 1);
-        ml[u] = part_ml[pb + (size_t)s * rows + r];
-        const float* src = part_acc + (pb + (size_t)s * rows + r) * hd;
-#pragma unroll
-        for (int k = 0; k < 8; ++k)
-          v[u][k] = lane + 32 * k < hd ? src[lane + 32 * k] : 0.f;
-      }
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        if (s0 + u < a.n_split && ml[u].y > 0.f) {   // uniform in the warp
-          const float w = exp2_approx(ml[u].x - big);
-          den += ml[u].y * w;
-#pragma unroll
-          for (int k = 0; k < 8; ++k) acc[k] += v[u][k] * w;
-        }
-      }
-    }
-    const float inv = 1.f / fmaxf(den, 1e-30f);
-    const int i = r / a.groups;
-    const int head = kvh * a.groups + (r - i * a.groups);
-    TQ* o_row = out + (((size_t)seq * a.kq + i) * nh + head) * hd;
-#pragma unroll
-    for (int k = 0; k < 8; ++k)
-      if (lane + 32 * k < hd) o_row[lane + 32 * k] = from_f32<TQ>(acc[k] * inv);
-  }
-}
-
 template <typename TQ, typename TKV, int DPL, int RPW>
 cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
                    const int32_t* tables, const int32_t* lengths, void* out,
@@ -416,7 +326,7 @@ cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
       static_cast<float2*>(part_ml), static_cast<float*>(part_acc), a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  verify_merge_kernel<TQ><<<dim3(a.nkv, n), kMergeWarps * 32, 0, stream>>>(
+  split_merge_kernel<TQ><<<dim3(a.nkv, n), kMergeWarps * 32, 0, stream>>>(
       static_cast<const float2*>(part_ml),
       static_cast<const float*>(part_acc), static_cast<TQ*>(out), a);
   return cudaGetLastError();

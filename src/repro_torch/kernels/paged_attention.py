@@ -1,20 +1,32 @@
 """Paged attention for one decode token per lane: the wrappers around the
-hand-written Hopper kernel ``csrc/paged_attention.cu``, over fp pages
+hand-written Hopper kernels of ``csrc/paged_attention.cu``, over fp pages
 (``paged_attention_lanes``) and over int8 pages with per-row scales
 (``paged_attention_quant_lanes``).
 
 Replace the TPU kernels ``paged_attention_lanes`` and
 ``paged_attention_quant_lanes`` in ``src/repro/kernels/paged_attention.py``.
-What bounds them on an H100 is the bytes: a launch reads
-``sum_lanes ceil(len/bs)·bs·nkv·row_bytes·2`` bytes of K/V pages
-(``row_bytes`` = ``hd·itemsize``, or ``hd + 4`` for an int8 row and its
-scale) and does a handful of flops per byte, so its floor is those bytes
-over 3.35 TB/s; at full width and short contexts the launch latency
-matters as much as the bytes.  The design notes are in the CUDA source.
+What bounds them on an H100 is the bytes: a call reads each lane's
+attended K/V rows once (``hd·itemsize`` bytes a row and KV head, or
+``hd + 4`` for an int8 row and its scale, for K and for V) and does a
+handful of flops per byte, so its floor is those bytes over 3.35 TB/s.
+
+Both run one split-KV design: each lane's logical rows are cut into fixed
+splits of ``SPLIT_ROWS`` = 128 (grid ``(kv_head, lane, split)``), each
+split writes a partial softmax state per query head, and a second launch
+merges the splits in a fixed order, so a call repeats bit for bit.  The
+number of splits follows from the table's width, never from ``lengths``,
+so a call does not sync the device.  The wrapper allocates the f32
+scratch between the two launches: per (lane, KV head, split, query head)
+an (m, l) pair and an ``hd``-wide accumulator, ``n·nh·splits·(hd + 2)``
+floats in one buffer.  The design notes are in the CUDA source.
 
 For a CUDA tensor a wrapper launches the kernel or raises; it never falls
 back.  For a tensor on the CPU, where no kernel exists, it runs the plain
 version (``ref.paged_attention_ref`` / ``ref.paged_attention_quant_ref``).
+
+``_check_launch_shape`` is the shape check of the one-block-per-(KV head,
+lane) kernel of ``csrc/paged_attention.cuh``, which the fused decode layer
+runs for its attention phase.
 """
 
 from __future__ import annotations
@@ -28,26 +40,31 @@ from repro_torch.kernels.ref import (paged_attention_quant_ref,
                                      paged_attention_ref)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_WARPS = 8                  # kWarps in the CUDA source
+_WARPS = 8                  # kWarps in paged_attention.cuh (fused layer)
 _MAX_GROUPS = 8             # kMaxGroups
 _SMEM_LIMIT = 48 * 1024
+SPLIT_ROWS = 128            # kSplit in paged_attention.cu
 
 
-def _lib(quant=False):
+def _lib():
     lib = _build.load("paged_attention")
-    if quant:
-        fn = lib.paged_attention_quant_fwd
-        if fn.argtypes is None:
-            fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 \
-                + [ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-        return fn
-    fn = lib.paged_attention_fwd
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 \
-            + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
+    if lib.paged_attention_fwd.argtypes is None:
+        lib.paged_attention_fwd.argtypes = [ctypes.c_void_p] * 8 \
+            + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+        lib.paged_attention_fwd.restype = ctypes.c_int
+        lib.paged_attention_quant_fwd.argtypes = [ctypes.c_void_p] * 10 \
+            + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        lib.paged_attention_quant_fwd.restype = ctypes.c_int
+        lib.paged_attention_splits.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.paged_attention_splits.restype = ctypes.c_int
+    return lib
+
+
+def n_splits(n_table: int, bs: int) -> int:
+    """Splits of a call whose tables are ``n_table`` blocks of ``bs`` rows:
+    ``ceil(n_table * bs / SPLIT_ROWS)``, at least one (asks the built
+    library, so it needs ``nvcc`` or a build)."""
+    return _lib().paged_attention_splits(n_table, bs)
 
 
 def _check(q, k_pages, v_pages, tables, lengths, window):
@@ -110,14 +127,42 @@ def _check_launch_shape(kernel, nh, nkv, hd, k_pages, v_pages) -> None:
                              "vector loads)")
 
 
+def _check_split_shape(kernel, nh, nkv, hd, k_pages, v_pages) -> None:
+    """Raise unless the split-KV kernel takes this shape: groups <= 8,
+    head_dim <= 256, each page row a whole number of 16-byte copies, the
+    lanes' head dims in p.v whole vectors, pages 16-byte aligned."""
+    groups = nh // nkv
+    vec = 16 // k_pages.element_size()        # elements per 16-byte copy
+    dpl = next(d for d in (1, 2, 4, 8, 16) if hd <= 32 * d)  # dims per lane
+    if hd > 256 or hd % vec or hd % dpl or groups > _MAX_GROUPS:
+        raise ValueError(f"{kernel}: head_dim {hd} with {groups} query "
+                         f"heads per KV head is not what the kernel takes "
+                         f"(head_dim <= 256 and a multiple of "
+                         f"{max(vec, dpl)}: a page row of "
+                         f"{k_pages.dtype} must be whole 16-byte "
+                         f"asynchronous copies; groups <= {_MAX_GROUPS})")
+    for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{kernel}: {name} is not aligned to 16 bytes "
+                             "(the kernel's asynchronous copies)")
+
+
+def _scratch(n, nh, hd, splits, device):
+    """The f32 partials of a call, in one buffer: (m, l) pairs for every
+    (lane, KV head, split, query head), then their hd-wide accumulators."""
+    rows = n * nh * splits
+    part = torch.empty(rows * (hd + 2), dtype=torch.float32, device=device)
+    return part[:2 * rows], part[2 * rows:]
+
+
 def paged_attention_lanes(q, k_pages, v_pages, tables, lengths, *,
                           window=None):
     """q: (n, nh, hd); k/v_pages: (P, bs, nkv, hd); tables: (n, B) int32
     physical block ids (every entry a valid block — pad with the garbage
     block); lengths: (n,) int32 valid rows per lane INCLUDING the current
     token, each >= 1.  Returns (n, nh, hd) in q's dtype.  On CUDA tensors
-    each call is one kernel launch, counted in
-    ``paged_attention_lanes.launches``."""
+    each call is counted once in ``paged_attention_lanes.launches``; it is
+    two CUDA launches (the split kernel and the merge)."""
     n, nh, hd, bs, nkv = _check(q, k_pages, v_pages, tables, lengths, window)
     named = {"q": q, "k_pages": k_pages, "v_pages": v_pages,
              "tables": tables, "lengths": lengths}
@@ -130,19 +175,23 @@ def paged_attention_lanes(q, k_pages, v_pages, tables, lengths, *,
         raise TypeError(f"paged_attention_lanes: q {q.dtype}, pages "
                         f"{k_pages.dtype}/{v_pages.dtype}; the kernel takes "
                         "float32 or bfloat16")
-    _check_launch_shape("paged_attention_lanes", nh, nkv, hd, k_pages,
-                        v_pages)
+    _check_split_shape("paged_attention_lanes", nh, nkv, hd, k_pages,
+                       v_pages)
     out = torch.empty_like(q)
     if n == 0:
         return out
-    fn = _lib()
+    lib = _lib()
+    part_ml, part_acc = _scratch(n, nh, hd, n_splits(tables.shape[1], bs),
+                                 q.device)
     with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                 tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-                 n, nh, nkv, hd, bs, tables.shape[1],
-                 0 if window is None else int(window),
-                 _DTYPE_CODES[q.dtype], _DTYPE_CODES[k_pages.dtype],
-                 torch.cuda.current_stream(q.device).cuda_stream)
+        err = lib.paged_attention_fwd(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+            part_ml.data_ptr(), part_acc.data_ptr(),
+            n, nh, nkv, hd, bs, tables.shape[1],
+            0 if window is None else int(window),
+            _DTYPE_CODES[q.dtype], _DTYPE_CODES[k_pages.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
                            f"error {err}")
@@ -158,8 +207,9 @@ def paged_attention_quant_lanes(q, k_pages, v_pages, k_scales, v_scales,
     """int8-KV twin of ``paged_attention_lanes``: k/v_pages are (P, bs,
     nkv, hd) int8 and k/v_scales (P, bs, nkv) float32 per-row scales
     (``ref.quantize_kv``), dequantized in registers inside the kernel.
-    Returns (n, nh, hd) in q's dtype.  On CUDA tensors each call is one
-    kernel launch, counted in ``paged_attention_quant_lanes.launches``."""
+    Returns (n, nh, hd) in q's dtype.  On CUDA tensors each call is
+    counted once in ``paged_attention_quant_lanes.launches``; it is two
+    CUDA launches (the split kernel and the merge)."""
     n, nh, hd, bs, nkv = _check(q, k_pages, v_pages, tables, lengths, window)
     P = k_pages.shape[0]
     for name, t in (("k_scales", k_scales), ("v_scales", v_scales)):
@@ -183,20 +233,24 @@ def paged_attention_quant_lanes(q, k_pages, v_pages, k_scales, v_scales,
                         f"{k_scales.dtype}/{v_scales.dtype}; the kernel "
                         "takes float32 or bfloat16 q over int8 pages with "
                         "float32 scales")
-    _check_launch_shape("paged_attention_quant_lanes", nh, nkv, hd, k_pages,
-                        v_pages)
+    _check_split_shape("paged_attention_quant_lanes", nh, nkv, hd, k_pages,
+                       v_pages)
     out = torch.empty_like(q)
     if n == 0:
         return out
-    fn = _lib(quant=True)
+    lib = _lib()
+    part_ml, part_acc = _scratch(n, nh, hd, n_splits(tables.shape[1], bs),
+                                 q.device)
     with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                 k_scales.data_ptr(), v_scales.data_ptr(),
-                 tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-                 n, nh, nkv, hd, bs, tables.shape[1],
-                 0 if window is None else int(window),
-                 _DTYPE_CODES[q.dtype],
-                 torch.cuda.current_stream(q.device).cuda_stream)
+        err = lib.paged_attention_quant_fwd(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            k_scales.data_ptr(), v_scales.data_ptr(),
+            tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+            part_ml.data_ptr(), part_acc.data_ptr(),
+            n, nh, nkv, hd, bs, tables.shape[1],
+            0 if window is None else int(window),
+            _DTYPE_CODES[q.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"paged_attention_quant kernel launch failed: "
                            f"CUDA error {err}")
