@@ -17,9 +17,14 @@ Phases (any failure exits non-zero before the result line):
    ``flash_attention.cu``: the bf16 flash
    kernel on the tensor cores (wgmma, 128-byte-swizzled cp.async ring)
    and the f32 flash kernel on the CUDA cores beside it, chosen by dtype;
-   ``fused_decode.cu``: the fused decode layer; ``rmsnorm.cu``,
-   ``swiglu.cu`` and ``ssd_scan.cu``; shared device code in ``*.cuh``),
-   with nvcc for sm_90a, one nvcc per source, in parallel;
+   ``fused_decode.cu``: the fused decode layer, eight CUDA launches per
+   op call — the split-KV decode kernel and its merge (``paged_decode.cuh``,
+   shared with ``paged_attention.cu``), then the weight-streaming products
+   (``stream_gemm.cuh``: bf16 on the tensor cores, f32 on the CUDA cores)
+   and the row passes as programmatic dependent launches; ``rmsnorm.cu``,
+   ``swiglu.cu``; ``ssd_scan.cu``: bf16 on the tensor cores (mma.sync),
+   f32 on the CUDA cores; shared device code in ``*.cuh``), with nvcc for
+   sm_90a, one nvcc per source, in parallel;
 3. kernel vs plain — each kernel against its plain PyTorch version at the
    serving shapes of qwen3-0.6b (16 heads, 8 KV heads, head_dim 128,
    block 16; 8 and 32 lanes; ragged lengths up to 4096 with block

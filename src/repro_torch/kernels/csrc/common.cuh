@@ -1,6 +1,6 @@
-// Conversions and a warp reduction shared by the port's kernels
-// (paged_attention.cuh, mlp_blocks.cuh, rmsnorm.cu): every kernel loads
-// bf16, f32 or int8 values, computes in f32 and stores its output type.
+// Conversions, a warp reduction and programmatic dependent launch shared
+// by the port's kernels: every kernel loads bf16, f32 or int8 values,
+// computes in f32 and stores its output type.
 
 #pragma once
 
@@ -32,6 +32,37 @@ __device__ __forceinline__ float warp_sum(float x) {
   for (int off = 16; off > 0; off >>= 1)
     x += __shfl_xor_sync(0xffffffffu, x, off);
   return x;
+}
+
+// programmatic dependent launch: a primary grid's blocks let the next
+// grid be scheduled; the dependent grid waits for all of the primary's
+// writes (both are no-ops when the grid was launched without the
+// attribute)
+__device__ __forceinline__ void grid_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+__device__ __forceinline__ void grid_dependency_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+// launch `kernel` as a programmatic dependent of the work before it on
+// `stream`: its blocks may be scheduled while the previous grid's last
+// blocks run, and each waits in grid_dependency_wait() for that grid
+template <typename... Params, typename... Args>
+cudaError_t launch_dependent(void (*kernel)(Params...), dim3 grid,
+                             dim3 block, size_t smem, cudaStream_t stream,
+                             Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, static_cast<Params>(args)...);
 }
 
 }  // namespace

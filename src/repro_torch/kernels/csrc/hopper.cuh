@@ -1,6 +1,6 @@
-// Hopper warpgroup matrix multiply (wgmma), TMA, mbarrier and cp.async
-// helpers for the port's kernels (flash_attention.cu, paged_verify.cu,
-// paged_attention.cu), as inline PTX for sm_90a.
+// Hopper warpgroup matrix multiply (wgmma), TMA, mbarrier, cp.async,
+// ldmatrix and mma.sync helpers for the port's kernels, as inline PTX for
+// sm_90a.
 //
 // Shared-memory operands use the 128-byte swizzle, the layout TMA writes
 // with CU_TENSOR_MAP_SWIZZLE_128B into 1024-byte-aligned boxes of 64 x 64
@@ -17,6 +17,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace {
@@ -35,6 +36,22 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
 __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
                "l"(src)
+               : "memory");
+}
+// 16-byte copy that reads `src_bytes` (16 or 0) and zero-fills the rest:
+// a tile's rows and columns past the operand's edge read as 0
+__device__ __forceinline__ void cp_async16_zfill(uint32_t dst,
+                                                 const void* src,
+                                                 uint32_t src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+// 4-byte copy, zero-filled where `src_bytes` is 0
+__device__ __forceinline__ void cp_async4_zfill(uint32_t dst, const void* src,
+                                                uint32_t src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
                : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
@@ -97,6 +114,51 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2), "r"(c3)
       : "memory");
+}
+
+// ldmatrix: four 8 x 8 b16 matrices from shared memory, lanes 8j..8j+7
+// giving the row addresses of matrix j; lane t receives row t / 4,
+// columns 2 (t % 4) and 2 (t % 4) + 1 of each (with .trans: of each
+// matrix's transpose)
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// D(16 x 8) += A(16 x 16, row) . B(16 x 8, col), bf16 in, f32 sums.
+// Lane t = 4 g + q holds A (g, 2q..2q+1), (g+8, ..), (g, 2q+8..),
+// (g+8, 2q+8..) in a[0..3]; B (2q..2q+1, g), (2q+8.., g) in b[0..1];
+// D (g, 2q), (g, 2q+1), (g+8, 2q), (g+8, 2q+1) in d[0..3]
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
+                                               const uint32_t (&a)[4],
+                                               uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two f32 as a bf16x2 register (lo in the low half), rounded to nearest
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+__device__ __forceinline__ float2 unpack_bf16x2(uint32_t r) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r));
 }
 
 // byte offset of 16-byte chunk `chunk` (0..7) of row `row` in a region

@@ -1,5 +1,5 @@
-// Building blocks of the fused decode layer's epilogue (fused_decode.cu)
-// and of the SwiGLU kernel (swiglu.cu), written for Hopper (sm_90a):
+// Building blocks of the SwiGLU kernel (swiglu.cu) and the row passes of
+// the fused decode layer (fused_decode.cu), written for Hopper (sm_90a):
 //
 //  * split_k_gemm_kernel: P[s] = X[:, ks] @ W[ks, :] for the s-th slice ks
 //    of the contraction, f32 accumulation.  A block owns a tile of
@@ -16,6 +16,9 @@
 //    hn = h1 * rsqrt(mean(h1^2) + eps) * scale (one block per row);
 //  * silu_mul_kernel: act = silu(sum_s G[s]) * sum_s U[s];
 //  * sum_partials_kernel: out = base + sum_s P[s], cast to the output type.
+// The row passes may run as programmatic dependent launches (the fused
+// layer's chain): each lets the next grid be scheduled, then waits for the
+// previous grid's writes (both no-ops under a plain launch).
 //
 // Shapes the wrappers guarantee: K % 4 == 0, N % 8 == 0, 16-byte aligned
 // operands (the vector loads), row-major contiguous tensors.
@@ -133,7 +136,9 @@ split_k_gemm_kernel(const TX* __restrict__ X, const TW* __restrict__ W0,
 }
 
 // One row per block: h1 = h + sum_s P[s]; hn = h1 * rsqrt(mean(h1^2) +
-// eps) * scale, both f32 (n, d).
+// eps) * scale, both f32 (n, d), d % 4 == 0.  A thread takes 4 adjacent
+// columns and has four slices' 16-byte loads in flight at once; the
+// slices are still added in order.
 template <typename TH>
 __global__ void __launch_bounds__(kThreads)
 residual_norm_kernel(const TH* __restrict__ h, const float* __restrict__ P,
@@ -142,14 +147,35 @@ residual_norm_kernel(const TH* __restrict__ h, const float* __restrict__ P,
                      int d, float eps) {
   __shared__ float red[kThreads / 32];
   __shared__ float total;
+  grid_launch_dependents();
+  grid_dependency_wait();
   const int r = blockIdx.x;
   const size_t row = (size_t)r * d;
+  const size_t slice = (size_t)n * d;
+  auto add = [](float4& v, const float4 p) {
+    v.x += p.x;
+    v.y += p.y;
+    v.z += p.z;
+    v.w += p.w;
+  };
   float ss = 0.f;
-  for (int c = threadIdx.x; c < d; c += kThreads) {
-    float v = to_f32(h[row + c]);
-    for (int s = 0; s < splits; ++s) v += P[(size_t)s * n * d + row + c];
-    h1[row + c] = v;
-    ss += v * v;
+  for (int c = threadIdx.x * 4; c < d; c += kThreads * 4) {
+    float4 v = load4(h + row + c);
+    const float* pc = P + row + c;
+    int s = 0;
+    for (; s + 4 <= splits; s += 4) {
+      const float4 p0 = load4(pc + (s + 0) * slice);
+      const float4 p1 = load4(pc + (s + 1) * slice);
+      const float4 p2 = load4(pc + (s + 2) * slice);
+      const float4 p3 = load4(pc + (s + 3) * slice);
+      add(v, p0);
+      add(v, p1);
+      add(v, p2);
+      add(v, p3);
+    }
+    for (; s < splits; ++s) add(v, load4(pc + s * slice));
+    *reinterpret_cast<float4*>(h1 + row + c) = v;
+    ss += v.x * v.x + v.y * v.y + v.z * v.z + v.w * v.w;
   }
   ss = warp_sum(ss);
   if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = ss;
@@ -161,14 +187,21 @@ residual_norm_kernel(const TH* __restrict__ h, const float* __restrict__ P,
   }
   __syncthreads();
   const float rstd = rsqrtf(total / (float)d + eps);
-  for (int c = threadIdx.x; c < d; c += kThreads)
-    hn[row + c] = h1[row + c] * rstd * to_f32(scale[c]);
+  for (int c = threadIdx.x * 4; c < d; c += kThreads * 4) {
+    const float4 v = *reinterpret_cast<const float4*>(h1 + row + c);
+    const float4 g = load4(scale + c);
+    *reinterpret_cast<float4*>(hn + row + c) =
+        make_float4(v.x * rstd * g.x, v.y * rstd * g.y, v.z * rstd * g.z,
+                    v.w * rstd * g.w);
+  }
 }
 
 // act[i] = silu(sum_s G[s][i]) * sum_s U[s][i] over `count` elements.
 __global__ void __launch_bounds__(kThreads)
 silu_mul_kernel(const float* __restrict__ G, const float* __restrict__ U,
                 int splits, long long count, float* __restrict__ act) {
+  grid_launch_dependents();
+  grid_dependency_wait();
   for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
        i < count; i += (long long)gridDim.x * kThreads) {
     float g = 0.f, u = 0.f;
@@ -186,6 +219,8 @@ __global__ void __launch_bounds__(kThreads)
 sum_partials_kernel(const float* __restrict__ base,
                     const float* __restrict__ P, int splits,
                     long long count, TO* __restrict__ out) {
+  grid_launch_dependents();
+  grid_dependency_wait();
   for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
        i < count; i += (long long)gridDim.x * kThreads) {
     float v = base ? base[i] : 0.f;

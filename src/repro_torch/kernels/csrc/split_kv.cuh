@@ -36,16 +36,6 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
-// programmatic dependent launch: a primary grid's blocks let the next
-// grid be scheduled; the dependent grid waits for all of the primary's
-// writes (a no-op when it was launched without the attribute)
-__device__ __forceinline__ void grid_launch_dependents() {
-  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
-}
-__device__ __forceinline__ void grid_dependency_wait() {
-  asm volatile("griddepcontrol.wait;\n" ::: "memory");
-}
-
 template <typename T, int N>
 struct alignas(sizeof(T) * N) Vec {
   T v[N];
@@ -83,6 +73,8 @@ split_merge_kernel(const float2* __restrict__ part_ml,
   const int hd = a.hd;
   const int nh = a.nkv * a.groups;
   const size_t pb = ((size_t)seq * a.nkv + kvh) * a.n_split * rows;
+  grid_launch_dependents();                // a dependent consumer (the fused
+                                           // layer's wo product) may start
   grid_dependency_wait();                  // every split's partial written
   for (int r = warp; r < rows; r += kMergeWarps) {
     float big = kNegInf;

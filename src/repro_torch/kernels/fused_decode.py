@@ -7,8 +7,13 @@ lane's heads, the ``wo`` projection and residual, RMSNorm, SwiGLU and the
 second residual, in f32, cast once to h's dtype.  What bounds it on an
 H100 is the bytes: the layer's four weight matrices (23 MB in bf16 at
 qwen3-0.6b's widths), read once for all lanes, plus the K/V rows the lanes
-attend to.  One call is a fixed chain of 7 kernel launches issued by one
-C call; the design notes are in the CUDA source.
+attend to.  One call is a fixed chain of 8 kernel launches issued by one
+C call: the split-KV decode attention and its merge (the kernels of
+``paged_attention_lanes``), then the products and row passes as
+programmatic dependent launches, the products streaming their weights
+through a ring (bf16 on the tensor cores, with each activation split into
+two bf16 parts; f32 on the CUDA cores).  The design notes are in the CUDA
+sources.
 
 For CUDA tensors the wrapper launches the kernel chain or raises; it never
 falls back.  For tensors on the CPU, where no kernel exists, it runs the
@@ -22,7 +27,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.paged_attention import (_check, _check_launch_shape,
+from repro_torch.kernels.paged_attention import (_check, _check_split_shape,
                                                  check_cuda_operands, on_cpu)
 from repro_torch.kernels.ref import fused_decode_layer_ref
 
@@ -37,7 +42,7 @@ def _lib():
             + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         ws = lib.fused_decode_workspace_floats
-        ws.argtypes = [ctypes.c_int] * 5
+        ws.argtypes = [ctypes.c_int] * 8
         ws.restype = ctypes.c_longlong
     return lib
 
@@ -52,7 +57,8 @@ def fused_decode_layer(h, q, k_pages, v_pages, tables, lengths, wo,
     (nh*hd, d); mlp_scale: (d,); w_gate/w_up: (d, f); w_down: (f, d).  h,
     q, the weights and the scale share one dtype (the caller casts them).
     Returns the next (n, d) residual in h's dtype.  On CUDA tensors each
-    call is one kernel chain, counted in ``fused_decode_layer.launches``."""
+    call is one kernel chain (8 CUDA launches), counted once in
+    ``fused_decode_layer.launches``."""
     n, nh, hd, bs, nkv = _check(q, k_pages, v_pages, tables, lengths,
                                 window)
     if h.dim() != 2 or h.shape[0] != n:
@@ -84,7 +90,7 @@ def fused_decode_layer(h, q, k_pages, v_pages, tables, lengths, wo,
                         "takes one float32 or bfloat16 dtype for h, q, the "
                         "weights and the scale, and float32 or bfloat16 "
                         "pages")
-    _check_launch_shape("fused_decode_layer", nh, nkv, hd, k_pages, v_pages)
+    _check_split_shape("fused_decode_layer", nh, nkv, hd, k_pages, v_pages)
     if (nh * hd) % 4 or d % 8 or f % 8:
         raise ValueError(f"fused_decode_layer: nh*hd {nh * hd}, d {d}, f {f}"
                          "; the kernel takes nh*hd % 4 == 0 and d, f "
@@ -97,8 +103,9 @@ def fused_decode_layer(h, q, k_pages, v_pages, tables, lengths, wo,
     if n == 0:
         return out
     lib = _lib()
-    ws = torch.empty(lib.fused_decode_workspace_floats(n, nh, hd, d, f),
-                     dtype=torch.float32, device=h.device)
+    ws = torch.empty(lib.fused_decode_workspace_floats(
+        n, nh, nkv, hd, bs, tables.shape[1], d, f), dtype=torch.float32,
+        device=h.device)
     with torch.cuda.device(h.device):
         err = lib.fused_decode_layer_fwd(
             h.data_ptr(), q.data_ptr(), k_pages.data_ptr(),

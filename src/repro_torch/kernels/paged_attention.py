@@ -24,9 +24,8 @@ For a CUDA tensor a wrapper launches the kernel or raises; it never falls
 back.  For a tensor on the CPU, where no kernel exists, it runs the plain
 version (``ref.paged_attention_ref`` / ``ref.paged_attention_quant_ref``).
 
-``_check_launch_shape`` is the shape check of the one-block-per-(KV head,
-lane) kernel of ``csrc/paged_attention.cuh``, which the fused decode layer
-runs for its attention phase.
+The fused decode layer (``fused_decode.py``) runs the same split kernel and
+merge for its attention phase, and takes the same shape check.
 """
 
 from __future__ import annotations
@@ -40,10 +39,8 @@ from repro_torch.kernels.ref import (paged_attention_quant_ref,
                                      paged_attention_ref)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_WARPS = 8                  # kWarps in paged_attention.cuh (fused layer)
-_MAX_GROUPS = 8             # kMaxGroups
-_SMEM_LIMIT = 48 * 1024
-SPLIT_ROWS = 128            # kSplit in paged_attention.cu
+_MAX_GROUPS = 8             # kMaxGroups in csrc/paged_decode.cuh
+SPLIT_ROWS = 128            # kSplit
 
 
 def _lib():
@@ -108,23 +105,6 @@ def check_cuda_operands(kernel: str, named: dict) -> None:
     for name, t in named.items():
         if not t.is_contiguous():
             raise ValueError(f"{kernel}: {name} is not contiguous")
-
-
-def _check_launch_shape(kernel, nh, nkv, hd, k_pages, v_pages) -> None:
-    groups = nh // nkv
-    smem = 4 * _WARPS * groups * (hd + 2)     # the warps' merge buffers
-    dpl = next(d for d in (1, 2, 4, 8, 16) if hd <= 32 * d)  # dims per lane
-    if hd > 256 or hd % dpl or groups > _MAX_GROUPS or smem > _SMEM_LIMIT:
-        raise ValueError(f"{kernel}: head_dim {hd} with {groups} query "
-                         f"heads per KV head is not what the kernel takes "
-                         f"(head_dim <= 256 and a multiple of {dpl}, groups "
-                         f"<= {_MAX_GROUPS}, {_SMEM_LIMIT} B of shared "
-                         "memory)")
-    for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
-        if t.data_ptr() % (dpl * t.element_size()):
-            raise ValueError(f"{kernel}: {name} is not aligned to "
-                             f"{dpl * t.element_size()} bytes (the kernel's "
-                             "vector loads)")
 
 
 def _check_split_shape(kernel, nh, nkv, hd, k_pages, v_pages) -> None:

@@ -2,14 +2,18 @@
 kernel ``csrc/ssd_scan.cu``.
 
 Replaces the TPU kernel ``ssd_scan_bshpn`` in
-``src/repro/kernels/ssd_scan.py``.  What bounds it on an H100, at the
-shapes the Mamba2 and mLSTM blocks give it, is the operations of its
-products (``ssd_flops``); this first kernel runs them on the CUDA cores.
-The design notes are in the CUDA source.
+``src/repro/kernels/ssd_scan.py``.  What bounds it on an H100 is the bytes
+at zamba2's shape and the operations of its products (``ssd_flops``) at
+the mLSTM's.  bf16 inputs run every product on the tensor cores; f32
+inputs stay on the CUDA cores (the reference's 2e-4).  The design notes
+are in the CUDA source.
 
 Inputs are read through their strides: the Mamba2 block broadcasts one
 B/C group over every head with ``expand`` (head stride 0), and the kernel
-reads that view as it is — no per-head copy is made.
+reads that view as it is — no per-head copy is made.  The bf16 kernel
+copies 16-byte rows, so it takes unit last strides and other strides in
+whole 8-element vectors; an operand that has neither is made contiguous
+first (a layout copy; a broadcast view qualifies as it is).
 
 The kernel is forward-only, as the TPU kernel is (``jax.grad`` through
 its ``pallas_call`` raises): inputs that need a gradient raise, on every
@@ -33,6 +37,7 @@ from repro_torch.kernels.ref import ssd_chunked_ref
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _SMEM_LIMIT = 232_448           # bytes of shared memory a block can use
+_MAX_CHUNK_BF16 = 256           # kMaxChunkTc: 16 query tiles of 16 rows
 
 
 def _lib():
@@ -42,7 +47,7 @@ def _lib():
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        lib.ssd_scan_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.ssd_scan_smem_bytes.argtypes = [ctypes.c_int] * 3
         lib.ssd_scan_smem_bytes.restype = ctypes.c_longlong
     return lib
 
@@ -55,6 +60,16 @@ def ssd_flops(b: int, s: int, h: int, p: int, n: int, chunk: int) -> int:
     pairs = chunk * (chunk + 1) // 2
     per_chunk = 2 * pairs * (n + p) + 2 * 2 * chunk * p * n
     return b * h * nc * per_chunk
+
+
+def _rows_of_vectors(t):
+    """``t`` itself when its last stride is 1, its other strides are whole
+    8-element vectors and it is 16-byte aligned (what the bf16 kernel's
+    16-byte copies take), else a contiguous copy in fresh memory."""
+    if t.stride(-1) == 1 and all(st % 8 == 0 for st in t.stride()[:-1]) \
+            and t.data_ptr() % 16 == 0:
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
 
 
 def ssd_scan_bshpn(x, log_a, b_coef, c_coef, *, chunk: int):
@@ -94,8 +109,15 @@ def ssd_scan_bshpn(x, log_a, b_coef, c_coef, *, chunk: int):
                         f"c {c_coef.dtype}, log_a {log_a.dtype}; the kernel "
                         "takes x, b, c of one dtype (float32 or bfloat16) "
                         "and float32 log_a")
+    if x.dtype == torch.bfloat16:
+        if chunk > _MAX_CHUNK_BF16 or p % 8 or n % 8:
+            raise ValueError(f"ssd_scan_bshpn: chunk {chunk}, p {p}, n {n}; "
+                             "the bfloat16 kernel takes chunk <= "
+                             f"{_MAX_CHUNK_BF16} and p, n multiples of 8 "
+                             "(its 16-byte copies)")
+        x, b_coef, c_coef = map(_rows_of_vectors, (x, b_coef, c_coef))
     lib = _lib()
-    smem = lib.ssd_scan_smem_bytes(chunk, n)
+    smem = lib.ssd_scan_smem_bytes(chunk, n, _DTYPE_CODES[x.dtype])
     if smem > _SMEM_LIMIT:
         raise ValueError(f"ssd_scan_bshpn: chunk {chunk} with state width "
                          f"{n} needs {smem} B of shared memory a block; the "

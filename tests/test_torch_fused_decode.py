@@ -14,10 +14,23 @@ package's.
 * f32 engines with ``paged_impl="fused"`` — plain paged, spec over the
   paged inner, an int8 pool (where the fused gate falls back) — give the
   JAX engine's token streams and lane assignments tick by tick.
+* A plain model of the CUDA kernel chain's numerics
+  (``fused_kernel_model``: split-KV attention over 128-row splits with
+  f32 partials merged in split order, each product over the kernel's
+  depth slices with every activation split into bf16 hi + lo against
+  bf16-exact weights, the slices' sums added in order, silu(g) * u formed
+  from the summed slices) gives the JAX oracle's and the Pallas kernel's
+  numbers over the fuzz sample at 2e-4.  The split is the kernel's
+  rounding choice: at d 1024 with 16/8 heads of 128 the model is within
+  1e-4 of the f32 plain version, where activations rounded once to bf16
+  are not within the f32 tolerance 2e-4.
 * On CPU tensors each kernel wrapper runs its plain version and launches
   nothing; the CUDA kernels are held against their plain versions on a
-  card (``-m cuda``; the JAX side is imported by fixtures, so those cases
-  run where JAX is missing).
+  card (``-m cuda``: the fuzz sample, 8 and 33 lanes at full width, 32
+  lanes up to 4096 rows with and without a window of 512 and an inactive
+  lane on the garbage block, f32 at 8 lanes (the 8-row tile), two calls
+  giving the same bits; the JAX side is imported by fixtures, so those
+  cases run where JAX is missing).
 """
 
 import functools
@@ -26,6 +39,8 @@ from types import SimpleNamespace
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
+from test_torch_paged_attention import _long_inputs, _split_merge
 
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.fused_decode import fused_decode_layer
@@ -109,6 +124,84 @@ def test_fused_ref_matches_jax_oracle_and_pallas(jx, n, nkv, groups, hd, bs,
     for impl in ("jnp", "pallas_interpret"):
         exp = jx.ops.fused_decode_layer(**ja, window=window, impl=impl)
         _close(_np(out), exp, MM_TOL)
+
+
+# csrc/paged_decode.cuh kSplit; csrc/stream_gemm.cuh kTileN, kSliceK,
+# kTargetBlocks, kMaxRows
+SPLIT_ROWS, TILE_N, SLICE_K, TARGET_BLOCKS, MAX_ROWS = 128, 64, 64, 264, 32
+
+
+def _slice_width(K, N, n_mats, n):
+    """sg::plan: the depth of each slice of a product."""
+    others = -(-N // TILE_N) * n_mats * -(-n // MAX_ROWS)
+    granules = -(-K // SLICE_K)
+    splits = min(max(-(-TARGET_BLOCKS // others), 1), granules)
+    return -(-granules // splits) * SLICE_K
+
+
+def _product_slices(x, w, n_mats, split):
+    """One product of the chain: per depth slice the f32 sum of x's bf16
+    hi and lo parts (``split``; else x rounded once to bf16) times w."""
+    hi = x.to(torch.bfloat16).float()
+    parts = (hi, (x - hi).to(torch.bfloat16).float()) if split else (hi,)
+    K = x.shape[1]
+    kps = _slice_width(K, w.shape[1], n_mats, x.shape[0])
+    return [sum(xp[:, k:k + kps] @ w[k:k + kps] for xp in parts)
+            for k in range(0, K, kps)]
+
+
+def fused_kernel_model(t, window, *, eps=1e-6, split=True):
+    """The CUDA kernel chain's numerics in plain torch, f32 sums: split-KV
+    attention (f32 partials, merged in split order), h1 = h + the wo
+    slices in order, RMSNorm, g and u each the sum of their slices,
+    act = silu(g) * u, out = h1 + the down slices in order."""
+    n, nh, hd = t["q"].shape
+    attn = _split_merge(t["q"].float(), t["k_pages"].float(),
+                        t["v_pages"].float(), t["tables"], t["lengths"],
+                        window, SPLIT_ROWS).reshape(n, nh * hd)
+    h1 = t["h"].float()
+    for part in _product_slices(attn, t["wo"].float(), 1, split):
+        h1 = h1 + part
+    hn = h1 * torch.rsqrt(h1.square().mean(-1, keepdim=True) + eps) \
+        * t["mlp_scale"].float()
+    g = sum(_product_slices(hn, t["w_gate"].float(), 2, split))
+    u = sum(_product_slices(hn, t["w_up"].float(), 2, split))
+    out = h1
+    for part in _product_slices(F.silu(g) * u, t["w_down"].float(), 1,
+                                split):
+        out = out + part
+    return out
+
+
+def _bf16_weights(a):
+    """The fuzz inputs with wo and the MLP matrices rounded to bf16 values
+    (the bf16 kernel's weights are exact in its products)."""
+    for k in ("wo", "w_gate", "w_up", "w_down"):
+        a[k] = torch.from_numpy(a[k]).to(torch.bfloat16).float().numpy()
+    return a
+
+
+@pytest.mark.parametrize("n,nkv,groups,hd,bs,B,window,d", FUZZ)
+def test_kernel_model_matches_jax_oracle_and_pallas(jx, n, nkv, groups, hd,
+                                                    bs, B, window, d):
+    a = _bf16_weights(fused_inputs(n * 1000 + B * 10 + d + 1, n, nkv,
+                                   groups, hd, bs, B, d))
+    out = fused_kernel_model(_torch(a), window)
+    ja = {k: jx.jnp.asarray(v) for k, v in a.items()}
+    for impl in ("jnp", "pallas_interpret"):
+        exp = jx.ops.fused_decode_layer(**ja, window=window, impl=impl)
+        _close(_np(out), exp, MM_TOL)
+
+
+def test_kernel_model_activation_split_at_full_width():
+    """8 lanes, 16/8 heads of 128, d 1024: the model with hi + lo
+    activations is within 1e-4 of the f32 plain version; activations
+    rounded once to bf16 are not within 2e-4."""
+    t = _torch(_bf16_weights(fused_inputs(12, 8, 8, 2, 128, 16, 20, 1024)))
+    exp = ref.fused_decode_layer_ref(**t)
+    _close(_np(fused_kernel_model(t, None)), _np(exp), 1e-4)
+    err = (fused_kernel_model(t, None, split=False) - exp).abs()
+    assert not bool((err <= MM_TOL + MM_TOL * exp.abs()).all())
 
 
 @pytest.mark.parametrize("rows,d", [(1, 128), (7, 96), (64, 128)])
@@ -364,3 +457,57 @@ def test_cuda_rms_norm_and_swiglu_match_plain_versions(rows, d, f, dtype):
     exp = ref.swiglu_ref(x, *mats)
     torch.cuda.synchronize()
     _close(_np(out), _np(exp), MM_TOL if dtype == "float32" else BF16_TOL)
+
+
+def _long_layer(seed, lengths, dtype, d=1024):
+    """The fused layer's operands on the card: lanes of ``lengths`` over
+    16/8 heads of 128 in blocks of 16 (``_long_inputs``; a lane of length
+    1 reads only the garbage block), h and weights at width d (f 3d)."""
+    pages, q, tables, lens = _long_inputs(seed, lengths, 16, 8, 128, 16,
+                                          dtype, dtype)
+    g = torch.Generator("cuda").manual_seed(seed)
+    dt = getattr(torch, dtype)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, device="cuda", generator=g)
+                * scale).to(dt)
+    f = 3 * d
+    return dict(h=randn(len(lengths), d), q=q, k_pages=pages[0],
+                v_pages=pages[1], tables=tables, lengths=lens,
+                wo=randn(16 * 128, d, scale=(16 * 128) ** -0.5),
+                mlp_scale=(torch.randn(d, device="cuda", generator=g) * 0.1
+                           + 1.0).to(dt),
+                w_gate=randn(d, f, scale=d ** -0.5),
+                w_up=randn(d, f, scale=d ** -0.5),
+                w_down=randn(f, d, scale=f ** -0.5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,window", [(32, None), (32, 512), (8, None)])
+def test_cuda_fused_layer_long_lanes(n, window, dtype):
+    """Lanes of 1 (an inactive lane on the garbage block) to 4096 rows over
+    many 128-row splits, with and without a window of 512; at 8 lanes the
+    f32 products take their 8-row tile."""
+    _need_cuda()
+    lengths = np.random.default_rng(n).integers(1, 4097, n)
+    lengths[0], lengths[-1] = 1, 4096
+    t = _long_layer(n, lengths.tolist(), dtype)
+    before = fused_decode_layer.launches
+    out = ops.fused_decode_layer(**t, window=window, impl="cuda")
+    exp = ref.fused_decode_layer_ref(**t, window=window)
+    torch.cuda.synchronize()
+    assert fused_decode_layer.launches == before + 1
+    _close(_np(out), _np(exp), MM_TOL if dtype == "float32" else BF16_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_fused_layer_repeats_bitwise(dtype):
+    """Partial sums in a fixed order: two calls give the same bits."""
+    _need_cuda()
+    t = _long_layer(7, [890, 273, 564, 332, 368, 112, 145, 88], dtype)
+    first = ops.fused_decode_layer(**t, impl="cuda")
+    second = ops.fused_decode_layer(**t, impl="cuda")
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
