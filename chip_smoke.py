@@ -21,9 +21,12 @@ Phases (any failure exits non-zero before the result line):
    op call — the split-KV decode kernel and its merge (``paged_decode.cuh``,
    shared with ``paged_attention.cu``), then the weight-streaming products
    (``stream_gemm.cuh``: bf16 on the tensor cores, f32 on the CUDA cores)
-   and the row passes as programmatic dependent launches; ``rmsnorm.cu``,
-   ``swiglu.cu``; ``ssd_scan.cu``: bf16 on the tensor cores (mma.sync),
-   f32 on the CUDA cores; shared device code in ``*.cuh``), with nvcc for
+   and the row passes as programmatic dependent launches; ``rmsnorm.cu``:
+   a row held in registers from 16-byte loads; ``swiglu.cu``: at most 32
+   bf16 / 8 f32 rows the fused layer's streaming products (4 launches),
+   past that two tiled mma.sync launches, f32 split into bf16 hi + lo;
+   ``ssd_scan.cu``: bf16 on the tensor cores (mma.sync), f32 on the
+   CUDA cores; shared device code in ``*.cuh``), with nvcc for
    sm_90a, one nvcc per source, in parallel;
 3. kernel vs plain — each kernel against its plain PyTorch version at the
    serving shapes of qwen3-0.6b (16 heads, 8 KV heads, head_dim 128,
@@ -39,11 +42,16 @@ Phases (any failure exits non-zero before the result line):
    library yardstick, which the port never calls (every ``[kernel]`` line
    also gives ``bound_share`` = bound_ms / ms); the fused decode layer
    (d 1024, f 3072; 8 and 32 lanes, the same ragged lengths, garbage lane
-   and window case) in bf16 (2e-2) and f32 (2e-4); RMSNorm and SwiGLU at
-   rows {1, 8, 127, 2048} of d 1024 (f 3072) and at the profiler's probe
-   shapes (512, 512[, 1024]), in bf16 (2e-2) and f32 (2e-5 / 2e-4), with
-   ``F.rms_norm`` as RMSNorm's yardstick (the fused layer and SwiGLU have
-   no one-call equivalent);
+   and window case) in bf16 (2e-2) and f32 (2e-4); the harness floor
+   (``cuda_ms`` of an empty kernel), then RMSNorm and SwiGLU at rows {1,
+   8, 32, 33, 127, 2048} of d 1024 (f 3072; SwiGLU's routes meet at 32 |
+   33 rows in bf16, 8 | 9 in f32), RMSNorm at 512 x 1022 (its element
+   path), both at the profiler's probe shapes (512, 512[, 1024]), in
+   bf16 (2e-2) and f32
+   (2e-5 / 2e-4), with ``F.rms_norm`` as RMSNorm's yardstick (the fused
+   layer and SwiGLU have no one-call equivalent; bf16 SwiGLU rows also
+   time the cuBLAS composition, which rounds the hidden to bf16: not the
+   same function);
 4. serve — full-width qwen3-0.6b (bf16 compute, f32 params seeded on the
    card) through ``InferenceEngine(backend="paged")``: 8 requests with
    prompts of 64..1024 tokens, two sharing a 256-token prefix (one also a
@@ -709,74 +717,154 @@ def phase_fused_sweep(flush):
 RMS_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # the profiler's probe shapes: rms_norm (rows, d), swiglu (rows, d, f)
 PROBE_SHAPE = (512, 512, 1024)
+# rows at qwen3-0.6b's widths: decode lanes, SwiGLU's route boundaries
+# (bf16 32 stream | 33 tiled; f32 8 | 9), a ragged prefill, a long one
+SWEEP_ROWS = (1, 8, 32, 33, 127, 2048)
+RAGGED_RMS = (512, 1022)      # d % 8 != 0: RMSNorm's element path
 
 
-def measure_rms_swiglu(rows, d, f, dtype_name, flush):
-    """RMSNorm over (rows, d) and SwiGLU over (rows, d, f), kernel vs
-    plain: errors, times, bounds; F.rms_norm is RMSNorm's library
-    yardstick, SwiGLU has none."""
+def rms_swiglu_inputs(rows, d, f, dtype_name):
+    """x ~ N(0, 1), the norm scale ~ 1 + N(0, 0.01), SwiGLU weights ~
+    N(0, 1/fan_in), on the card, from a generator seeded by the shape."""
     import torch
-    import torch.nn.functional as F
-
-    from repro_torch.kernels import ops, ref
-
     dtype = getattr(torch, dtype_name)
     g = torch.Generator("cuda").manual_seed(rows + d + f)
     x = torch.randn(rows, d, device="cuda", generator=g).to(dtype)
     w = (torch.randn(d, device="cuda", generator=g) * 0.1 + 1.0).to(dtype)
     mats = [(torch.randn(a, b, device="cuda", generator=g) / a ** 0.5)
             .to(dtype) for a, b in ((d, f), (d, f), (f, d))]
-    item = x.element_size()
-    out = {}
-    for name, kern, plain, lib, tol, nbytes, flops in (
-            ("rms_norm", lambda: ops.rms_norm(x, w, impl="cuda"),
-             lambda: ref.rms_norm_ref(x, w),
-             lambda: F.rms_norm(x, (d,), w, 1e-6), RMS_TOL[dtype_name],
-             (2 * rows * d + d) * item, 4 * rows * d),
-            ("swiglu", lambda: ops.swiglu(x, *mats, impl="cuda"),
-             lambda: ref.swiglu_ref(x, *mats), None, MM_TOL[dtype_name],
-             (2 * rows * d + 3 * d * f) * item, 6 * rows * d * f)):
-        got, exp = kern(), plain()
-        torch.cuda.synchronize()
-        diff = (got.float() - exp.float()).abs()
-        r = {"max_abs_err": float(diff.max()),
-             "within_tol": bool((diff <= tol + tol * exp.float().abs()).all()
-                                and torch.isfinite(got).all()),
-             "ms": cuda_ms(kern, flush=flush),
-             "plain_ms": cuda_ms(plain, iters=5, flush=flush),
-             "library_ms": None if lib is None else cuda_ms(lib, flush=flush),
-             "rows": rows, "d": d, "f": f if name == "swiglu" else None,
-             "dtype": dtype_name}
-        set_bound(r, nbytes, flops, dtype_name)
-        out[name] = r
-        lib_s = ("" if r["library_ms"] is None
-                 else f" library_ms={r['library_ms']:.4f}")
-        log(f"[kernel] {name} {dtype_name} rows={rows} d={d}"
-            f"{'' if name == 'rms_norm' else f' f={f}'}: max_abs_err="
-            f"{r['max_abs_err']:.3g} (tol {tol}) ms={r['ms']:.4f} plain_ms="
-            f"{r['plain_ms']:.4f}{lib_s} bound_ms={r['bound_ms']:.4f}"
-            f" bound_share={r['bound_share']:.3f} "
-            f"({r['bound_by']})")
-        if not r["within_tol"]:
-            fail(f"{name} kernel disagrees with its plain version "
-                 f"({dtype_name}, rows {rows}, d {d}, f {f}): max abs err "
-                 f"{r['max_abs_err']}")
-    return out
+    return x, w, mats
+
+
+def harness_floor_ms(flush) -> float:
+    """``cuda_ms`` of an empty kernel (``torch.cuda._sleep(0)``), with the
+    flush and the spin: the least time the timer can report."""
+    import torch
+    return cuda_ms(lambda: torch.cuda._sleep(0), flush=flush)
+
+
+def swiglu_bound(rows, d, f, dtype_name, item):
+    """SwiGLU's least bytes (x, out, the three weights) and the time of
+    the products its route issues: the tiled f32 route splits each
+    operand into two bf16 parts and issues three tensor-core products for
+    each of the reference's (``swiglu.bound_flops``)."""
+    import torch
+
+    from repro_torch.kernels.swiglu import bound_flops
+    nbytes = (2 * rows * d + 3 * d * f) * item
+    flops, unit = bound_flops(rows, d, f, getattr(torch, dtype_name))
+    peak = PEAK_FLOPS["bfloat16" if unit == "tensor" else "float32"]
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / peak * 1e3
+    return nbytes, flops, max(t_bytes, t_ops), (
+        "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _gate(name, r, tol, shape):
+    if not r["within_tol"]:
+        fail(f"{name} kernel disagrees with its plain version ({shape}): "
+             f"max abs err {r['max_abs_err']}")
+
+
+def _compare(got, exp, tol):
+    import torch
+    torch.cuda.synchronize()
+    diff = (got.float() - exp.float()).abs()
+    return {"max_abs_err": float(diff.max()),
+            "within_tol": bool((diff <= tol + tol * exp.float().abs()).all()
+                               and torch.isfinite(got).all())}
+
+
+def measure_rms(rows, d, dtype_name, flush):
+    """RMSNorm over (rows, d), kernel vs plain: error, times, bound, and
+    ``F.rms_norm`` (one PyTorch call) as the library yardstick."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+    x, w, _ = rms_swiglu_inputs(rows, d, 8, dtype_name)
+    tol = RMS_TOL[dtype_name]
+    r = _compare(ops.rms_norm(x, w, impl="cuda"), ref.rms_norm_ref(x, w),
+                 tol)
+    r.update(ms=cuda_ms(lambda: ops.rms_norm(x, w, impl="cuda"),
+                        flush=flush),
+             plain_ms=cuda_ms(lambda: ref.rms_norm_ref(x, w), iters=5,
+                              flush=flush),
+             library_ms=cuda_ms(lambda: F.rms_norm(x, (d,), w, 1e-6),
+                                flush=flush),
+             rows=rows, d=d, f=None, dtype=dtype_name)
+    set_bound(r, (2 * rows * d + d) * x.element_size(), 4 * rows * d,
+              dtype_name)
+    log(f"[kernel] rms_norm {dtype_name} rows={rows} d={d}: max_abs_err="
+        f"{r['max_abs_err']:.3g} (tol {tol}) ms={r['ms']:.4f} plain_ms="
+        f"{r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} bound_ms="
+        f"{r['bound_ms']:.4f} bound_share={r['bound_share']:.3f} "
+        f"({r['bound_by']})")
+    _gate("rms_norm", r, tol, f"{dtype_name}, rows {rows}, d {d}")
+    return r
+
+
+def measure_swiglu(rows, d, f, dtype_name, flush):
+    """SwiGLU over (rows, d, f), kernel vs plain: error, times, the bound
+    of its route's products; no one PyTorch call computes it (library
+    null).  Beside the plain time, bf16 rows also time the cuBLAS
+    composition (F.silu(x @ Wg) * (x @ Wu)) @ Wd in bf16 — not the same
+    function (it rounds the hidden to bf16), a measure of how far the
+    products are from the card's library."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.swiglu import swiglu_route
+    x, _, mats = rms_swiglu_inputs(rows, d, f, dtype_name)
+    wg, wu, wd = mats
+    tol = MM_TOL[dtype_name]
+    r = _compare(ops.swiglu(x, *mats, impl="cuda"),
+                 ref.swiglu_ref(x, *mats), tol)
+    r.update(ms=cuda_ms(lambda: ops.swiglu(x, *mats, impl="cuda"),
+                        flush=flush),
+             plain_ms=cuda_ms(lambda: ref.swiglu_ref(x, *mats), iters=5,
+                              flush=flush),
+             library_ms=None,
+             cublas_bf16_ms=(cuda_ms(lambda: (F.silu(x @ wg) * (x @ wu))
+                                     @ wd, flush=flush)
+                             if dtype_name == "bfloat16" else None),
+             route=swiglu_route(rows, x.dtype), rows=rows, d=d, f=f,
+             dtype=dtype_name)
+    r["bytes"], r["flops"], r["bound_ms"], r["bound_by"] = swiglu_bound(
+        rows, d, f, dtype_name, x.element_size())
+    r["bound_share"] = r["bound_ms"] / r["ms"]
+    cub = ("" if r["cublas_bf16_ms"] is None else
+           f" cublas_bf16_ms={r['cublas_bf16_ms']:.4f} (not the same "
+           f"function: the hidden rounded to bf16)")
+    log(f"[kernel] swiglu {dtype_name} rows={rows} d={d} f={f} route="
+        f"{r['route']}: max_abs_err={r['max_abs_err']:.3g} (tol {tol}) "
+        f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f}{cub} bound_ms="
+        f"{r['bound_ms']:.4f} bound_share={r['bound_share']:.3f} "
+        f"({r['bound_by']})")
+    _gate("swiglu", r, tol, f"{dtype_name}, rows {rows}, d {d}, f {f}")
+    return r
 
 
 def phase_rms_swiglu_sweep(flush):
-    """Rows {1, 8, 127, 2048} at qwen3-0.6b's widths, plus the profiler's
-    probe shapes, in bf16 and f32.  Returns (sweep rows, the probe-shape
-    f32 rows — the shapes the profiler's path gives the kernels)."""
+    """The harness floor, then RMSNorm and SwiGLU at SWEEP_ROWS of
+    qwen3-0.6b's widths, RMSNorm at RAGGED_RMS, and both at the profiler's
+    probe shapes, in bf16 and f32.  Returns (report, the probe-shape f32
+    rows — the shapes the profiler's path gives the kernels)."""
+    floor = harness_floor_ms(flush)
+    log(f"[kernel] harness floor: cuda_ms of an empty kernel "
+        f"(torch.cuda._sleep(0), flush and spin) = {floor:.4f} ms")
     rows, probe = [], {}
     for dt in ("bfloat16", "float32"):
-        for m in (1, 8, 127, 2048):
-            rows.append(measure_rms_swiglu(m, D_MODEL, D_FF, dt, flush))
-        r = measure_rms_swiglu(*PROBE_SHAPE, dt, flush)
+        for m in SWEEP_ROWS:
+            rows.append({"rms_norm": measure_rms(m, D_MODEL, dt, flush),
+                         "swiglu": measure_swiglu(m, D_MODEL, D_FF, dt,
+                                                  flush)})
+        rows.append({"rms_norm": measure_rms(*RAGGED_RMS, dt, flush)})
+        r = {"rms_norm": measure_rms(*PROBE_SHAPE[:2], dt, flush),
+             "swiglu": measure_swiglu(*PROBE_SHAPE, dt, flush)}
         rows.append(r)
         if dt == "float32":
             probe = r
-    return rows, probe
+    return {"harness_floor_ms": floor, "rows": rows}, probe
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,7 @@
-// Weight-streaming products of the fused decode layer (fused_decode.cu),
-// written for Hopper (sm_90a): P[s] = X[:, ks] . W[ks, :] for the s-th
-// slice ks of the depth, with f32 sums, at n <= 32 activation rows (the
-// decode lanes) a block.
+// Weight-streaming products of the fused decode layer (fused_decode.cu)
+// and of SwiGLU at few rows (swiglu.cu), written for Hopper (sm_90a):
+// P[s] = X[:, ks] . W[ks, :] for the s-th slice ks of the depth, with f32
+// sums, at n <= 32 activation rows (the decode lanes) a block.
 //
 // What bounds them on an H100: the weight bytes.  At 8 lanes a product
 // does 2 x 8 flops per weight value read (8 per byte in bf16), far under
@@ -30,13 +30,16 @@
 //    bf16(x - hi)), and two products are issued on the same weight
 //    fragment.  hi + lo carries x to ~2^-17 relative (against 2^-9 for
 //    plain bf16, 2^-11 for TF32); the byte bound leaves room for the
-//    second product (kSplitActivation).
+//    second product (kSplitActivation).  bf16 activations (SwiGLU's x) are
+//    exact as they are: one product, no lo part.
 //  - f32 weights stay on the CUDA cores (TF32 cannot meet the layer's
 //    2e-4 tolerance).  They get the same ring and a row tile sized to the
 //    lanes: 8 rows when n <= 8 (four groups of threads then split each
 //    weight tile's depth and add their sums in group order), else 32.
 //  - The activations come from the workspace, where the previous phase
-//    wrote them; a block stages its rows of its depth slice once.
+//    wrote them (f32), or from the caller (SwiGLU's x: f32 or bf16, the
+//    activation type a template parameter); a block stages its rows of
+//    its depth slice once.
 //
 // Shapes the caller guarantees: K % 4 == 0, N % 8 == 0, W 16-byte
 // aligned, row-major contiguous operands.
@@ -80,11 +83,17 @@ __device__ __forceinline__ float4 load_act4(const float* x, int r, int k,
                                             int K) {
   return *reinterpret_cast<const float4*>(x + (size_t)r * K + k);
 }
+__device__ __forceinline__ float4 load_act4(const __nv_bfloat16* x, int r,
+                                            int k, int K) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(x + (size_t)r * K + k);
+  const float2 a = unpack_bf16x2(raw.x), b = unpack_bf16x2(raw.y);
+  return make_float4(a.x, a.y, b.x, b.y);
+}
 
 // blockIdx: x = column tile, y = depth slice s, z = mat * row_tiles + row
 // tile (mat picks W0/P0 or W1/P1: the gate and up products share a launch)
 struct Args {
-  const float* x;      // the activations, (n, K)
+  const void* x;       // the activations, (n, K), f32 or bf16
   const void* w0;
   const void* w1;
   float* p0;
@@ -103,10 +112,12 @@ __host__ __device__ constexpr size_t smem_bf16(int k_per_split) {
          2 * (size_t)NT * 8 * (k_per_split + 8) * 2;
 }
 
-template <int NT>
+template <int NT, typename TX>
 __global__ void __launch_bounds__(kThreadsBf16)
 product_bf16_kernel(Args p) {
   constexpr int kRows = NT * 8;
+  constexpr bool kSplit = kSplitActivation && sizeof(TX) == 4;
+  const TX* __restrict__ X = static_cast<const TX*>(p.x);
   extern __shared__ __align__(128) unsigned char smem[];
   const int mat = blockIdx.z / p.row_tiles;
   const int r0 = (blockIdx.z - mat * p.row_tiles) * kRows;
@@ -156,13 +167,15 @@ product_bf16_kernel(Args p) {
     const int kk = (e - r * span4) * 4;
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
     if (r0 + r < p.n && k_lo + kk < k_hi)
-      v = load_act4(p.x, r0 + r, k_lo + kk, p.K);
+      v = load_act4(X, r0 + r, k_lo + kk, p.K);
     const uint32_t h01 = pack_bf16x2(v.x, v.y), h23 = pack_bf16x2(v.z, v.w);
-    const float2 f01 = unpack_bf16x2(h01), f23 = unpack_bf16x2(h23);
     *reinterpret_cast<uint2*>(xhi + r * xstride + kk) = make_uint2(h01, h23);
-    *reinterpret_cast<uint2*>(xlo + r * xstride + kk) =
-        make_uint2(pack_bf16x2(v.x - f01.x, v.y - f01.y),
-                   pack_bf16x2(v.z - f23.x, v.w - f23.y));
+    if constexpr (kSplit) {
+      const float2 f01 = unpack_bf16x2(h01), f23 = unpack_bf16x2(h23);
+      *reinterpret_cast<uint2*>(xlo + r * xstride + kk) =
+          make_uint2(pack_bf16x2(v.x - f01.x, v.y - f01.y),
+                     pack_bf16x2(v.z - f23.x, v.w - f23.y));
+    }
   }
 
   float acc[NT][4];
@@ -191,7 +204,7 @@ product_bf16_kernel(Args p) {
         ldmatrix_x4(b, smem_u32((mj >> 1 ? xlo : xhi) +
                                 (t * 8 + mi) * xstride + k0));
         mma_bf16_16816(acc[t], a, b[0], b[1]);
-        if constexpr (kSplitActivation) mma_bf16_16816(acc[t], a, b[2], b[3]);
+        if constexpr (kSplit) mma_bf16_16816(acc[t], a, b[2], b[3]);
       }
     }
     __syncthreads();               // every warp is done with stage c
@@ -276,7 +289,7 @@ product_f32_kernel(Args p) {
     const int kk = (e - r * span4) * 4;
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
     if (r0 + r < p.n && k_lo + kk < k_hi)
-      v = load_act4(p.x, r0 + r, k_lo + kk, p.K);
+      v = load_act4(static_cast<const float*>(p.x), r0 + r, k_lo + kk, p.K);
     *reinterpret_cast<float4*>(xs + r * xstride + kk) = v;
   }
 
@@ -351,20 +364,28 @@ product_f32_kernel(Args p) {
 
 template <typename K>
 cudaError_t launch_with_smem(K kernel, dim3 grid, int threads, size_t smem,
-                             cudaStream_t stream, const Args& a) {
+                             cudaStream_t stream, const Args& a,
+                             bool dependent) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
+  if (!dependent) {
+    kernel<<<grid, threads, smem, stream>>>(a);
+    return cudaGetLastError();
+  }
   return launch_dependent(kernel, grid, dim3(threads), smem, stream, a);
 }
 
-// One product as a programmatic dependent of the work before it on
-// `stream`: bf16 weights on the tensor cores (1, 2 or 4 n-tiles of 8
-// lanes), f32 weights on the CUDA cores (8- or 32-row tiles).
-template <typename TW>
-cudaError_t launch_product(const float* x, const TW* w0, const TW* w1,
+// One product, as a programmatic dependent of the work before it on
+// `stream` (or, `dependent` false, a plain launch: the first of a chain,
+// whose weights the work before may have written): bf16 weights on the
+// tensor cores (1, 2 or 4 n-tiles of 8 lanes; f32 or bf16 activations),
+// f32 weights on the CUDA cores (8- or 32-row tiles; f32 activations).
+template <typename TW, typename TX>
+cudaError_t launch_product(const TX* x, const TW* w0, const TW* w1,
                            float* p0, float* p1, int n, int K, int N,
-                           int n_mats, Split sk, cudaStream_t stream) {
+                           int n_mats, Split sk, cudaStream_t stream,
+                           bool dependent = true) {
   Args a;
   a.x = x;
   a.w0 = w0;
@@ -380,21 +401,25 @@ cudaError_t launch_product(const float* x, const TW* w0, const TW* w1,
                   n_mats * a.row_tiles);
   if constexpr (sizeof(TW) == 2) {
     if (n <= 8)
-      return launch_with_smem(product_bf16_kernel<1>, grid,
+      return launch_with_smem(product_bf16_kernel<1, TX>, grid,
                               kThreadsBf16, smem_bf16<1>(sk.k_per_split),
-                              stream, a);
+                              stream, a, dependent);
     if (n <= 16)
-      return launch_with_smem(product_bf16_kernel<2>, grid,
+      return launch_with_smem(product_bf16_kernel<2, TX>, grid,
                               kThreadsBf16, smem_bf16<2>(sk.k_per_split),
-                              stream, a);
-    return launch_with_smem(product_bf16_kernel<4>, grid, kThreadsBf16,
-                            smem_bf16<4>(sk.k_per_split), stream, a);
+                              stream, a, dependent);
+    return launch_with_smem(product_bf16_kernel<4, TX>, grid, kThreadsBf16,
+                            smem_bf16<4>(sk.k_per_split), stream, a,
+                            dependent);
   } else {
+    static_assert(sizeof(TX) == 4, "f32 weights take f32 activations");
     if (n <= 8)
       return launch_with_smem(product_f32_kernel<8>, grid, kThreadsF32,
-                              smem_f32<8>(sk.k_per_split), stream, a);
+                              smem_f32<8>(sk.k_per_split), stream, a,
+                              dependent);
     return launch_with_smem(product_f32_kernel<32>, grid, kThreadsF32,
-                            smem_f32<32>(sk.k_per_split), stream, a);
+                            smem_f32<32>(sk.k_per_split), stream, a,
+                            dependent);
   }
 }
 

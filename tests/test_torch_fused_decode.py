@@ -30,7 +30,12 @@ package's.
   lanes up to 4096 rows with and without a window of 512 and an inactive
   lane on the garbage block, f32 at 8 lanes (the 8-row tile), two calls
   giving the same bits; the JAX side is imported by fixtures, so those
-  cases run where JAX is missing).
+  cases run where JAX is missing); RMSNorm and SwiGLU at rows 1 to 2048
+  of d 1024 (f 3072) across SwiGLU's route boundaries, one
+  launch counted per op call, RMSNorm at widths off the 16-byte vectors
+  (d 13, 100), over several warps (4096) and past the registers (20000)
+  with each x / w dtype pair and an unaligned x, and both kernels
+  repeating bit for bit.
 """
 
 import functools
@@ -457,6 +462,91 @@ def test_cuda_rms_norm_and_swiglu_match_plain_versions(rows, d, f, dtype):
     exp = ref.swiglu_ref(x, *mats)
     torch.cuda.synchronize()
     _close(_np(out), _np(exp), MM_TOL if dtype == "float32" else BF16_TOL)
+
+
+def _mlp_operands(rows, d, f, dtype, seed, w_dtype=None):
+    """x ~ N(0, 1), the norm scale ~ 1 + N(0, 0.01) in ``w_dtype`` (x's
+    by default), SwiGLU weights ~ N(0, 1/fan_in), on the card."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator("cuda").manual_seed(seed)
+    x = torch.randn(rows, d, device="cuda", generator=g).to(dt)
+    w = (torch.randn(d, device="cuda", generator=g) * 0.1 + 1.0).to(
+        getattr(torch, w_dtype or dtype))
+    mats = [(torch.randn(s, device="cuda", generator=g) / s[0] ** 0.5)
+            .to(dt) for s in ((d, f), (d, f), (f, d))]
+    return x, w, mats
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows", [1, 8, 32, 33, 127, 512, 2048])
+def test_cuda_rms_norm_and_swiglu_over_the_routes(rows, dtype):
+    """qwen3-0.6b's widths (d 1024, f 3072) at rows on both sides of
+    SwiGLU's route boundaries (bf16: 32 stream, 33 tiled; f32: 8 and 32
+    | 33): each kernel against its plain version, one launch counted per
+    op call."""
+    from repro_torch.kernels.swiglu import swiglu_route
+    _need_cuda()
+    x, w, mats = _mlp_operands(rows, 1024, 3072, dtype, rows)
+    before = (rms_norm_2d.launches, swiglu_2d.launches)
+    out = ops.rms_norm(x, w, impl="cuda")
+    torch.cuda.synchronize()
+    assert (rms_norm_2d.launches, swiglu_2d.launches) == (before[0] + 1,
+                                                          before[1])
+    _close(_np(out), _np(ref.rms_norm_ref(x, w)),
+           F32_TOL if dtype == "float32" else BF16_TOL)
+    out = ops.swiglu(x, *mats, impl="cuda")
+    torch.cuda.synchronize()
+    assert (rms_norm_2d.launches, swiglu_2d.launches) == (before[0] + 1,
+                                                          before[1] + 1)
+    last = {"bfloat16": 32, "float32": 8}[dtype]     # the stream route's
+    assert swiglu_route(rows, x.dtype) == ("stream" if rows <= last
+                                           else "tiled")
+    _close(_np(out), _np(ref.swiglu_ref(x, *mats)),
+           MM_TOL if dtype == "float32" else BF16_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_dtype,w_dtype", [("float32", "float32"),
+                                             ("bfloat16", "bfloat16"),
+                                             ("bfloat16", "float32"),
+                                             ("float32", "bfloat16")])
+@pytest.mark.parametrize("rows,d", [(7, 100), (33, 100), (5, 13),
+                                    (64, 4096), (3, 20000)])
+def test_cuda_rms_norm_widths_and_mixed_dtypes(rows, d, x_dtype, w_dtype):
+    """d 100 and 13 (no multiple of the 16-byte vectors: the element
+    path), 4096 (a row over several warps), 20000 (wider than the
+    registers: the two-pass kernel), x and w of each dtype pair, and an
+    x that starts 2 bytes past a 16-byte boundary."""
+    _need_cuda()
+    x, w, _ = _mlp_operands(rows, d, 8, x_dtype, d, w_dtype)
+    before = rms_norm_2d.launches
+    out = ops.rms_norm(x, w, impl="cuda")
+    xs = torch.empty(rows * d + 1, device="cuda",
+                     dtype=x.dtype)[1:].view(rows, d)
+    xs.copy_(x)
+    out_shifted = ops.rms_norm(xs, w, impl="cuda")
+    torch.cuda.synchronize()
+    assert rms_norm_2d.launches == before + 2
+    tol = F32_TOL if x_dtype == "float32" else BF16_TOL
+    _close(_np(out), _np(ref.rms_norm_ref(x, w)), tol)
+    _close(_np(out_shifted), _np(ref.rms_norm_ref(x, w)), tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows", [8, 127, 2048])
+def test_cuda_rms_norm_and_swiglu_repeat_bitwise(rows, dtype):
+    """Fixed-order sums (RMSNorm's warps, the slices of SwiGLU's split
+    products): two calls give the same bits on both routes."""
+    _need_cuda()
+    x, w, mats = _mlp_operands(rows, 1024, 3072, dtype, 7)
+    first = (ops.rms_norm(x, w, impl="cuda"), ops.swiglu(x, *mats,
+                                                         impl="cuda"))
+    second = (ops.rms_norm(x, w, impl="cuda"), ops.swiglu(x, *mats,
+                                                          impl="cuda"))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 def _long_layer(seed, lengths, dtype, d=1024):
