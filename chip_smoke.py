@@ -135,13 +135,29 @@ Phases (any failure exits non-zero before the result line):
    (seeds 0 and 1, AdamW, 2 x 1024, 2 steps) on two virtual devices of
    8 GB (3 shards a model), gated as phase 10; (e) a small f32 zamba2
    engine whose lanes at different positions give the tokens each request
-   gets alone.
+   gets alone;
+17. session serve — one ``Session`` (one virtual device of ``TRAIN_BUDGET``
+   plus the hot job's worst-case KV-page cap, computed from
+   ``FamilySpec.kv_block_bytes``) holding phase 10's first TrainJob, a hot
+   paged ``ServeJob`` of full-width qwen3-0.6b (seed 0, the phase-4
+   requests, pages charged to the session's ledger) and a cold slot
+   ``ServeJob`` (seed 1, 4 of those prompts, promoted out of the host
+   store by its first request): the plan round-trips through JSON and
+   runs, its meta records the paged backend, the capabilities and the
+   cap; every request gets its tokens; serve ticks fall between shard
+   units (unit and serve traces); the losses equal phase 10's first
+   model's at 3e-4; the paged kernel launches decode_steps x 28 times; the
+   ledger stays within its budget and cap and ends at 0 reserved; the
+   cold promotion's bytes are its shards' transfer bytes; then a small
+   f32 session (paged and spec over paged) token-identical to bare f32
+   engines, and ``profiler --smoke`` in process with phase 13's facts.
 
 Each kernel's launch count is zeroed just before the run of its own path
 (a serve run, the spilled eval, the profiler's ``build_facts`` for
-RMSNorm and SwiGLU, the zamba2 kernel forward for the SSD scan) and read
-just after; the kernel line reports it with the kernel's numbers at that
-path's inputs.
+RMSNorm and SwiGLU, the zamba2 kernel forward for the SSD scan; the
+paged kernel's again before phase 17's session run) and read just after;
+the kernel line reports it with the kernel's numbers at that path's
+inputs.
 
 The second-to-last lines are a JSON object of per-kernel numbers and the
 card's ``nvidia-smi`` name/power line; the last line is
@@ -2477,6 +2493,298 @@ def phase_small_hybrid_f32():
     return {"requests": len(alone), "identical": same}
 
 
+# ---------------------------------------------------------------------------
+# phase 17: training and serving in one Session (the serve half of Session)
+# ---------------------------------------------------------------------------
+
+COLD_REQUESTS = 4
+
+
+def phase_session_serve(cfg, ref_losses, ref_tokens, facts_path):
+    """One port ``Session`` on the card at full width: phase 10's first
+    TrainJob (seed 0, lr 1e-4, 3 steps of 2 x 1024) beside a hot paged
+    ServeJob (seed 0, the phase-4 requests; its pages charge the session's
+    device-0 ledger) and a cold slot ServeJob (seed 1, 4 of those prompts;
+    promoted out of the host store by its first request).  The budget is
+    ``TRAIN_BUDGET`` plus the hot job's worst-case page cap, so the train
+    partition is phase 10's.  Gates: the plan round-trips through JSON and
+    runs; every request gets GEN tokens; a serve tick falls between two
+    shard units; the losses equal ``ref_losses`` (phase 10's first model)
+    at 3e-4; the paged kernel launches decode_steps x layers times; the
+    ledger stays within its budget and its cap and ends at 0 reserved; the
+    cold job's promotion is accounted; a small f32 session is
+    token-identical to bare engines; ``profiler --smoke`` runs in process
+    with the facts at ``facts_path``.  The hot tokens against
+    ``ref_tokens`` (phase 4) are reported, not gated (bf16)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import HydraConfig, Plan, ServeJob, Session, TrainJob
+    from repro_torch.kernels.paged_attention import paged_attention_lanes
+    from repro_torch.models.registry import spec as family_spec
+    from repro_torch.serving.paging import blocks_for_rows
+
+    smi = nvidia_smi_line()
+    prompts = serve_prompts(cfg.vocab_size)
+    max_seq = max(len(p) for p in prompts) + GEN
+    cap = (CAPACITY * blocks_for_rows(max_seq, BS)
+           * family_spec(cfg).kv_block_bytes(cfg, BS))
+    budget = TRAIN_BUDGET + cap
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    session = Session(HydraConfig(n_devices=1, device_budget_bytes=budget),
+                      device="cuda", profile=None)
+    tid = session.submit(TrainJob(cfg, train_loader(cfg, 0),
+                                  lr=TRAIN_LRS[0], optimizer="adamw",
+                                  epochs=1, steps_per_epoch=TRAIN_STEPS,
+                                  seed=0, batch=TRAIN_BATCH, seq=TRAIN_SEQ))
+    hot = session.submit(ServeJob(cfg, seed=0, name=cfg.name,
+                                  capacity=CAPACITY, max_seq=max_seq,
+                                  backend="paged", block_size=BS))
+    cold = session.submit(ServeJob(cfg, seed=1, name=f"{cfg.name}-cold",
+                                   capacity=COLD_REQUESTS, max_seq=max_seq,
+                                   cold=True))
+    plan = session.plan()
+    text = plan.to_json()
+    replan = Plan.from_json(text)
+    mem = plan.schedule["memory"]
+    hmeta, cmeta = plan.job(hot).meta, plan.job(cold).meta
+    bounds = [(sh["seg_lo"], sh["seg_hi"])
+              for sh in plan.job(tid).partition["shards"]]
+    res = {"budget_bytes": budget, "kv_cap_from_code": cap, "memory": mem,
+           "plan_json_bytes": len(text),
+           "round_trip": replan.to_json() == text,
+           "hot_meta": {k: hmeta.get(k) for k in (
+               "backend", "capabilities", "kv_page_cap_bytes", "block_bytes",
+               "max_blocks_per_request", "shared_ledger")},
+           "cold_meta": {k: cmeta.get(k) for k in ("backend", "cold")},
+           "train_shard_bounds": bounds,
+           "poll_before": session.poll(cold)}
+    log(f"[session] plan: memory split {mem}; hot meta {res['hot_meta']}; "
+        f"cold meta {res['cold_meta']}; train shards {bounds}; plan JSON "
+        f"{len(text)} B, round trip {res['round_trip']} ({smi})")
+    if not res["round_trip"] or hmeta["backend"] != "paged" \
+            or hmeta["capabilities"] != family_spec(cfg).capabilities() \
+            or hmeta["kv_page_cap_bytes"] != cap \
+            or mem["serve_kv_page_cap_bytes"] != cap \
+            or cmeta["cold"] is not True:
+        fail("session plan: JSON round trip, the hot job's paged meta "
+             "(backend, capabilities, kv_page_cap_bytes = the code's cap) "
+             "or the cold job's cold meta is wrong")
+    if plan.job(tid).partition["budget_bytes"] != TRAIN_BUDGET:
+        fail(f"the train partition was cut against "
+             f"{plan.job(tid).partition['budget_bytes']} B, not the "
+             f"budget minus the KV cap ({TRAIN_BUDGET})")
+    if res["poll_before"].get("promoted") is not False:
+        fail(f"the cold job is promoted before any request: "
+             f"{res['poll_before']}")
+
+    hot_reqs = [session.submit_request(hot, p, GEN, request_id=f"r{i}")
+                for i, p in enumerate(prompts)]
+    cold_reqs = [session.submit_request(cold, p, GEN, request_id=f"c{i}")
+                 for i, p in enumerate(prompts[:COLD_REQUESTS])]
+    res["poll_after_submit"] = {k: v for k, v in session.poll(cold).items()
+                                if k != "recent_requests"}
+
+    dm = session.devices[0]
+    peak = {"used": 0, "kv": 0}
+
+    def watch(fn):
+        def wrapped(*a, **kw):
+            out = fn(*a, **kw)
+            peak["used"] = max(peak["used"], dm.used_bytes())
+            peak["kv"] = max(peak["kv"], dm.kv_reserved_bytes)
+            return out
+        return wrapped
+    dm.charge_promotion = watch(dm.charge_promotion)
+    dm.reserve_kv = watch(dm.reserve_kv)
+    ticks = []                       # (units done, serve ticks) per tick
+    tick = session.serve_tick
+
+    def traced_tick():
+        ticks.append((len(session.unit_trace), len(session.serve_trace)))
+        return tick()
+    session.serve_tick = traced_tick
+
+    torch.cuda.synchronize()
+    paged_attention_lanes.launches = 0   # count this path's run only
+    t0 = time.perf_counter()
+    report = session.run(replan)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = paged_attention_lanes.launches
+    units = report.train.units_executed
+    between = [(u, t) for u, t in ticks if 0 < u < units]
+    hrec, crec = report.serve[hot], report.serve[cold]
+    losses = report.train.losses[0]
+    res.update(
+        wall_s=wall, units=units, serve_ticks=len(report.serve_trace),
+        ticks_between_units=len(between),
+        first_ticks_between=between[:4],
+        unit_trace_head=[list(k) for k in report.unit_trace[:4]],
+        serve_trace_head=report.serve_trace[:8],
+        losses=losses, ref_losses=ref_losses,
+        max_abs_loss_diff=float(np.abs(np.subtract(losses,
+                                                   ref_losses)).max()),
+        launches=launches, hot_decode_steps=hrec["decode_steps"],
+        ledger_peak_used_bytes=peak["used"],
+        ledger_kv_peak_bytes=dm.kv_peak_bytes,
+        ledger_kv_reserved_after=dm.kv_reserved_bytes,
+        promote_bytes=crec["promote_bytes"], promote_s=crec["promote_s"],
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+        hot={k: hrec.get(k) for k in (
+            "decode_tok_per_s", "prefill_tok_per_s", "decode_steps",
+            "prefill_calls", "kv_page_peak_bytes", "shared_block_hits",
+            "cow_copies", "peak_concurrency", "paged_impl")},
+        cold={k: crec.get(k) for k in (
+            "decode_tok_per_s", "prefill_tok_per_s", "decode_steps",
+            "prefill_calls", "backend", "slot_bytes")})
+    shard_bytes = sum(
+        session._cold[cold]["store"].shard_transfer_bytes(s, train=False)
+        for s in session._cold[cold]["partition"].shards)
+    res["promote_gb_per_s"] = (crec["promote_bytes"] / crec["promote_s"]
+                               / 1e9 if crec["promote_s"] else None)
+    hot_tokens = {r.request_id: list(r.generated) for r in hot_reqs}
+    res["hot_identical_to_phase4"] = sum(
+        hot_tokens[k] == list(v) for k, v in ref_tokens.items()
+        if k in hot_tokens)
+    log(f"[session] train + hot paged + cold slot serve, {cfg.name} full "
+        f"width: run wall {wall:.2f} s; {units} shard units, "
+        f"{len(report.serve_trace)} serve ticks, {len(between)} of them "
+        f"between two shard units (first (units done, ticks before): "
+        f"{between[:4]}); unit trace head {res['unit_trace_head']}, serve "
+        f"trace head {res['serve_trace_head']} ({smi})")
+    log(f"[session] hot {cfg.name}: decode {res['hot']['decode_tok_per_s']}"
+        f" tok/s, prefill {res['hot']['prefill_tok_per_s']} tok/s, "
+        f"{res['hot']['decode_steps']} decode steps, paged kernel launches "
+        f"{launches}; cold {cfg.name}-cold: decode "
+        f"{res['cold']['decode_tok_per_s']} tok/s, promotion "
+        f"{crec['promote_bytes']} B in {crec['promote_s']} s "
+        f"({res['promote_gb_per_s']} GB/s); hot tokens identical to phase "
+        f"4 for {res['hot_identical_to_phase4']} of {len(ref_tokens)} "
+        f"requests (bf16: reported, not gated) ({smi})")
+    log(f"[session] losses {losses} vs phase 10 {ref_losses} (max abs diff "
+        f"{res['max_abs_loss_diff']:.3g}, tol {SHARP_TOL}); ledger: peak "
+        f"used {peak['used']} of {budget} B, kv peak {dm.kv_peak_bytes} "
+        f"of cap {cap} B, kv reserved after the drain "
+        f"{dm.kv_reserved_bytes}; max_memory_allocated "
+        f"{res['max_memory_allocated']} ({smi})")
+    for r in hot_reqs + cold_reqs:
+        if len(r.generated) != GEN or r.status.value != "finished":
+            fail(f"session serve {r.request_id}: {len(r.generated)} tokens, "
+                 f"status {r.status}")
+    if not between:
+        fail("no serve tick fell between two shard units of the training")
+    if not np.allclose(losses, ref_losses, rtol=SHARP_TOL, atol=SHARP_TOL):
+        fail(f"training beside serving changed the losses: {losses} vs "
+             f"phase 10's {ref_losses}")
+    if launches != hrec["decode_steps"] * cfg.n_layers or launches == 0:
+        fail(f"paged_attention launched {launches} times in the session; "
+             f"expected decode_steps x layers = "
+             f"{hrec['decode_steps'] * cfg.n_layers}")
+    if dm.kv_peak_bytes > cap or peak["used"] > budget \
+            or dm.kv_reserved_bytes != 0 or dm.kv_peak_bytes == 0:
+        fail(f"the session ledger: kv peak {dm.kv_peak_bytes} (cap {cap}), "
+             f"peak used {peak['used']} (budget {budget}), kv reserved "
+             f"after the drain {dm.kv_reserved_bytes}")
+    if crec["promote_bytes"] != shard_bytes or shard_bytes <= 0 \
+            or crec.get("promote_s") is None \
+            or res["poll_after_submit"].get("promoted") is not True:
+        fail(f"cold promotion: promote_bytes {crec['promote_bytes']} vs "
+             f"the shards' {shard_bytes}, promote_s {crec.get('promote_s')}, "
+             f"poll {res['poll_after_submit']}")
+    del session, report, hot_reqs, cold_reqs
+    torch.cuda.empty_cache()
+
+    res["small_f32"] = phase_small_session_f32()
+    res["profile_smoke"] = phase_profile_smoke(facts_path)
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"[session] phase wall {res['phase_s']:.2f} s ({smi})")
+    return res
+
+
+def phase_small_session_f32():
+    """A small float32 session on the card: a paged and a spec-over-paged
+    ServeJob give the tokens of bare float32 engines built alike."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import HydraConfig, ServeJob, Session
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.serving.engine import InferenceEngine
+
+    cfg = get_config("qwen3-0.6b", smoke=True).replace(
+        dtype="float32", kv_cache_dtype="float32")
+    params = api.init_params(cfg, torch.Generator("cuda").manual_seed(3),
+                             "cuda")
+    draft = api.init_params(cfg, torch.Generator("cuda").manual_seed(7),
+                            "cuda")
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, n, dtype=np.int32)
+               for n in (5, 17, 32, 9)]
+    jobs = {"paged": dict(backend="paged"),
+            "spec": dict(backend="spec", spec_inner="paged",
+                         draft_model=cfg, draft_params=draft, draft_k=3)}
+    session = Session(HydraConfig(n_devices=1,
+                                  device_budget_bytes=18 * 10**6),
+                      device="cuda", profile=None)
+    reqs = {}
+    for name, kw in jobs.items():
+        session.submit(ServeJob(cfg, params=params, name=name, capacity=2,
+                                max_seq=64, block_size=8, **kw))
+        reqs[name] = [session.submit_request(name, p, 12) for p in prompts]
+    session.drain_serving()
+    res = {"verify_impl": session.engine("spec").backend.verify_impl,
+           "paged_impl": session.engine("paged").paged_impl}
+    for name, kw in jobs.items():
+        kw = dict(kw)
+        if name == "spec":
+            kw = dict(backend="spec", spec_inner="paged", draft_cfg=cfg,
+                      draft_params=draft, draft_k=3)
+        eng = InferenceEngine(cfg, params, capacity=2, max_seq=64,
+                              block_size=8, device="cuda", **kw)
+        bare = [eng.submit(p, 12) for p in prompts]
+        eng.run()
+        res[name] = ([list(r.generated) for r in reqs[name]]
+                     == [list(r.generated) for r in bare])
+    res["ledger_kv_reserved_after"] = session.devices[0].kv_reserved_bytes
+    log(f"[session] small f32 session vs bare f32 engines, tokens "
+        f"identical: paged (impl {res['paged_impl']}) {res['paged']}, spec "
+        f"over paged (verify {res['verify_impl']}) {res['spec']}; ledger "
+        f"kv reserved after {res['ledger_kv_reserved_after']}")
+    if not (res["paged"] and res["spec"]) or res["paged_impl"] != "cuda" \
+            or res["verify_impl"] != "cuda" \
+            or res["ledger_kv_reserved_after"] != 0:
+        fail("small f32 session: the session's paged / spec jobs did not "
+             "give the bare engines' tokens through the kernels")
+    return res
+
+
+def phase_profile_smoke(facts_path):
+    """``python -m repro_torch.profiler --smoke`` in process on the card,
+    with the facts phase 13 measured (saved at ``facts_path``)."""
+    from repro_torch.profiler import MachineFacts
+    from repro_torch.profiler.__main__ import _smoke
+
+    facts = MachineFacts.load(facts_path)
+    rec = _smoke(facts_path, device="cuda", facts=facts)
+    log(f"[session] profiler --smoke on the card with phase 13's facts: "
+        f"{rec['analytic_queries_a']} analytic queries vs "
+        f"{rec['measured_queries_b']} measured, provenance differs "
+        f"{rec['provenance_differs']}, tokens identical "
+        f"{rec['tokens_identical']}, est_makespan_s "
+        f"{rec['est_makespan_analytic_s']} vs "
+        f"{rec['est_makespan_measured_s']}")
+    if not (rec["ok"] and rec["tokens_identical"]
+            and rec["provenance_differs"]):
+        fail("profiler --smoke: the measured plan changed the tokens or "
+             "cited no facts")
+    return rec
+
+
 def kernel_entry(name, source, replaces, launches, m):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -2721,6 +3029,14 @@ def main() -> None:
     del zsession
     torch.cuda.empty_cache()
     report["zamba_small_f32"] = phase_small_hybrid_f32()
+    torch.cuda.empty_cache()
+
+    # 17. training and serving in one Session: phase 10's first model, a
+    #     hot paged and a cold slot qwen3-0.6b, then a small f32 session
+    #     and profiler --smoke
+    report["session_serve"] = phase_session_serve(
+        cfg, report["sharp_train"]["losses"][0],
+        report["serve"]["tokens"], report["profiler"]["path"])
     report["total_s"] = time.perf_counter() - t_start
 
     src = "src/repro_torch/kernels/csrc/"

@@ -1,10 +1,13 @@
-"""Session API of the port, train and eval half (port of ``repro.api``).
+"""Session API of the port (port of ``repro.api``): train, serve and eval
+jobs under one device budget.
 
-    from repro_torch.api import Session, TrainJob, EvalJob, HydraConfig
+    from repro_torch.api import (Session, TrainJob, ServeJob, EvalJob,
+                                 HydraConfig)
 
     session = Session(HydraConfig(n_devices=2, device_budget_bytes=6 * 10**6),
                       device="cpu")
     session.submit(TrainJob(cfg, loader, lr=1e-3, epochs=1))
+    session.submit(ServeJob(cfg, params=weights, cold=True))
     plan = session.plan()        # JSON-serializable
     report = session.run(plan)
 """

@@ -51,9 +51,9 @@ def partition_from_dict(d: dict) -> PartitionResult:
 class JobPlan:
     """Planned placement for one job."""
     job_id: str
-    kind: str                                   # train | eval
+    kind: str                                   # train | serve | eval
     arch: dict                                  # cfg_to_dict(cfg)
-    partition: Optional[dict] = None
+    partition: Optional[dict] = None            # train/eval/cold-serve
     # spill placement: bytes resident on host vs. promoted per unit
     host_bytes: int = 0
     max_shard_bytes: int = 0

@@ -30,6 +30,26 @@ def attn_impl_from_jax(name: str) -> str:
     return _ATTN_IMPLS[name]
 
 
+# the JAX ServeJob.verify_impl spellings -> the port's spec-backend impls:
+# the Pallas kernel is the CUDA kernel, the jnp gather path the plain one
+_VERIFY_IMPLS = {"pallas": "cuda", "jnp": "ref"}
+
+
+def verify_impl_from_jax(name):
+    """The port's ``verify_impl`` for a JAX ``ServeJob.verify_impl``
+    (None stays None: verify follows the decode impl).  The Pallas
+    interpreter mode has no counterpart in the port and raises."""
+    if name is None:
+        return None
+    if name not in _VERIFY_IMPLS:
+        raise ValueError(
+            f"verify_impl={name!r}: the port verifies through 'cuda' (the "
+            "kernel, on a card) or 'ref' (the plain version); of the JAX "
+            f"spellings it maps {sorted(_VERIFY_IMPLS)}, and the Pallas "
+            "interpreter mode has no counterpart")
+    return _VERIFY_IMPLS[name]
+
+
 def _map(tree, fn):
     return {k: _map(v, fn) if isinstance(v, dict) else fn(v)
             for k, v in tree.items()}

@@ -1,32 +1,37 @@
-"""Serving CLI for the PyTorch port: synthetic requests through one
-``InferenceEngine``.
+"""Serving CLI of the PyTorch port: a thin shell over
+``repro_torch.api.Session`` + ``ServeJob`` (as ``repro.launch.serve``).
 
-``--backend slot|paged|spec`` picks the decode backend once (slot by
-default, as in ``repro.launch.serve``); ``--backend spec`` takes
-``--draft-model ARCH --draft-k N [--spec-inner slot|paged]`` for
-speculative decoding with a draft model whose random weights come from
-``--seed``, as the target's do (a same-arch draft therefore accepts every
-proposal).  Weights are made on the device; prompts are drawn with numpy
-from ``--seed + 1``.  Requests are prefilled in batched
-calls and decoded with continuous batching; greedy sampling keeps outputs
-deterministic.  ``--stagger`` drips requests in between decode steps so
-late arrivals join mid-flight.  Prints the same ``engines`` / ``requests``
-/ ``sample`` JSON keys as ``repro.launch.serve``.
+Synthetic requests are prefilled in batched calls and decoded with
+continuous batching; greedy sampling keeps outputs deterministic.
+``--stagger`` drips requests in between decode steps so late arrivals
+join mid-flight, a comma-separated ``--arch`` list serves several models
+at once with the session's scheduling policy (``--scheduler``, LRTF by
+default) picking which model steps next, ``--cold`` starts models spilled
+in the host store (promoted on the first request), and ``--backend
+slot|paged|spec`` picks the decode backend once (``--paged`` is the
+legacy spelling of ``--backend paged``; ``--no-prefix-share`` disables
+copy-on-write prompt-prefix page sharing; ``--backend spec`` takes
+``--draft-model ARCH --draft-k N [--spec-inner slot|paged]``).
+``--policy``, ``--deadline-ms``, ``--priority`` and ``--max-ttft-ms`` set
+each model's admission policy and SLO defaults.  Weights are made on the
+device from ``--seed`` (a draft's too, so a same-arch draft accepts every
+proposal); prompts are drawn with numpy from ``--seed + 1``.  Prints the
+same ``engines`` / ``schedule`` / ``requests`` / ``sample`` JSON keys as
+``repro.launch.serve``.
 
   python -m repro_torch.launch.serve --arch qwen3-0.6b --backend paged \\
       --batch 8 --prompt-len 256 --gen 32 --capacity 8
   python -m repro_torch.launch.serve --arch qwen3-0.6b --backend spec \\
       --draft-model qwen3-0.6b --draft-k 4 --spec-inner paged
-  python -m repro_torch.launch.serve --arch qwen3-0.6b --smoke \\
-      --device cpu --batch 3 --prompt-len 12 --gen 6 --capacity 2
-  python -m repro_torch.launch.serve --arch zamba2-1.2b \\
-      --batch 8 --prompt-len 64 --gen 16 --capacity 8
+  python -m repro_torch.launch.serve --arch qwen3-0.6b,xlstm-350m --smoke \\
+      --device cpu --batch 3 --stagger 1 --cold
 
 The recurrent families (``zamba2-1.2b``, hybrid; ``xlstm-350m``, ssm)
 serve from the slot backend and prefill token by token; ``--backend
 paged`` or ``spec`` falls back to slot with a warning, as in the JAX CLI.
-
-(The session API, multi-model serving and HTTP come with later slices.)
+``--buckets`` (length-bucketed prefill, ROADMAP Queue 1 item 4) and
+``--http`` with ``--host``/``--port``/``--no-stream``/``--endpoint`` (the
+HTTP front end, item 9) are not in the port yet and raise.
 """
 
 from __future__ import annotations
@@ -35,12 +40,30 @@ import argparse
 import json
 
 import numpy as np
-import torch
 
-from repro_torch import resolve_device
+from repro_torch.api import HydraConfig, ServeJob, Session
 from repro_torch.configs import get_config
-from repro_torch.models import api
-from repro_torch.serving.engine import InferenceEngine
+
+
+def build_serve_job(arch: str, args) -> ServeJob:
+    cfg = get_config(arch, smoke=args.smoke)
+    max_seq = args.max_seq or (args.prompt_len + args.gen + 8)
+    budget = int(args.kv_budget_mb * 2**20) if args.kv_budget_mb else None
+    draft = args.draft_model
+    # pass both spellings through: ServeJob.requested_backend() resolves
+    # the legacy --paged flag and rejects a conflicting --backend slot
+    return ServeJob(cfg, seed=args.seed, name=arch, capacity=args.capacity,
+                    max_seq=max_seq, kv_budget_bytes=budget,
+                    cold=args.cold, backend=args.backend, paged=args.paged,
+                    block_size=args.block_size,
+                    prefix_share=not args.no_prefix_share,
+                    draft_model=get_config(draft, smoke=args.smoke)
+                    if draft else None,
+                    draft_seed=args.seed, draft_k=args.draft_k,
+                    spec_inner=args.spec_inner, policy=args.policy,
+                    deadline_ms=args.deadline_ms,
+                    priority=args.priority or "normal",
+                    max_ttft_ms=args.max_ttft_ms)
 
 
 def synth_prompts(cfg, n: int, prompt_len: int, seed: int) -> np.ndarray:
@@ -48,61 +71,73 @@ def synth_prompts(cfg, n: int, prompt_len: int, seed: int) -> np.ndarray:
     return rng.integers(0, cfg.vocab_size, (n, prompt_len), dtype=np.int32)
 
 
+def _check_ported(args) -> None:
+    if args.buckets:
+        raise NotImplementedError(
+            "--buckets: length-bucketed prefill is ported with ROADMAP "
+            "Queue 1 item 4")
+    if args.http or args.no_stream or args.endpoint is not None \
+            or args.host != "127.0.0.1" or args.port != 8000:
+        raise NotImplementedError(
+            "--http (and --host/--port/--no-stream/--endpoint): the HTTP "
+            "front end is ported with ROADMAP Queue 1 item 9")
+
+
 def serve(args) -> dict:
-    device = resolve_device(args.device)
-    cfg = get_config(args.arch, smoke=args.smoke)
-    gen = torch.Generator(device=device).manual_seed(args.seed)
-    params = api.init_params(cfg, gen, device)
-    max_seq = args.max_seq or (args.prompt_len + args.gen + 8)
-    budget = int(args.kv_budget_mb * 2**20) if args.kv_budget_mb else None
-    spec_kw = {}
-    if args.backend == "spec":
-        if not args.draft_model:
-            raise ValueError("--backend spec needs --draft-model (the "
-                             "draft member model's arch id)")
-        draft_cfg = get_config(args.draft_model, smoke=args.smoke)
-        dgen = torch.Generator(device=device).manual_seed(args.seed)
-        spec_kw = dict(draft_cfg=draft_cfg,
-                       draft_params=api.init_params(draft_cfg, dgen, device),
-                       draft_k=args.draft_k, spec_inner=args.spec_inner)
-    engine = InferenceEngine(cfg, params, capacity=args.capacity,
-                             max_seq=max_seq, kv_budget_bytes=budget,
-                             model_name=args.arch, backend=args.backend,
-                             paged=args.paged, block_size=args.block_size,
-                             prefix_share=not args.no_prefix_share,
-                             device=device, **spec_kw)
-    del params, spec_kw             # the engine holds its own copies
-    pending = list(synth_prompts(cfg, args.batch, args.prompt_len,
-                                 args.seed))
+    _check_ported(args)
+    archs = [a.strip() for a in args.arch.split(",") if a.strip()]
+    session = Session(HydraConfig(scheduler=args.scheduler, seed=args.seed),
+                      device=args.device)
+    jids = {a: session.submit(build_serve_job(a, args)) for a in archs}
+
+    pending = []            # (model, prompt row) not yet submitted
+    for arch in archs:
+        cfg = session.jobs()[jids[arch]].cfg
+        prompts = synth_prompts(cfg, args.batch, args.prompt_len, args.seed)
+        pending.extend((arch, prompts[i]) for i in range(args.batch))
+
+    # submit everything up front, or drip --stagger at a time between ticks
     drip = args.stagger if args.stagger > 0 else len(pending)
-    while engine.has_work() or pending:
-        for prompt in pending[:drip]:
-            engine.submit(prompt, args.gen)
+    while session.serve_has_work() or pending:
+        for model, prompt in pending[:drip]:
+            session.submit_request(model, prompt, args.gen)
         pending = pending[drip:]
-        engine.step()
-    engine.run()
-    done = list(engine.completed)
-    return {"engines": {args.arch: engine.summary()},
-            "requests": [r.metrics() for r in done],
-            "sample": done[0].generated[:8] if done else []}
+        session.serve_tick()
+
+    report = session.run()     # no train/eval jobs: collects serve summaries
+    out = {"engines": {a: {k: v for k, v in report.serve[jids[a]].items()
+                           if k != "requests"} for a in archs},
+           "schedule": report.serve_trace if len(archs) > 1 else None,
+           "requests": [r for a in archs
+                        for r in report.serve[jids[a]].get("requests", [])]}
+    if len(archs) == 1:
+        eng = session.engine(archs[0])
+        out["sample"] = eng.completed[0].generated[:8] if eng.completed else []
+    return out
 
 
-def main():
+def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True, help="model id")
+    ap.add_argument("--arch", required=True,
+                    help="model id, or comma-separated list for multi-model")
     ap.add_argument("--smoke", action="store_true")
-    ap.add_argument("--batch", type=int, default=4, help="requests")
+    ap.add_argument("--batch", type=int, default=4,
+                    help="requests per model")
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--capacity", type=int, default=4,
-                    help="decode lanes")
+                    help="decode lanes per model")
     ap.add_argument("--max-seq", type=int, default=0,
                     help="per-lane cache length (default prompt+gen+8)")
     ap.add_argument("--kv-budget-mb", type=float, default=0,
-                    help="KV admission budget (0 = the pool's worst case)")
+                    help="KV admission budget per model (0 = uncapped)")
     ap.add_argument("--stagger", type=int, default=0,
                     help="submit N requests per tick instead of all upfront")
+    ap.add_argument("--buckets", action="store_true",
+                    help="length-bucketed prefill (not ported: raises)")
+    ap.add_argument("--cold", action="store_true",
+                    help="start models spilled; promote on first request")
     ap.add_argument("--backend", default=None,
                     choices=["slot", "paged", "spec"],
                     help="decode backend (default: slot; families whose "
@@ -120,12 +155,39 @@ def main():
     ap.add_argument("--paged", action="store_true",
                     help="legacy spelling of --backend paged")
     ap.add_argument("--block-size", type=int, default=16,
-                    help="KV rows per physical block")
+                    help="KV rows per physical block (paged backend)")
     ap.add_argument("--no-prefix-share", action="store_true",
-                    help="disable copy-on-write prompt-prefix page sharing")
+                    help="disable copy-on-write prompt-prefix page sharing "
+                    "(paged backend)")
+    ap.add_argument("--scheduler", default="lrtf",
+                    choices=["lrtf", "srtf", "fifo", "random", "slo"],
+                    help="multi-model routing policy; 'slo' adds a "
+                    "deadline-urgency pre-pass over LRTF")
+    ap.add_argument("--policy", default="slo", choices=["slo", "fifo"],
+                    help="per-engine admission policy (ServeJob.policy): "
+                    "'slo' = EDF with priority tiers + aging + paged "
+                    "preemption; 'fifo' = arrival order")
+    ap.add_argument("--deadline-ms", type=float, default=None,
+                    help="default end-to-end deadline budget for every "
+                    "request to this model (requests may override)")
+    ap.add_argument("--priority", default=None,
+                    choices=["high", "normal", "low"],
+                    help="default priority tier for requests to this model")
+    ap.add_argument("--max-ttft-ms", type=float, default=None,
+                    help="default time-to-first-token budget (ms)")
+    ap.add_argument("--http", action="store_true",
+                    help="serve over HTTP (not ported: raises)")
+    ap.add_argument("--host", default="127.0.0.1",
+                    help="HTTP host (with --http; not ported)")
+    ap.add_argument("--port", type=int, default=8000,
+                    help="HTTP port (with --http; not ported)")
+    ap.add_argument("--no-stream", action="store_true",
+                    help="disable SSE streaming (with --http; not ported)")
+    ap.add_argument("--endpoint", default=None,
+                    help="extra route alias (with --http; not ported)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
     print(json.dumps(serve(args)))
 
 

@@ -186,8 +186,9 @@ def _register():
     from repro_torch.models import registry
     registry.register(registry.FamilySpec(
         family="hybrid", module=sys.modules[__name__],
-        batched_prefill=False, paging=False, servable=True,
-        spec_draftable=False, kv_quant=False,
+        batched_prefill=False, padded_prefill=False, paging=False,
+        pure_kv_state=False, servable=True, spec_draftable=False,
+        kv_quant=False,
         notes={
             "batched_prefill": "mamba recurrences advance strictly "
                                "token-by-token (prefill scans the prompt)",

@@ -26,9 +26,13 @@ class FamilySpec:
 
     family: str
     module: ModuleType
-    # -- capabilities the ported code reads ----------------------------------
+    # -- capabilities ----------------------------------------------------------
     batched_prefill: bool = False   # whole prompt chunk in ONE decode_step
+    padded_prefill: bool = False    # right-padded prefill token-identical
+    #   (declared as in the JAX package; the port's engine takes no length
+    #   buckets yet, so only the capability record and plan meta read it)
     paging: bool = False            # decode state can live in paged KV blocks
+    pure_kv_state: bool = False     # decode state is a pure KV cache
     servable: bool = True           # InferenceEngine can serve this family
     spec_draftable: bool = False    # multi-token verify + KV rollback work:
     #   the family can be the target (or draft) of speculative decoding
@@ -55,6 +59,24 @@ class FamilySpec:
                 f"{self.family}: kv_dtype={kv_dtype!r} unsupported — "
                 f"{self.why_not('kv_quant')}")
         return self.kv_block_cost(cfg, block_size, kv_dtype)
+
+    @property
+    def preemptible(self) -> bool:
+        """A RUNNING request can be descheduled and resumed with prefill
+        skipped: derived from ``paging`` (preemption snapshots the paged
+        backend's refcounted block tables)."""
+        return self.paging
+
+    def capabilities(self) -> dict:
+        """JSON-ready capability record (plan meta / poll)."""
+        return {"batched_prefill": self.batched_prefill,
+                "padded_prefill": self.padded_prefill,
+                "paging": self.paging,
+                "pure_kv_state": self.pure_kv_state,
+                "servable": self.servable,
+                "spec_draftable": self.spec_draftable,
+                "kv_quant": self.kv_quant,
+                "preemptible": self.preemptible}
 
     def why_not(self, capability: str) -> str:
         if capability == "kv_quant" and "kv_quant" not in self.notes:

@@ -523,8 +523,9 @@ def _register():
     from repro_torch.models import registry
     registry.register(registry.FamilySpec(
         family="ssm", module=sys.modules[__name__],
-        batched_prefill=False, paging=False, servable=True,
-        spec_draftable=False, kv_quant=False,
+        batched_prefill=False, padded_prefill=False, paging=False,
+        pure_kv_state=False, servable=True, spec_draftable=False,
+        kv_quant=False,
         notes={
             "batched_prefill": "recurrent state advances strictly "
                                "token-by-token (prefill scans the prompt)",

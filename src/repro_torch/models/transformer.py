@@ -278,8 +278,9 @@ def _register():
     from repro_torch.models import registry
     registry.register(registry.FamilySpec(
         family="dense", module=sys.modules[__name__],
-        batched_prefill=True, paging=True, servable=True,
-        spec_draftable=True, kv_quant=True,
+        batched_prefill=True, padded_prefill=True, paging=True,
+        pure_kv_state=True, servable=True, spec_draftable=True,
+        kv_quant=True,
         decode_state_cost=_kv_state_bytes,
         kv_block_cost=_kv_block_bytes))
 

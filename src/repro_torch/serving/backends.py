@@ -45,7 +45,7 @@ from __future__ import annotations
 
 import hashlib
 from collections import deque
-from typing import Optional, Sequence
+from typing import Optional, Protocol, Sequence, runtime_checkable
 
 import numpy as np
 import torch
@@ -70,6 +70,34 @@ from repro_torch.training.train_loop import (make_decode_step,
 PAGED_IMPLS = ("cuda", "ref", "fused")
 TIERED_LATER = ("host-DRAM KV tiering is ported in a later slice of the "
                 "PyTorch port")
+
+
+@runtime_checkable
+class DecodeBackend(Protocol):
+    """Structural protocol every decode backend implements (the call
+    contract is in the module docstring)."""
+
+    name: str
+
+    @property
+    def free_lanes(self) -> int: ...
+
+    def admission_check(self, req: Request, prefill_rows: int) -> None: ...
+
+    def reserve(self, req: Request, prefill_rows: int) -> bool: ...
+
+    def release(self, req: Request) -> None: ...
+
+    def fresh_states(self, n: int, prefill_rows: int): ...
+
+    def write_prefill(self, group: Sequence[Request], states) -> None: ...
+
+    def decode(self, params, tokens: np.ndarray,
+               active: dict) -> np.ndarray: ...
+
+    def advance(self, lane: int) -> None: ...
+
+    def summary(self) -> dict: ...
 
 
 def _page_scatter(pages, k_new, v_new, ids) -> None:

@@ -49,7 +49,7 @@ from repro_torch import resolve_device
 from repro_torch.models import api
 from repro_torch.models.registry import CapabilityFallbackWarning
 from repro_torch.models.registry import spec as family_spec
-from repro_torch.serving.backends import make_backend
+from repro_torch.serving.backends import DecodeBackend, make_backend
 from repro_torch.serving.queue import RequestQueue
 from repro_torch.serving.request import Request, Status
 from repro_torch.serving.slo import SLO, OverloadedError, make_policy
@@ -64,7 +64,8 @@ class InferenceEngine:
                  window: Optional[int] = None,
                  model_name: Optional[str] = None,
                  bucket_sizes: Optional[Sequence[int]] = None,
-                 backend: Optional[str] = None, paged: bool = False,
+                 backend: Union[str, DecodeBackend, None] = None,
+                 paged: bool = False,
                  block_size: int = 16,
                  n_blocks: Optional[int] = None, ledger=None,
                  paged_impl: Optional[str] = None,
@@ -88,7 +89,8 @@ class InferenceEngine:
         is the legacy spelling) or 'spec', which wraps ``spec_inner``
         ('slot' by default, or 'paged') and takes ``draft_cfg`` /
         ``draft_params`` / ``draft_k`` (and ``verify_impl`` for a paged
-        inner)."""
+        inner) — or a ``DecodeBackend`` instance built by the caller, used
+        as is (its capacity, max_seq and device must be the engine's)."""
         if bucket_sizes is not None:
             raise NotImplementedError(f"length-bucketed prefill {_LATER}")
         if param_source is not None:
@@ -112,16 +114,20 @@ class InferenceEngine:
         self.queue = RequestQueue(clock=clock)
         self.slot_bytes = spec.decode_state_bytes(cfg, 1, max_seq)
         self._prefill = make_prefill_into_cache(cfg, window=window)
-        self.requested_backend, effective, spec_inner = \
-            self._resolve_backend(spec, backend, paged, spec_inner)
-        self.backend = make_backend(
-            effective, cfg, capacity, max_seq, window=window,
-            kv_budget_bytes=kv_budget_bytes, ledger=ledger,
-            block_size=block_size, n_blocks=n_blocks,
-            paged_impl=paged_impl, prefix_share=prefix_share,
-            kv_dtype=kv_dtype, verify_impl=verify_impl,
-            draft_cfg=draft_cfg, draft_params=draft_params,
-            draft_k=draft_k, inner=spec_inner, device=self.device)
+        if backend is None or isinstance(backend, str):
+            self.requested_backend, effective, spec_inner = \
+                self._resolve_backend(spec, backend, paged, spec_inner)
+            self.backend = make_backend(
+                effective, cfg, capacity, max_seq, window=window,
+                kv_budget_bytes=kv_budget_bytes, ledger=ledger,
+                block_size=block_size, n_blocks=n_blocks,
+                paged_impl=paged_impl, prefix_share=prefix_share,
+                kv_dtype=kv_dtype, verify_impl=verify_impl,
+                draft_cfg=draft_cfg, draft_params=draft_params,
+                draft_k=draft_k, inner=spec_inner, device=self.device)
+        else:
+            self.backend = self._injected_backend(backend, paged)
+            self.requested_backend = backend.name
         self._active: dict[int, Request] = {}       # lane -> request
         self._tokens = np.zeros((capacity, 1, 1), np.int32)
         self.completed: deque[Request] = deque(maxlen=completed_cap)
@@ -182,6 +188,32 @@ class InferenceEngine:
             effective = "slot" if effective == "paged" else effective
             spec_inner = "slot"
         return requested, effective, spec_inner
+
+    def _injected_backend(self, backend, paged: bool):
+        """A ``DecodeBackend`` instance passed as ``backend=``: used as is,
+        once its lanes, rows and device agree with the engine's."""
+        if not isinstance(backend, DecodeBackend):
+            raise TypeError(
+                f"backend={backend!r}: pass a backend name ('slot', "
+                "'paged', 'spec') or a DecodeBackend instance")
+        if paged and backend.name != "paged":
+            raise ValueError(
+                "conflicting arguments: paged=True but the injected "
+                f"backend is {backend.name!r}; drop one of them")
+        for attr in ("capacity", "max_seq"):
+            if getattr(backend, attr, None) != getattr(self, attr):
+                raise ValueError(
+                    f"injected {backend.name!r} backend has "
+                    f"{attr}={getattr(backend, attr, None)} but the "
+                    f"engine was built with {attr}={getattr(self, attr)}; "
+                    "they must match — the engine sizes its token buffer "
+                    "and admission checks from its own values")
+        dev = getattr(backend, "device", self.device)
+        if torch.device(dev) != self.device:
+            raise ValueError(
+                f"injected {backend.name!r} backend lives on {dev} but "
+                f"the engine serves on {self.device}")
+        return backend
 
     # -- backend introspection ------------------------------------------------
     @property

@@ -8,7 +8,7 @@
   device of an entry point (serving, SHARP training, eval) raises, and
   asking for the CUDA kernel on CPU tensors raises.
 * What is not ported yet raises ``NotImplementedError`` naming the slice
-  it comes with.
+  or the ROADMAP item it comes with.
 """
 
 import ast
@@ -181,8 +181,9 @@ def test_training_entry_points_default_to_cuda(build):
 
 
 def _serve_job(cfg):
-    from repro_torch.api import ServeJob
-    ServeJob(cfg)
+    from repro_torch.api import HydraConfig, ServeJob, Session
+    Session(HydraConfig(), device="cpu").submit(
+        ServeJob(cfg, bucket_sizes=(8, 16)))
 
 
 def _spmd_job(cfg):
@@ -202,7 +203,7 @@ def _mesh_train_step(cfg):
 
 
 @pytest.mark.parametrize("build,match", [
-    (_serve_job, "later slice"), (_spmd_job, "sharding slice"),
+    (_serve_job, "item 4"), (_spmd_job, "sharding slice"),
     (_probe_oracle, "later slice"), (_mesh_train_step, "sharding slice"),
 ], ids=["serve-job", "spmd-job", "probe-oracle", "mesh"])
 def test_unported_session_options_raise(build, match):

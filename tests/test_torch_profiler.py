@@ -452,5 +452,3 @@ def test_quick_profile_prices_a_session(quick_profile, capsys):
     assert profiler_main(["--show", "--out", quick_profile]) == 0
     shown = json.loads(capsys.readouterr().out)
     assert sorted(shown["kernels"]) == sorted(KERNEL_ROWS)
-    with pytest.raises(NotImplementedError, match="ServeJob"):
-        profiler_main(["--smoke", "--device", "cpu"])
