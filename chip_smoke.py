@@ -150,12 +150,37 @@ Phases (any failure exits non-zero before the result line):
    ledger stays within its budget and cap and ends at 0 reserved; the
    cold promotion's bytes are its shards' transfer bytes; then a small
    f32 session (paged and spec over paged) token-identical to bare f32
-   engines, and ``profiler --smoke`` in process with phase 13's facts.
+   engines, and ``profiler --smoke`` in process with phase 13's facts;
+18. Fig 8 — the paper's end-to-end comparison
+   (``benchmarks/bench_end_to_end.py``) at full width: up to 12
+   ``TrainJob``s of bert-large-1b (36 layers, d 1536, layer norm, GELU,
+   biases, non-causal attention; seeds 0.., the grid's learning rates
+   1e-3..1e-6 in turn, AdamW, 2 steps of 2 x 512) on 8 virtual devices of
+   the paper's 11e9 B, transfers modelled at this card's measured pinned
+   host-to-device rate; as many models as have host stores (f32 params
+   and two Adam moments, pinned) fitting in half of ``MemAvailable``, the
+   count and reason printed; then ``core/baselines.py`` replays the
+   pilot's unit runtimes under model, pipeline and task parallelism.
+   Gates: units = models x steps x 2 x shards, no ledger over budget,
+   finite losses, model 0's losses equal plain full-model training on the
+   card at 3e-4, task parallelism raises ``MemoryError`` at 11e9 B and
+   replays at 80e9 B, pipeline <= model parallelism, utilisations in
+   (0, 1], SHARP's makespan below model parallelism's;
+19. bucketed serve — phase 4's requests through ``InferenceEngine(
+   backend="paged", bucket_sizes=pow2_buckets(max_seq))``, then the same
+   engine without buckets: every request gets its tokens, one prefill per
+   (admission round, bucket), every prefill width a bucket, the paged
+   kernel launches decode_steps x 28 times, the pool and ledger end
+   empty, each bucketed group's first-token logits at most LOGIT_REL x as
+   far from an f32 exact-length prefill as the bf16 exact-length prefill
+   is; prefill tok/s (true tokens) and distinct prefill shapes both ways;
+   small f32 engines (slot and paged, bucketed and exact) token-identical.
 
 Each kernel's launch count is zeroed just before the run of its own path
 (a serve run, the spilled eval, the profiler's ``build_facts`` for
 RMSNorm and SwiGLU, the zamba2 kernel forward for the SSD scan; the
-paged kernel's again before phase 17's session run) and read just after;
+paged kernel's again before phase 17's session run and phase 19's serve
+runs) and read just after;
 the kernel line reports it with the kernel's numbers at that path's
 inputs.
 
@@ -169,6 +194,7 @@ the run printed (the log of a failed run too).
 
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -1237,11 +1263,13 @@ def phase_profile(cfg, eng, snap, label="one decode step (8 lanes)",
     return res
 
 
-def logit_gate(label, logits):
+def logit_gate(label, logits, names=("kernel", "plain")):
     """The both-ways gate over {"cuda", "ref", "f32"} logits: the kernel's
     logits may be at most LOGIT_REL times as far (max abs) from the f32
-    run as the plain bf16 path's are."""
+    run as the plain bf16 path's are.  ``names`` say in the log what the
+    "cuda" and "ref" runs are."""
     import torch
+    kn, pn = names
     a, b, f = logits["cuda"], logits["ref"], logits["f32"]
     err_k = float((a - f).abs().max())
     err_p = float((b - f).abs().max())
@@ -1260,17 +1288,16 @@ def logit_gate(label, logits):
            "positions": int(a.numel() // a.shape[-1])}
     res["within_tol"] = (err_k <= LOGIT_REL * err_p
                          and bool(torch.isfinite(a).all()))
-    log(f"[both-ways] {label}: kernel vs plain max abs logit diff "
-        f"{res['max_abs_logit_diff_kernel_vs_plain']:.4g}; vs f32 kernel "
-        f"{err_k:.4g}, plain {err_p:.4g} (gate: kernel <= {LOGIT_REL} x "
-        f"plain; max |logit| {res['max_abs_logit']:.3g}); argmax flips "
-        f"kernel/plain {res['argmax_flips_kernel_vs_plain']}, kernel/f32 "
-        f"{res['argmax_flips_kernel_vs_f32']}, plain/f32 "
+    log(f"[both-ways] {label}: {kn} vs {pn} max abs logit diff "
+        f"{res['max_abs_logit_diff_kernel_vs_plain']:.4g}; vs f32 {kn} "
+        f"{err_k:.4g}, {pn} {err_p:.4g} (gate: {kn} <= {LOGIT_REL} x "
+        f"{pn}; max |logit| {res['max_abs_logit']:.3g}); argmax flips "
+        f"{kn}/{pn} {res['argmax_flips_kernel_vs_plain']}, {kn}/f32 "
+        f"{res['argmax_flips_kernel_vs_f32']}, {pn}/f32 "
         f"{res['argmax_flips_plain_vs_f32']} of {res['positions']}")
     if not res["within_tol"]:
-        fail(f"{label}: logits through the kernel are farther from the f32 "
-             f"run ({err_k}) than {LOGIT_REL} x the plain bf16 path's "
-             f"({err_p})")
+        fail(f"{label}: the {kn} logits are farther from the f32 run "
+             f"({err_k}) than {LOGIT_REL} x the {pn} bf16 path's ({err_p})")
     return res
 
 
@@ -1689,6 +1716,19 @@ def train_loader(cfg, seed):
                                       vocab_size=cfg.vocab_size, seed=seed))
 
 
+def track_ledger_peaks(session) -> dict:
+    """{device id: high-water mark of used bytes} of a session's device
+    ledgers, filled as the run promotes shards."""
+    peak_used = {}
+    for dm in session.devices:
+        def charge(nbytes, *, into_buffer, dm=dm, orig=dm.charge_promotion):
+            orig(nbytes, into_buffer=into_buffer)
+            peak_used[dm.device_id] = max(peak_used.get(dm.device_id, 0),
+                                          dm.used_bytes())
+        dm.charge_promotion = charge
+    return peak_used
+
+
 def phase_sharp_train(cfg, budget=TRAIN_BUDGET, steps=TRAIN_STEPS):
     """Two full-width TrainJobs of ``cfg`` (seeds 0 and 1, lr 1e-4 and
     3e-4, AdamW) through the port's Session on two virtual devices of
@@ -1717,13 +1757,7 @@ def phase_sharp_train(cfg, budget=TRAIN_BUDGET, steps=TRAIN_STEPS):
                                 batch=TRAIN_BATCH, seq=TRAIN_SEQ))
     plan = session.plan()
     setup_s = time.perf_counter() - t0
-    peak_used = {}
-    for dm in session.devices:       # the ledger's high-water mark
-        def charge(nbytes, *, into_buffer, dm=dm, orig=dm.charge_promotion):
-            orig(nbytes, into_buffer=into_buffer)
-            peak_used[dm.device_id] = max(peak_used.get(dm.device_id, 0),
-                                          dm.used_bytes())
-        dm.charge_promotion = charge
+    peak_used = track_ledger_peaks(session)
     t0 = time.perf_counter()
     report = session.run(plan)
     torch.cuda.synchronize()
@@ -2785,6 +2819,462 @@ def phase_profile_smoke(facts_path):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the paper's Fig 8 — bert-large-1b under SHARP against model,
+# pipeline and task parallelism
+# ---------------------------------------------------------------------------
+
+FIG8_MODELS, FIG8_STEPS, FIG8_BATCH, FIG8_SEQ = 12, 2, 2, 512
+FIG8_LRS = (1e-3, 1e-4, 1e-5, 1e-6)     # benchmarks/common.py's grid
+FIG8_DEVICES = 8
+FIG8_BUDGET = 11 * 10**9                # HydraConfig's default (RTX 2080 Ti)
+FIG8_ROOMY_BUDGET = 80 * 10**9          # a device one whole model fits
+
+
+def mem_available_bytes() -> int:
+    for line in Path("/proc/meminfo").read_text().splitlines():
+        if line.startswith("MemAvailable:"):
+            return int(line.split()[1]) * 1024
+    fail("/proc/meminfo has no MemAvailable line")
+
+
+def settled_mem_available(timeout_s: float = 30.0) -> int:
+    """MemAvailable once it stops rising: freed pinned memory comes back
+    to the system over seconds (about 5 GB/s on the one-card H100
+    machine), not when the host cache is emptied."""
+    t0, last = time.perf_counter(), mem_available_bytes()
+    while time.perf_counter() - t0 < timeout_s:
+        time.sleep(0.5)
+        now = mem_available_bytes()
+        if now - last < 2**26:
+            return now
+        last = now
+    return last
+
+
+def empty_host_cache() -> bool:
+    """Hand the pinned blocks that PyTorch's host allocator caches (the
+    freed host stores of earlier phases) back to the system; False where
+    this PyTorch has no call for it."""
+    import torch
+    fn = (getattr(torch._C, "_host_emptyCache", None)
+          or getattr(torch._C, "_accelerator_emptyHostCache", None))
+    if fn is None:
+        return False
+    fn()
+    return True
+
+
+def h2d_gb_per_s(nbytes: int = 2**30) -> float:
+    """Host-to-device copy rate from pinned memory, by CUDA events."""
+    import torch
+    src = torch.empty(nbytes, dtype=torch.uint8).pin_memory()
+    dst = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    ms = cuda_ms(lambda: dst.copy_(src, non_blocking=True), iters=5)
+    del src, dst
+    return nbytes / (ms / 1e3) / 1e9
+
+
+def fig8_loader(cfg, seed):
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    return SyntheticTokens(DataConfig(batch_size=FIG8_BATCH,
+                                      seq_len=FIG8_SEQ,
+                                      vocab_size=cfg.vocab_size, seed=seed))
+
+
+def fig8_model_count(store_bytes: int, avail: int) -> int:
+    """12 when twelve host stores fit in half of ``avail``, else the
+    largest count >= 2 that does (0 when not even two do)."""
+    n = FIG8_MODELS
+    while n >= 2 and n * store_bytes > avail // 2:
+        n -= 1
+    return n if n >= 2 else 0
+
+
+def phase_fig8(smi):
+    """The paper's Fig 8 on the card: ``benchmarks/bench_end_to_end.py``'s
+    workload at full width.  Up to 12 ``TrainJob``s of bert-large-1b
+    (seeds 0.., the grid's learning rates 1e-3..1e-6 in turn, AdamW, 2
+    steps of 2 x 512 tokens) train through the port's SHARP executor on 8
+    virtual devices of the paper's 11e9 B, one unit at a time on the one
+    card; the pilot's measured unit runtimes are then replayed under
+    model, pipeline and task parallelism (``core/baselines.py``).  Both
+    sides are virtual timelines over the same unit runtimes; SHARP's also
+    holds transfers modelled at ``link_bw``, set to this card's measured
+    pinned host-to-device rate, and the baselines hold none.  The host
+    store holds f32 params and two Adam moments of every model (12 bytes
+    a parameter, pinned): fewer than 12 models run when 12 stores do not
+    fit in half of ``MemAvailable``, and the line says so.  Gates: units
+    = models x steps x 2 x shards; no ledger over its budget; every loss
+    finite; model 0's losses equal plain full-model training on the card
+    at 3e-4; ``task_parallel`` raises ``MemoryError`` at 11e9 B and
+    replays at 80e9 B; pipeline <= model parallelism; every utilisation
+    in (0, 1]; SHARP's makespan below model parallelism's."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import HydraConfig, Session, TrainJob
+    from repro_torch.configs import get_config
+    from repro_torch.core import baselines as bl
+    from repro_torch.core.orchestrator import (ModelTask,
+                                               train_sequential_reference)
+    from repro_torch.core.partitioner import tree_bytes
+    from repro_torch.models import api
+
+    t_phase = time.perf_counter()
+    cfg = get_config("bert-large-1b")
+    p0 = api.init_params(cfg, torch.Generator("cuda").manual_seed(0), "cuda")
+    param_bytes = tree_bytes(p0)
+    del p0
+    gc.collect()
+    torch.cuda.empty_cache()
+    avail_before = mem_available_bytes()
+    host_cache_emptied = empty_host_cache()
+    t0 = time.perf_counter()
+    avail = settled_mem_available()
+    settle_s = time.perf_counter() - t0
+    store_bytes = 3 * param_bytes          # f32 params + two Adam moments
+    n = fig8_model_count(store_bytes, avail)
+    if n == 0:
+        fail(f"fig8: one bert-large-1b host store is {store_bytes} B; two "
+             f"do not fit in half of MemAvailable ({avail} B)")
+    reduction = ("none: 12 models" if n == FIG8_MODELS else
+                 f"{n} of 12 models: 12 host stores need "
+                 f"{FIG8_MODELS * store_bytes} B, more than half of "
+                 f"MemAvailable {avail} B; {n} need {n * store_bytes} B")
+    link = h2d_gb_per_s() * 1e9
+    hc = HydraConfig(n_devices=FIG8_DEVICES, device_budget_bytes=FIG8_BUDGET,
+                     link_bw=link)
+    steps = [FIG8_STEPS] * n
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    session = Session(hc, device="cuda", profile=None)
+    for i in range(n):
+        session.submit(TrainJob(cfg, fig8_loader(cfg, i),
+                                lr=FIG8_LRS[i % len(FIG8_LRS)],
+                                optimizer="adamw", epochs=1,
+                                steps_per_epoch=FIG8_STEPS, seed=i,
+                                batch=FIG8_BATCH, seq=FIG8_SEQ))
+    plan = session.plan()
+    setup_s = time.perf_counter() - t0
+    execs = session.train_execs
+    host_bytes = sum(tree_bytes(m.store.params) + tree_bytes(m.store.opt)
+                     + tree_bytes(m.store.shared_opt) for m in execs)
+    peak_used = track_ledger_peaks(session)
+    t0 = time.perf_counter()
+    train = session.run(plan).train
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    shards = [len(m.partition.shards) for m in execs]
+    res = {"models": n, "reduction": reduction, "mem_available": avail,
+           "mem_available_before_host_cache_emptied": avail_before,
+           "mem_settle_s": settle_s,
+           "param_bytes": param_bytes, "store_bytes_per_model": store_bytes,
+           "host_store_bytes": host_bytes,
+           "host_cache_emptied": host_cache_emptied,
+           "link_bw": link, "budget": hc.device_budget_bytes,
+           "shards": shards,
+           "shard_layers": [(s.seg_lo, s.seg_hi)
+                            for s in execs[0].partition.shards],
+           "setup_s": setup_s,
+           "pinned_store_gb_per_s": host_bytes / setup_s / 1e9,
+           "wall_s": wall, "units_executed": train.units_executed,
+           "losses": {int(k): v for k, v in train.losses.items()},
+           "ledger_peak_bytes": peak_used,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "pilot_fwd_ms": [1e3 * statistics.median(
+               m.partition.shards[j].fwd_runtime for m in execs)
+               for j in range(shards[0])],
+           "pilot_bwd_ms": [1e3 * statistics.median(
+               m.partition.shards[j].bwd_runtime for m in execs)
+               for j in range(shards[0])]}
+    expect = n * FIG8_STEPS * 2 * shards[0]
+    if len(set(shards)) != 1 or train.units_executed != expect:
+        fail(f"fig8: SHARP ran {train.units_executed} units over shards "
+             f"{shards}; expected models x steps x 2 x shards = {expect}")
+    if max(peak_used.values()) > hc.device_budget_bytes:
+        fail(f"fig8: a device ledger went over its budget: {peak_used}")
+    if not all(np.isfinite(v).all() and len(v) == FIG8_STEPS
+               for v in train.losses.values()):
+        fail(f"fig8: losses not finite or missing: {train.losses}")
+
+    mp = bl.model_parallel(execs, FIG8_DEVICES, steps)
+    pipe = bl.pipeline(execs, FIG8_DEVICES, steps)
+    try:
+        bl.task_parallel(execs, FIG8_DEVICES, steps, hc.device_budget_bytes)
+    except MemoryError as e:
+        res["task_parallel_error"] = str(e)
+    else:
+        fail("fig8: task parallelism fit a bert-large-1b with its optimizer "
+             f"state in {hc.device_budget_bytes} B")
+    tp = bl.task_parallel(execs, FIG8_DEVICES, steps, FIG8_ROOMY_BUDGET)
+    rows = {"hydra": (train.makespan, train.avg_utilization),
+            "model_parallel": (mp.makespan, mp.avg_utilization),
+            "pipeline": (pipe.makespan, pipe.avg_utilization),
+            "task_parallel_80GB": (tp.makespan, tp.avg_utilization)}
+    res["fig8"] = {k: {"makespan_us": ms * 1e6, "util": u,
+                       "speedup_vs_mp": mp.makespan / ms}
+                   for k, (ms, u) in rows.items()}
+    res["phase_s"] = time.perf_counter() - t_phase
+    cells = "; ".join(
+        f"fig8_{k}={v['makespan_us']:.1f} us (speedup_vs_mp="
+        f"{v['speedup_vs_mp']:.2f}, util={v['util']:.4f})"
+        for k, v in res["fig8"].items())
+    log(f"[fig8] {n} x bert-large-1b full width ({cfg.n_layers} layers, d "
+        f"{cfg.d_model}, {param_bytes // 4} params), {FIG8_STEPS} steps of "
+        f"{FIG8_BATCH}x{FIG8_SEQ}, {FIG8_DEVICES} virtual devices of "
+        f"{hc.device_budget_bytes} B, link_bw {link / 1e9:.2f} GB/s "
+        f"(measured h2d): {cells}; fig8_task_parallel at "
+        f"{hc.device_budget_bytes} B: OOM ({res['task_parallel_error']}); "
+        f"shards per model {shards[0]} {res['shard_layers']}; units "
+        f"{train.units_executed}; pilot median per shard fwd "
+        f"{[round(x, 2) for x in res['pilot_fwd_ms']]} ms, bwd "
+        f"{[round(x, 2) for x in res['pilot_bwd_ms']]} ms; run wall "
+        f"{wall:.2f} s; setup {setup_s:.2f} s: params made on the card, "
+        f"partitioned and copied into pinned host stores of {host_bytes} B "
+        f"({res['pinned_store_gb_per_s']:.2f} GB/s); reduction: "
+        f"{reduction} (MemAvailable {avail_before} B before the pinned "
+        f"host cache was emptied (emptied {host_cache_emptied}), settled "
+        f"after {settle_s:.1f} s); ledger "
+        f"peak {max(peak_used.values())}; "
+        f"max_memory_allocated {res['max_memory_allocated']}; phase "
+        f"{res['phase_s']:.1f} s ({smi})")
+    if pipe.makespan > mp.makespan:
+        fail(f"fig8: pipeline makespan {pipe.makespan} above model "
+             f"parallelism's {mp.makespan}")
+    if not all(0 < u <= 1 for _, u in rows.values()):
+        fail(f"fig8: a utilisation outside (0, 1]: {rows}")
+    if not train.makespan < mp.makespan:
+        fail(f"fig8: SHARP's makespan {train.makespan} is not below model "
+             f"parallelism's {mp.makespan}")
+
+    del session, execs, plan
+    empty_host_cache()
+    _, ref = train_sequential_reference(ModelTask(
+        cfg, fig8_loader(cfg, 0), lr=FIG8_LRS[0], epochs=1,
+        steps_per_epoch=FIG8_STEPS, seed=0, batch=FIG8_BATCH,
+        seq=FIG8_SEQ), device="cuda")
+    torch.cuda.empty_cache()
+    res["sequential_losses_0"] = ref
+    res["max_abs_loss_diff_0"] = float(
+        np.abs(np.subtract(ref, train.losses[0])).max())
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"[fig8] model 0 losses {train.losses[0]} vs plain full-model "
+        f"training on the card {ref}: max abs diff "
+        f"{res['max_abs_loss_diff_0']:.3g} (tol {SHARP_TOL}); phase "
+        f"{res['phase_s']:.1f} s")
+    if not np.allclose(train.losses[0], ref, rtol=SHARP_TOL,
+                       atol=SHARP_TOL):
+        fail(f"fig8: model 0's SHARP losses {train.losses[0]} differ from "
+             f"plain training's {ref}")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 19: length-bucketed prefill on the paged serve path
+# ---------------------------------------------------------------------------
+
+def spy_calls(eng, attr, record):
+    """Wrap ``eng.<attr>`` (a prefill function or ``_admit``) so each call
+    appends ``record(args, result)`` to the returned list."""
+    calls, orig = [], getattr(eng, attr)
+
+    def wrapped(*args):
+        out = orig(*args)
+        calls.append(record(args, out))
+        return out
+    setattr(eng, attr, wrapped)
+    return calls
+
+
+def exact_prefill_logits(cfg, params, prompt):
+    """Last-position logits of an exact-length prefill of ``prompt`` over
+    a contiguous cache as wide as the paged backend makes it (the prompt
+    rounded up to whole blocks)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import api
+    from repro_torch.serving.paging import blocks_for_rows
+    from repro_torch.training.train_loop import make_prefill_into_cache
+    width = blocks_for_rows(len(prompt), BS) * BS
+    state = api.init_decode_state(cfg, 1, width, "cuda")
+    tokens = torch.from_numpy(prompt.astype(np.int64))[None].to("cuda")
+    logits, _ = make_prefill_into_cache(cfg)(params, state, tokens)
+    return logits[0].float()
+
+
+def bucketed_engine_run(cfg, params, prompts, buckets, label):
+    """One paged engine over ``prompts`` (length buckets or none), with its
+    prefill calls and admission rounds recorded."""
+    from repro_torch.kernels.paged_attention import paged_attention_lanes
+    from repro_torch.serving.engine import InferenceEngine
+
+    max_seq = max(len(p) for p in prompts) + GEN
+    eng = InferenceEngine(cfg, params, capacity=CAPACITY, max_seq=max_seq,
+                          backend="paged", block_size=BS,
+                          bucket_sizes=buckets, device="cuda")
+    if buckets:
+        calls = spy_calls(eng, "_padded_prefill", lambda a, out: {
+            "shape": tuple(a[2].shape), "lengths": a[3].tolist(),
+            "tokens": a[2].cpu(), "logits": out[0].float()})
+    else:
+        calls = spy_calls(eng, "_prefill", lambda a, out: {
+            "shape": tuple(a[2].shape)})
+    rounds = spy_calls(eng, "_admit", lambda a, out: sorted(
+        {eng._bucket(r.prompt_len) for r in out}))
+    _, res, summary = drive_serve(cfg, eng, prompts, paged_attention_lanes,
+                                  label)
+    res["calls"], res["rounds"] = calls, [r for r in rounds if r]
+    res["shapes"] = sorted({c["shape"] for c in calls})
+    res["pool_free"] = eng.pool.n_free == eng.pool.n_allocatable
+    res["ledger_reserved"] = eng.ledger.kv_reserved_bytes
+    res["bucket_sizes"] = summary["bucket_sizes"]
+    return eng, res, summary
+
+
+def phase_bucketed_serve(cfg, prompts, ref_tokens, smi):
+    """Phase 4's requests through ``InferenceEngine(backend="paged",
+    bucket_sizes=pow2_buckets(max_seq))`` at full width, then the same
+    engine without buckets.  Gates: every request its GEN tokens; prefill
+    calls = the distinct (admission round, bucket) keys; every prefill
+    width a bucket; paged kernel launches = decode_steps x 28; the pool
+    and the ledger end empty; each bucketed group's first-token logits at
+    most LOGIT_REL x as far from an f32 exact-length prefill as the bf16
+    exact-length prefill is; small f32 engines (slot and paged, bucketed
+    and exact) token-identical.  Prefill tok/s (true tokens) and the
+    number of distinct prefill shapes both ways; tokens matching phase 4
+    reported (bf16), not gated."""
+    import torch
+
+    from repro_torch.models import api
+    from repro_torch.serving.engine import pow2_buckets
+
+    t_phase = time.perf_counter()
+    params = api.init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                             "cuda")
+    buckets = pow2_buckets(max(len(p) for p in prompts) + GEN)
+    eng, res, summary = bucketed_engine_run(cfg, params, prompts, buckets,
+                                            "bucketed serve")
+    expect_calls = sum(len(r) for r in res["rounds"])
+    widths = [c["shape"][1] for c in res["calls"]]
+    bad = [w for w in widths if w not in buckets]
+    launches = res["launches"]
+    if not summary["prefill_calls"] == len(res["calls"]) == expect_calls:
+        fail(f"bucketed serve: {summary['prefill_calls']} prefill calls, "
+             f"{len(res['calls'])} recorded; expected one per (admission "
+             f"round, bucket) = {expect_calls}")
+    if bad:
+        fail(f"bucketed serve: prefill widths {bad} are not buckets of "
+             f"{buckets}")
+    if launches != summary["decode_steps"] * cfg.n_layers:
+        fail(f"bucketed serve: paged_attention launched {launches} times; "
+             f"expected decode_steps x layers = "
+             f"{summary['decode_steps'] * cfg.n_layers}")
+    if not res["pool_free"] or res["ledger_reserved"] != 0 \
+            or summary["kv_reserved_bytes"] != 0:
+        fail(f"bucketed serve: the pool or the ledger did not end empty "
+             f"(pool free {res['pool_free']}, ledger "
+             f"{res['ledger_reserved']} B)")
+
+    # each group's first-token logits against exact-length prefills
+    cfg32 = cfg.replace(dtype="float32", kv_cache_dtype="float32")
+    p32 = api.prepare_params(cfg32, params, "cuda")
+    gates = []
+    with torch.no_grad():
+        for i, c in enumerate(res["calls"]):
+            rows = [c["tokens"][j, :n].numpy()
+                    for j, n in enumerate(c["lengths"])]
+            gates.append(logit_gate(
+                f"bucketed prefill group {i} (bucket {c['shape'][1]}, "
+                f"lengths {c['lengths']})",
+                {"cuda": c["logits"],
+                 "ref": torch.stack([exact_prefill_logits(cfg, eng.params, r)
+                                     for r in rows]),
+                 "f32": torch.stack([exact_prefill_logits(cfg32, p32, r)
+                                     for r in rows])},
+                names=("bucketed", "exact")))
+    del p32, eng
+    for c in res["calls"]:
+        del c["tokens"], c["logits"]
+    torch.cuda.empty_cache()
+
+    _, exact, esum = bucketed_engine_run(cfg, params, prompts, None,
+                                         "exact serve")
+    del params
+    torch.cuda.empty_cache()
+    out = {"buckets": list(buckets), "bucketed": res, "exact": exact,
+           "logit_gates": gates,
+           "identical_to_phase4": sum(
+               res["tokens"][k] == ref_tokens.get(k)
+               for k in res["tokens"]),
+           "bucketed_vs_exact_identical": sum(
+               res["tokens"][k] == exact["tokens"][k]
+               for k in res["tokens"])}
+    out["small_f32"] = phase_small_bucketed_f32()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[buckets] qwen3-0.6b full width, paged, buckets {list(buckets)}: "
+        f"{res['requests']} requests x {GEN} tokens; prefill calls "
+        f"{summary['prefill_calls']} (rounds {res['rounds']}) in "
+        f"{len(res['shapes'])} shapes {res['shapes']}, prefill "
+        f"{res['prefill_tok_per_s']} tok/s (true tokens); exact: "
+        f"{esum['prefill_calls']} calls in {len(exact['shapes'])} shapes, "
+        f"prefill {exact['prefill_tok_per_s']} tok/s; decode "
+        f"{res['decode_tok_per_s']} / {exact['decode_tok_per_s']} tok/s; "
+        f"paged launches {launches} = {summary['decode_steps']} x "
+        f"{cfg.n_layers}; bucketed tokens identical to exact for "
+        f"{out['bucketed_vs_exact_identical']} of {len(prompts)}, to phase "
+        f"4 for {out['identical_to_phase4']} (bf16, not gated); phase "
+        f"{out['phase_s']:.1f} s ({smi})")
+    return out
+
+
+def phase_small_bucketed_f32():
+    """Small f32 engines on the card: slot and paged (the paged kernel),
+    each with pow2 length buckets and without, give identical tokens."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.paged_attention import paged_attention_lanes
+    from repro_torch.models import api
+    from repro_torch.serving.engine import InferenceEngine, pow2_buckets
+
+    cfg = get_config("qwen3-0.6b", smoke=True).replace(
+        dtype="float32", kv_cache_dtype="float32")
+    params = api.init_params(cfg, torch.Generator("cuda").manual_seed(5),
+                             "cuda")
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab_size, n, dtype=np.int32)
+               for n in (5, 17, 32, 9, 12, 3)]
+    prompts.append(prompts[2][:20].copy())       # a shared prefix
+    out, calls = {}, {}
+    for backend in ("slot", "paged"):
+        for buckets in (None, pow2_buckets(64)):
+            eng = InferenceEngine(cfg, params, capacity=3, max_seq=64,
+                                  backend=backend, block_size=8,
+                                  bucket_sizes=buckets, device="cuda")
+            before = paged_attention_lanes.launches
+            for i, p in enumerate(prompts):
+                eng.submit(p, 10, request_id=f"b{i}")
+            eng.run()
+            key = f"{backend}{'-bucketed' if buckets else ''}"
+            out[key] = {r.request_id: r.generated for r in eng.completed}
+            calls[key] = (eng.prefill_calls,
+                          paged_attention_lanes.launches - before)
+    ref = out["slot"]
+    res = {"identical": all(v == ref for v in out.values())
+           and len(ref) == len(prompts),
+           "prefill_calls_and_launches": calls}
+    log(f"[buckets] small f32 engines (slot, paged; pow2 buckets and "
+        f"exact): tokens identical {res['identical']}; (prefill calls, "
+        f"paged kernel launches) {calls}")
+    if not res["identical"] or calls["paged-bucketed"][1] == 0:
+        fail("small f32 engines: bucketed and exact prefill gave different "
+             "tokens, or the bucketed paged engine ran no kernel")
+    return res
+
+
 def kernel_entry(name, source, replaces, launches, m):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -3037,6 +3527,17 @@ def main() -> None:
     report["session_serve"] = phase_session_serve(
         cfg, report["sharp_train"]["losses"][0],
         report["serve"]["tokens"], report["profiler"]["path"])
+
+    # 18. the paper's Fig 8: up to 12 full-width bert-large-1b models
+    #     under SHARP, then model, pipeline and task parallelism replayed
+    #     over the same measured unit runtimes
+    report["fig8"] = phase_fig8(smi)
+    torch.cuda.empty_cache()
+
+    # 19. phase 4's requests with length-bucketed prefill, and without
+    report["bucketed_serve"] = phase_bucketed_serve(
+        cfg, prompts, report["serve"]["tokens"], smi)
+    torch.cuda.empty_cache()
     report["total_s"] = time.perf_counter() - t_start
 
     src = "src/repro_torch/kernels/csrc/"

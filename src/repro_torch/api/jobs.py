@@ -79,8 +79,6 @@ class EvalJob(JobSpec):
 
 # what ServeJob still cannot ask for, by the ROADMAP Queue 1 item that
 # brings it
-_BUCKETS_LATER = ("length-bucketed prefill (bucket_sizes) is ported with "
-                  "ROADMAP Queue 1 item 4; pass bucket_sizes=None")
 _TIERING_LATER = ("is ported with ROADMAP Queue 1 item 5 (tiered memory)")
 
 
@@ -110,9 +108,15 @@ class ServeJob(JobSpec):
     the JAX spellings ``"pallas"`` / ``"jnp"``, which map to them
     (``checkpoint.convert.verify_impl_from_jax``).
 
-    Still raising ``NotImplementedError`` at submit, each naming the
-    ROADMAP item that brings it: ``bucket_sizes`` (item 4) and
-    ``residency="shard"`` / ``hot_bytes`` / ``tiered_kv`` (item 5).
+    ``bucket_sizes``: length buckets for prefill admission — a sequence of
+    ints, the string ``"pow2"`` for power-of-two buckets up to
+    ``max_seq``, or None for exact-length groups.  A family that cannot
+    prefill right-padded prompts falls back to exact-length groups, with
+    the reason in the plan meta's ``capability_fallbacks``.
+
+    Still raising ``NotImplementedError`` at submit, naming the ROADMAP
+    item that brings them: ``residency="shard"`` / ``hot_bytes`` /
+    ``tiered_kv`` (item 5).
     """
     params: Optional[Any] = None                # init'd from seed if None
     seed: int = 0
@@ -360,9 +364,7 @@ class ServeJob(JobSpec):
         return inner
 
     def resolved_buckets(self) -> Optional[Sequence[int]]:
-        """None (exact-length prefill groups).  A bucket spec is validated
-        as in the JAX package, then raises: bucketed prefill is not in
-        the port yet."""
+        """The prefill length buckets (None: exact-length groups)."""
         if self.bucket_sizes is None:
             return None
         if isinstance(self.bucket_sizes, str):
@@ -370,16 +372,18 @@ class ServeJob(JobSpec):
                 raise ValueError(
                     f"bucket_sizes={self.bucket_sizes!r}: the only named "
                     "scheme is 'pow2'; otherwise pass explicit ints")
-        else:
-            buckets = [int(b) for b in self.bucket_sizes]
-            if any(b < 1 for b in buckets):
-                raise ValueError(f"bucket_sizes={self.bucket_sizes!r}: "
-                                 "buckets must be positive lengths")
-            if any(b > self.max_seq for b in buckets):
-                raise ValueError(
-                    f"bucket_sizes={self.bucket_sizes!r}: buckets cannot "
-                    f"exceed max_seq={self.max_seq}")
-        raise NotImplementedError(_BUCKETS_LATER)
+            from repro_torch.serving.engine import pow2_buckets
+            return pow2_buckets(self.max_seq)
+        buckets = [int(b) for b in self.bucket_sizes]
+        if any(b < 1 for b in buckets):
+            raise ValueError(f"bucket_sizes={self.bucket_sizes!r}: "
+                             "buckets must be positive lengths")
+        if any(b > self.max_seq for b in buckets):
+            # the engine would silently drop these, making the plan's
+            # bucket list diverge from the live engine's
+            raise ValueError(f"bucket_sizes={self.bucket_sizes!r}: buckets "
+                             f"cannot exceed max_seq={self.max_seq}")
+        return buckets
 
 
 class SpmdTrainJob:

@@ -715,6 +715,7 @@ class Session:
             job.cfg, params, capacity=job.capacity, max_seq=job.max_seq,
             window=job.window, model_name=job.name or job.cfg.name,
             backend=job.requested_backend(),
+            bucket_sizes=job.resolved_buckets(),
             policy=job.resolved_policy(), default_slo=job.default_slo(),
             device=self.device, **kw)
 

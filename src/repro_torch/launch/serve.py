@@ -6,7 +6,8 @@ continuous batching; greedy sampling keeps outputs deterministic.
 ``--stagger`` drips requests in between decode steps so late arrivals
 join mid-flight, a comma-separated ``--arch`` list serves several models
 at once with the session's scheduling policy (``--scheduler``, LRTF by
-default) picking which model steps next, ``--cold`` starts models spilled
+default) picking which model steps next, ``--buckets`` pads prompt
+groups to power-of-two length buckets, ``--cold`` starts models spilled
 in the host store (promoted on the first request), and ``--backend
 slot|paged|spec`` picks the decode backend once (``--paged`` is the
 legacy spelling of ``--backend paged``; ``--no-prefix-share`` disables
@@ -28,10 +29,10 @@ same ``engines`` / ``schedule`` / ``requests`` / ``sample`` JSON keys as
 
 The recurrent families (``zamba2-1.2b``, hybrid; ``xlstm-350m``, ssm)
 serve from the slot backend and prefill token by token; ``--backend
-paged`` or ``spec`` falls back to slot with a warning, as in the JAX CLI.
-``--buckets`` (length-bucketed prefill, ROADMAP Queue 1 item 4) and
-``--http`` with ``--host``/``--port``/``--no-stream``/``--endpoint`` (the
-HTTP front end, item 9) are not in the port yet and raise.
+paged`` or ``spec`` (and ``--buckets``) falls back with a warning, as
+in the JAX CLI.  ``--http`` with ``--host``/``--port``/``--no-stream``/
+``--endpoint`` (the HTTP front end, ROADMAP Queue 1 item 9) is not in the
+port yet and raises.
 """
 
 from __future__ import annotations
@@ -54,6 +55,7 @@ def build_serve_job(arch: str, args) -> ServeJob:
     # the legacy --paged flag and rejects a conflicting --backend slot
     return ServeJob(cfg, seed=args.seed, name=arch, capacity=args.capacity,
                     max_seq=max_seq, kv_budget_bytes=budget,
+                    bucket_sizes="pow2" if args.buckets else None,
                     cold=args.cold, backend=args.backend, paged=args.paged,
                     block_size=args.block_size,
                     prefix_share=not args.no_prefix_share,
@@ -72,10 +74,6 @@ def synth_prompts(cfg, n: int, prompt_len: int, seed: int) -> np.ndarray:
 
 
 def _check_ported(args) -> None:
-    if args.buckets:
-        raise NotImplementedError(
-            "--buckets: length-bucketed prefill is ported with ROADMAP "
-            "Queue 1 item 4")
     if args.http or args.no_stream or args.endpoint is not None \
             or args.host != "127.0.0.1" or args.port != 8000:
         raise NotImplementedError(
@@ -135,7 +133,7 @@ def main(argv=None):
     ap.add_argument("--stagger", type=int, default=0,
                     help="submit N requests per tick instead of all upfront")
     ap.add_argument("--buckets", action="store_true",
-                    help="length-bucketed prefill (not ported: raises)")
+                    help="pad prompt groups to power-of-two length buckets")
     ap.add_argument("--cold", action="store_true",
                     help="start models spilled; promote on first request")
     ap.add_argument("--backend", default=None,

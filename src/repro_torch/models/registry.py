@@ -29,8 +29,6 @@ class FamilySpec:
     # -- capabilities ----------------------------------------------------------
     batched_prefill: bool = False   # whole prompt chunk in ONE decode_step
     padded_prefill: bool = False    # right-padded prefill token-identical
-    #   (declared as in the JAX package; the port's engine takes no length
-    #   buckets yet, so only the capability record and plan meta read it)
     paging: bool = False            # decode state can live in paged KV blocks
     pure_kv_state: bool = False     # decode state is a pure KV cache
     servable: bool = True           # InferenceEngine can serve this family

@@ -5,7 +5,7 @@ from repro_torch.models.registry import CapabilityFallbackWarning
 from repro_torch.serving.backends import (BACKENDS, DecodeBackend,
                                           PagedBackend, SlotBackend,
                                           SpecDecodeBackend, make_backend)
-from repro_torch.serving.engine import InferenceEngine
+from repro_torch.serving.engine import InferenceEngine, pow2_buckets
 from repro_torch.serving.multi import MultiModelServer
 from repro_torch.serving.paging import (BlockPool, blocks_for_rows,
                                         default_n_blocks)
@@ -19,7 +19,7 @@ from repro_torch.serving.stream import TokenStream
 __all__ = ["InferenceEngine", "MultiModelServer", "KVBudget", "PagedKVBudget",
            "RequestQueue", "Request", "Status", "SlotPool", "BlockPool",
            "blocks_for_rows", "default_n_blocks", "stack_trees",
-           "write_slots", "DecodeBackend", "SlotBackend", "PagedBackend",
-           "SpecDecodeBackend", "BACKENDS", "make_backend",
+           "write_slots", "pow2_buckets", "DecodeBackend", "SlotBackend",
+           "PagedBackend", "SpecDecodeBackend", "BACKENDS", "make_backend",
            "CapabilityFallbackWarning", "TokenStream", "SLO", "SLOPolicy",
            "FIFOPolicy", "OverloadedError", "PRIORITIES", "make_policy"]

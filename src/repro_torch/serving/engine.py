@@ -11,7 +11,9 @@ One engine serves one loaded model on one device.  Per tick (``step()``):
      starvation aging by default; strict FIFO with ``policy="fifo"``)
      while the backend's byte budget allows — each group of same-length
      prompts is prefilled in ONE batched call
-     (``make_prefill_into_cache``) and handed to the backend
+     (``make_prefill_into_cache``), or, with ``bucket_sizes``, each group
+     of prompts padded to the same length bucket
+     (``make_padded_prefill_into_cache``), and handed to the backend
      (``write_prefill``); preempted requests resume with prefill skipped,
   4. run ONE pooled decode step so every active request advances a token.
 
@@ -30,8 +32,8 @@ cannot support falls back (spec -> its inner -> slot) with a
 requested and the effective backend.
 
 Not ported yet (each raises ``NotImplementedError`` naming the later
-slice): length-bucketed prefill (``bucket_sizes``), shard-resident
-weights (``param_source``) and host-DRAM KV tiering (``tiered_kv``).
+slice): shard-resident weights (``param_source``) and host-DRAM KV
+tiering (``tiered_kv``).
 """
 
 from __future__ import annotations
@@ -53,9 +55,20 @@ from repro_torch.serving.backends import DecodeBackend, make_backend
 from repro_torch.serving.queue import RequestQueue
 from repro_torch.serving.request import Request, Status
 from repro_torch.serving.slo import SLO, OverloadedError, make_policy
-from repro_torch.training.train_loop import make_prefill_into_cache
+from repro_torch.training.train_loop import (make_padded_prefill_into_cache,
+                                             make_prefill_into_cache)
 
 _LATER = "is ported in a later slice of the PyTorch port"
+
+
+def pow2_buckets(max_seq: int) -> tuple[int, ...]:
+    """Power-of-two length buckets covering [1, max_seq]."""
+    out, b = [], 1
+    while b < max_seq:
+        out.append(b)
+        b *= 2
+    out.append(max_seq)
+    return tuple(out)
 
 
 class InferenceEngine:
@@ -90,9 +103,15 @@ class InferenceEngine:
         ('slot' by default, or 'paged') and takes ``draft_cfg`` /
         ``draft_params`` / ``draft_k`` (and ``verify_impl`` for a paged
         inner) — or a ``DecodeBackend`` instance built by the caller, used
-        as is (its capacity, max_seq and device must be the engine's)."""
-        if bucket_sizes is not None:
-            raise NotImplementedError(f"length-bucketed prefill {_LATER}")
+        as is (its capacity, max_seq and device must be the engine's).
+
+        ``bucket_sizes``: length buckets for prefill admission groups —
+        prompts are right-padded to the smallest bucket that holds them,
+        so prefill runs one shape per (group size, bucket).  A family
+        without ``padded_prefill`` falls back to exact-length groups with
+        a ``CapabilityFallbackWarning``; buckets past ``max_seq`` are
+        dropped, and a prompt longer than every bucket keeps its exact
+        length."""
         if param_source is not None:
             raise NotImplementedError(f"shard-resident weights {_LATER}")
         if tiered_kv:
@@ -128,6 +147,20 @@ class InferenceEngine:
         else:
             self.backend = self._injected_backend(backend, paged)
             self.requested_backend = backend.name
+        if bucket_sizes is not None and not spec.padded_prefill:
+            warnings.warn(
+                f"{cfg.name} ({cfg.family}): bucket_sizes requested but "
+                f"the family does not declare padded_prefill "
+                f"({spec.why_not('padded_prefill')}); falling back to "
+                "exact-length admission groups", CapabilityFallbackWarning,
+                stacklevel=2)
+            bucket_sizes = None
+        if bucket_sizes is not None:
+            bucket_sizes = [b for b in bucket_sizes if 0 < b <= max_seq]
+        self.bucket_sizes = (tuple(sorted(set(bucket_sizes)))
+                             if bucket_sizes else None)
+        self._padded_prefill = (make_padded_prefill_into_cache(
+            cfg, window=window) if self.bucket_sizes else None)
         self._active: dict[int, Request] = {}       # lane -> request
         self._tokens = np.zeros((capacity, 1, 1), np.int32)
         self.completed: deque[Request] = deque(maxlen=completed_cap)
@@ -260,7 +293,7 @@ class InferenceEngine:
         if req.prompt_len + req.max_new_tokens - 1 > self.max_seq:
             raise ValueError(
                 f"prompt+generation exceeds engine max_seq={self.max_seq}")
-        self.backend.admission_check(req, req.prompt_len)
+        self.backend.admission_check(req, self._bucket(req.prompt_len))
         if self.policy.pressure(self.queued_seconds()) >= 2 \
                 and hasattr(self.policy, "shed_tier"):
             waiting = [r for r in self.queue if not r.done]
@@ -389,6 +422,16 @@ class InferenceEngine:
                 del self._active[lane]
                 self._finish(req)
 
+    def _bucket(self, plen: int) -> int:
+        """Admission group key: the smallest bucket >= plen (the exact
+        length when bucketing is off or the prompt outgrows every
+        bucket)."""
+        if self.bucket_sizes:
+            for b in self.bucket_sizes:
+                if b >= plen:
+                    return b
+        return plen
+
     def _sweep_terminal_queued(self) -> None:
         """Retire queued entries that went terminal in place (cancelled or
         shed); a cancelled PREEMPTED request's snapshot is discarded."""
@@ -421,7 +464,7 @@ class InferenceEngine:
                 self._tokens[req.slot, 0, 0] = req.generated[-1]
                 self._active[req.slot] = req
                 continue
-            if not self.backend.reserve(req, req.prompt_len):
+            if not self.backend.reserve(req, self._bucket(req.prompt_len)):
                 break
             self.queue.remove(req)
             req.admit_time = self.clock()
@@ -429,20 +472,30 @@ class InferenceEngine:
             admitted.append(req)
         if not admitted:
             return admitted
-        # one batched prefill per same-length group
+        # one batched prefill per same-length group — or per same-bucket
+        # group when length bucketing is on (mixed plens share one padded
+        # call)
         by_len: dict[int, list[Request]] = {}
         for req in admitted:
-            by_len.setdefault(req.prompt_len, []).append(req)
+            by_len.setdefault(self._bucket(req.prompt_len), []).append(req)
         for plen, group in sorted(by_len.items()):
             states = self.backend.fresh_states(len(group), plen)
             t0 = self.clock()
-            tokens = torch.from_numpy(
-                np.stack([r.prompt for r in group]).astype(np.int64)
-            ).to(self.device)
-            logits, states = self._prefill(self.params, states, tokens)
+            tokens = torch.from_numpy(np.stack(
+                [np.pad(r.prompt, (0, plen - r.prompt_len)) for r in group]
+            ).astype(np.int64)).to(self.device)
+            if self.bucket_sizes:
+                lengths = torch.tensor([r.prompt_len for r in group],
+                                       dtype=torch.int64, device=self.device)
+                logits, states = self._padded_prefill(self.params, states,
+                                                      tokens, lengths)
+            else:
+                logits, states = self._prefill(self.params, states, tokens)
             first = torch.argmax(logits, dim=-1).cpu().numpy()  # syncs
             self.prefill_s += self.clock() - t0
             self.prefill_calls += 1
+            # true prompt tokens, not the padded bucket width — keeps
+            # prefill_tok_per_s comparable between bucketed and exact modes
             self.prefill_tokens += sum(r.prompt_len for r in group)
             self.backend.write_prefill(group, states)
             now = self.clock()
@@ -470,7 +523,8 @@ class InferenceEngine:
             return
         head = self.policy.order(waiting, now)[0]
         if head.status is not Status.PREEMPTED \
-                and not self.backend.can_admit_bytes(head, head.prompt_len):
+                and not self.backend.can_admit_bytes(
+                    head, self._bucket(head.prompt_len)):
             return
         running = [r for r in self._active.values()
                    if r.status is Status.RUNNING and not r.done]
@@ -586,7 +640,8 @@ class InferenceEngine:
             "n_preempted": self.n_preempted,
             "n_resumed": self.n_resumed,
             "n_shed": self.n_shed,
-            "bucket_sizes": None,
+            "bucket_sizes": list(self.bucket_sizes)
+                if self.bucket_sizes else None,
             "slot_bytes": self.slot_bytes,
             "kv_budget_bytes": self.backend.budget.budget_bytes,
             "kv_reserved_bytes": self.backend.budget.reserved_bytes,

@@ -116,6 +116,52 @@ def make_prefill_into_cache(cfg, *, window: Optional[int] = None):
     return prefill_steps
 
 
+def _rewind_index(state, delta):
+    """``state`` with every ``index`` leaf moved back by ``delta`` (the
+    JAX package's ``tree_map_with_path`` over keys named ``index``)."""
+    if isinstance(state, dict):
+        return {k: (v - delta if k == "index" else _rewind_index(v, delta))
+                for k, v in state.items()}
+    return state
+
+
+def make_padded_prefill_into_cache(cfg, *, window: Optional[int] = None):
+    """Length-bucketed prefill: consume right-padded ``(n, bucket)`` prompts
+    whose true lengths are ``lengths`` ((n,) int64), returning each row's
+    logits at position ``length - 1`` and a state whose cache index is
+    rewound to ``lengths`` — one write index per lane, where the JAX
+    package vmaps the prefill over batch-1 states and rewinds each.
+
+    Correctness rests on the same two properties as in the JAX package:
+    the causal chunk mask keeps positions ``< length`` off the pad tail
+    (masked scores get exactly zero weight), so the returned logits match
+    an exact-length prefill; and decode attention masks keys at
+    ``kvpos > qpos`` (contiguous) or past the lane's length (paged), so
+    the pad tail's KV rows at ``[length, bucket)`` are never read before
+    decode overwrites them.  Engines then prefill one shape per
+    ``(n, bucket)`` instead of per ``(n, plen)``.
+
+    Dense attention families only: recurrent and hybrid states advance
+    through every consumed token and cannot be rewound past the pad tail.
+    """
+    if not registry.spec(cfg).padded_prefill:
+        raise ValueError(
+            f"{cfg.name} ({cfg.family}): padded prefill needs a rewindable "
+            "KV cache and per-token-independent mixing "
+            f"({registry.spec(cfg).why_not('padded_prefill')}); this "
+            "family must prefill at exact length")
+
+    @torch.no_grad()
+    def prefill(params, state, tokens, lengths):
+        logits, state = api.decode_step(cfg, params, state, tokens,
+                                        window=window)
+        rows = torch.arange(tokens.shape[0], device=tokens.device)
+        last = logits[rows, lengths - 1]
+        return last, _rewind_index(state, tokens.shape[1] - lengths)
+
+    return prefill
+
+
 def make_paged_decode_step(cfg, *, window: Optional[int] = None, impl=None):
     """One-token greedy decode through per-lane KV block tables.
 

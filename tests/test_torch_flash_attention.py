@@ -23,6 +23,7 @@ on a machine with a card but no JAX the CUDA cases still run
 tests/test_torch_flash_attention.py``).
 """
 
+import _torch_threads  # noqa: F401  (one torch thread per xdist worker)
 from types import SimpleNamespace
 
 import numpy as np

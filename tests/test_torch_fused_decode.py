@@ -38,6 +38,7 @@ package's.
   repeating bit for bit.
 """
 
+import _torch_threads  # noqa: F401  (one torch thread per xdist worker)
 import functools
 from types import SimpleNamespace
 

@@ -8,6 +8,7 @@ contiguous cache) and three ``paged_decode_step`` logits must agree within
 (f32 products summed in another order by XLA and by PyTorch).
 """
 
+import _torch_threads  # noqa: F401  (one torch thread per xdist worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -23,6 +23,7 @@ across packages only where no measured time decides it: under
 before the first step.
 """
 
+import _torch_threads  # noqa: F401  (one torch thread per xdist worker)
 import functools
 
 import jax

@@ -24,6 +24,7 @@ so on a machine with a card but no JAX the CUDA cases still run
 (``python -m pytest --noconftest -m cuda tests/test_torch_paged_verify.py``).
 """
 
+import _torch_threads  # noqa: F401  (one torch thread per xdist worker)
 from types import SimpleNamespace
 
 import numpy as np

@@ -16,6 +16,7 @@ planning, against the JAX package's.
   and without facts.
 """
 
+import _torch_threads  # noqa: F401  (one torch thread per xdist worker)
 import json
 import warnings
 

@@ -13,6 +13,7 @@ must fall back to slot with a ``CapabilityFallbackWarning`` and the same
 summary fields as the JAX engine.
 """
 
+import _torch_threads  # noqa: F401  (one torch thread per xdist worker)
 import warnings
 
 import jax

@@ -5,14 +5,17 @@
   ``xlstm-350m`` smoke, ``--stagger 1``, with and without ``--cold``) it
   prints the JAX CLI's JSON keys, the JAX engine summary's keys (and the
   serving device), a ``schedule`` that interleaves both names, and every
-  request with its tokens; ``--cold`` reports the promotion; the admission policy and
-  SLO flags reach the engines; ``--buckets`` and ``--http`` raise naming
-  their ROADMAP items.
+  request with its tokens; ``--cold`` reports the promotion; the
+  admission policy and SLO flags reach the engines; ``--buckets`` plans
+  and serves as the JAX CLI does (plan meta, engines' buckets and prefill
+  calls; the recurrent model falls back); ``--http`` and its flags raise
+  naming their ROADMAP item.
 * ``python -m repro_torch.profiler --smoke --device cpu`` plans and runs
   one train + serve session without and with fresh quick facts: the
   provenance differs and survives JSON, the tokens are identical.
 """
 
+import _torch_threads  # noqa: F401  (one torch thread per xdist worker)
 import json
 import sys
 
@@ -87,13 +90,51 @@ def test_single_model_cli_with_slo_flags(capsys):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--buckets"], "item 4"), (["--http"], "item 9"),
+    (["--http"], "item 9"),
     (["--port", "0"], "item 9"), (["--no-stream"], "item 9"),
     (["--endpoint", "chat"], "item 9"),
 ])
 def test_unported_cli_flags_raise_naming_their_item(flags, item, capsys):
     with pytest.raises(NotImplementedError, match=item):
         _run_port(["--arch", "qwen3-0.6b", "--smoke"] + flags, capsys)
+
+
+def test_buckets_flag_plans_and_serves_as_the_jax_cli(capsys, monkeypatch):
+    """``--buckets`` means ``bucket_sizes="pow2"``: each job's plan meta
+    equals the one the JAX CLI builds from the same arguments (the
+    recurrent model's with its fallback reason), and both CLIs' engines
+    report the same buckets and prefill calls."""
+    from repro.api import Session as JSession
+    from repro.core.sharp import HydraConfig as JHydraConfig
+    from repro.launch import serve as jserve
+    from repro_torch.api import HydraConfig, Session
+    argv = FLAGS + ["--buckets", "--backend", "paged", "--block-size", "8"]
+    seen = {}
+    monkeypatch.setattr(pserve, "serve", lambda a: seen.update(a=a) or {})
+    pserve.main(argv + ["--device", "cpu"])
+    monkeypatch.undo()
+    capsys.readouterr()
+    args = seen["a"]
+    ps = Session(HydraConfig(), device="cpu", profile=None)
+    js = JSession(JHydraConfig(), profile=None)
+    for arch in args.arch.split(","):
+        ps.submit(pserve.build_serve_job(arch, args))
+        js.submit(jserve.build_serve_job(arch, args))
+    metas = [json.loads(json.dumps([j.meta for j in s.plan().jobs],
+                                   default=float)) for s in (ps, js)]
+    assert metas[0] == metas[1]
+    assert metas[0][0]["bucket_sizes"] == [1, 2, 4, 8, 16, 25]
+    assert metas[0][1]["bucket_sizes"] is None
+    assert "rewound" in metas[0][1]["capability_fallbacks"]["bucket_sizes"]
+    out = _run_port(argv, capsys)
+    jout = _run_jax(argv, capsys, monkeypatch)
+    for name in ("qwen3-0.6b", "xlstm-350m"):
+        eng, jeng = out["engines"][name], jout["engines"][name]
+        for key in ("bucket_sizes", "prefill_calls", "backend",
+                    "requested_backend", "n_completed"):
+            assert eng[key] == jeng[key], (name, key)
+    assert out["engines"]["qwen3-0.6b"]["bucket_sizes"] == \
+        [1, 2, 4, 8, 16, 25]
 
 
 def test_profiler_smoke_on_the_cpu(tmp_path, capsys):

@@ -11,6 +11,7 @@ outside garbage block 0, which every inactive lane writes in an
 unspecified order.
 """
 
+import _torch_threads  # noqa: F401  (one torch thread per xdist worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

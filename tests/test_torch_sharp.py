@@ -16,6 +16,7 @@ sequential reference at rtol = atol = 3e-4, the reference's
 model into at least two shards.
 """
 
+import _torch_threads  # noqa: F401  (one torch thread per xdist worker)
 import random
 
 import jax

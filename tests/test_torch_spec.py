@@ -22,6 +22,7 @@ copy-on-writes):
 * the default backend resolves as the JAX engine's does.
 """
 
+import _torch_threads  # noqa: F401  (one torch thread per xdist worker)
 import functools
 import warnings
 

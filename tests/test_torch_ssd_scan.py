@@ -32,6 +32,7 @@ package's.
   JAX is missing.
 """
 
+import _torch_threads  # noqa: F401  (one torch thread per xdist worker)
 from types import SimpleNamespace
 
 import numpy as np

@@ -10,6 +10,7 @@ matmul chains (blocks, whole models, decode over several steps), the
 another order by XLA and by PyTorch.
 """
 
+import _torch_threads  # noqa: F401  (one torch thread per xdist worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

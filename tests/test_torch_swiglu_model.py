@@ -30,6 +30,7 @@ that are no multiple of the kernel's 16-byte vectors and with x and w of
 different dtypes.
 """
 
+import _torch_threads  # noqa: F401  (one torch thread per xdist worker)
 import numpy as np
 import pytest
 import torch

@@ -15,6 +15,7 @@ version) a forward matches, and a gradient raises in both packages: the
 JAX package cannot differentiate its Pallas kernel.
 """
 
+import _torch_threads  # noqa: F401  (one torch thread per xdist worker)
 import jax
 import jax.numpy as jnp
 import numpy as np
