@@ -174,15 +174,44 @@ Phases (any failure exits non-zero before the result line):
    empty, each bucketed group's first-token logits at most LOGIT_REL x as
    far from an f32 exact-length prefill as the bf16 exact-length prefill
    is; prefill tok/s (true tokens) and distinct prefill shapes both ways;
-   small f32 engines (slot and paged, bucketed and exact) token-identical.
+   small f32 engines (slot and paged, bucketed and exact) token-identical;
+20. tiered memory — (a) phase 4's requests as ``priority="low"`` on 8
+   lanes (the prefix sharers submitted last, so they are the first
+   victims), a ledger budget of their reservations plus one block less
+   than 4 ``priority="high"`` 256-token requests need, the highs arriving
+   after 3 steps; untiered, then ``tiered_kv=True`` (eager demotion on
+   preempt, ``prefetch_ticks=1``).  Gates: more peak live requests tiered;
+   ``kv_demoted_bytes`` > 0 and equal to ``kv_prefetched_bytes``; every
+   demoted block's rows, cloned just before demotion, equal its pages
+   element for element after its prefetch lands; after every step the
+   host pool equals the ledger's host term and the ledger is in budget;
+   no shared, indexed or prefix block demotes; everything drains; the
+   paged kernel launches decode_steps x 28.  (b) the pressure path:
+   ``SLOPolicy(demote_on_preempt=False)``, prefix sharing off, a fifth
+   640-token high — only ``relieve_pressure`` demotes, and the long high's
+   first token comes at an earlier decode step than untiered; (a)'s other
+   gates.  (c) (a)'s tiered run over an int8 pool: rows and scales round
+   trip, the int8 kernel launches decode_steps x 28.  The page moves
+   alone: 64 blocks down and up through a fresh host pool, D2H / H2D GB/s
+   by the side stream's events.  (d) three full-width models (seeds 0-2)
+   in pinned host stores of >= 4 shards, one ledger of twice the model
+   bytes plus KV slack, ``hot_bytes`` half a model, one request each,
+   stepped round robin: tokens equal each model's fully resident engine,
+   more models hold hot shards than whole models fit, shards stream,
+   between ticks ``memory_allocated`` over the baseline is exactly the hot
+   shards' tensors, the ledger drains; the in-tick allocated peak beside
+   the ledger's, streamed-shard GB/s.  (e) (a) and (d) at the smoke shape
+   in f32: token-identical to decoding each prompt alone.
 
 Each kernel's launch count is zeroed just before the run of its own path
 (a serve run, the spilled eval, the profiler's ``build_facts`` for
 RMSNorm and SwiGLU, the zamba2 kernel forward for the SSD scan; the
-paged kernel's again before phase 17's session run and phase 19's serve
-runs) and read just after;
+paged kernel's again before phase 17's session run, phase 19's serve
+runs and each of phase 20's tiered runs, the int8 kernel's before phase
+20 (c)) and read just after;
 the kernel line reports it with the kernel's numbers at that path's
-inputs.
+inputs, and the paged and int8 kernels' launches on the tiered path
+(phase 20 (a) tiered, (c)) as ``tiered_launches``.
 
 The second-to-last lines are a JSON object of per-kernel numbers and the
 card's ``nvidia-smi`` name/power line; the last line is
@@ -3275,13 +3304,663 @@ def phase_small_bucketed_f32():
     return res
 
 
-def kernel_entry(name, source, replaces, launches, m):
+# ---------------------------------------------------------------------------
+# phase 20: tiered memory — KV pages demoted to host DRAM and prefetched
+# back, and shard-resident serve weights
+# ---------------------------------------------------------------------------
+
+TIER_HIGH_PLEN, TIER_HIGH_GEN, TIER_N_HIGH = 256, 8, 4
+TIER_BIG_PLEN = 640      # (b)'s fifth high needs more than a high frees
+TIER_LOW_ORDER = (2, 3, 4, 5, 6, 7, 0, 1)    # the prefix sharers last
+
+
+def tier_high_prompts(vocab, n, plen=TIER_HIGH_PLEN, seed=20):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab, plen, dtype=np.int32) for _ in range(n)]
+
+
+class PageAudit:
+    """Watches a tiered engine's host pool: each block's rows are cloned on
+    the device just before they are demoted (and the block checked to be
+    private and outside ``prefix``), and compared element by element with
+    the clone once its prefetch has landed — on the compute stream after
+    its wait on the copy, so a copy the stream were not ordered after
+    would show.  Mismatches accumulate on the device (no host sync in the
+    run) and are read at the end."""
+
+    def __init__(self, eng, prefix):
+        import torch
+        be, pool = eng.backend, eng.backend.host_pool
+        self.clones, self.landing = {}, {}
+        self.bad = torch.zeros((), dtype=torch.int64, device=eng.device)
+        self.prefix_demoted, self.shared_demoted = [], []
+        self.demoted, self.landed = 0, 0
+        demote, prefetch, land = pool.demote, pool.prefetch, pool.land
+
+        def audited_demote(pages, bids):
+            self.prefix_demoted += [b for b in bids if b in prefix]
+            self.shared_demoted += [b for b in bids
+                                    if be.pool.ref(b) != 1 or b in be._rev]
+            rows = [{n: p[:, b].clone() for n, p in pages.items()}
+                    for b in bids]
+            keys = demote(pages, bids)
+            self.clones.update(zip(keys, rows))
+            self.demoted += len(keys)
+            return keys
+
+        def audited_prefetch(pages, keys, bids):
+            fetch = prefetch(pages, keys, bids)
+            self.landing[id(fetch)] = list(zip(keys, bids))
+            return fetch
+
+        def audited_land(fetch):
+            done = land(fetch)
+            for key, bid in self.landing.pop(id(fetch), ()):
+                want = self.clones.pop(key)
+                for n, p in be.pool.pages.items():
+                    self.bad += (p[:, bid] != want[n]).sum()
+                self.landed += 1
+            return done
+
+        pool.demote, pool.prefetch, pool.land = (
+            audited_demote, audited_prefetch, audited_land)
+
+
+def tiered_kv_run(cfg, params, lows, highs, label, *, tiered, device,
+                  kv_dtype=None, policy="slo", prefix_share=True,
+                  counter=None):
+    """Phase 4's requests as ``priority="low"`` (the prefix sharers
+    submitted last, so they are the first victims) on CAPACITY lanes; the
+    ledger budget, set once the lows hold their reservations, is those
+    plus one block less than the first TIER_N_HIGH highs need; after 3
+    steps ``highs`` arrive as ``priority="high"``.  After every step the
+    host pool and the ledger's host term must agree and the ledger stay
+    in budget; at the end every request has its tokens and every tier is
+    back at zero."""
+    import torch
+
+    from repro_torch.core.spilling import DeviceMemory
+    from repro_torch.models.registry import spec as family_spec
+    from repro_torch.serving.engine import InferenceEngine
+    from repro_torch.serving.paging import blocks_for_rows
+
+    bb = family_spec(cfg).kv_block_bytes(cfg, BS, kv_dtype)
+    max_seq = max(len(p) for p in lows + highs) + GEN
+    ledger = DeviceMemory(-1, budget_bytes=2**62)
+    eng = InferenceEngine(cfg, params, capacity=CAPACITY, max_seq=max_seq,
+                          backend="paged", block_size=BS, ledger=ledger,
+                          kv_dtype=kv_dtype, tiered_kv=tiered,
+                          prefetch_ticks=1, policy=policy,
+                          prefix_share=prefix_share, device=device)
+    reqs = {f"low{i}": eng.submit(lows[i], GEN, request_id=f"low{i}",
+                                  priority="low") for i in TIER_LOW_ORDER}
+    cuda = device == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    if counter is not None:
+        counter.launches = 0             # count this run only
+    checks = {"steps": 0, "host_mismatch": 0, "over_budget": 0}
+    audit = None
+    first_tick = {}
+
+    def step():
+        more = eng.step()
+        checks["steps"] += 1
+        if tiered and eng.backend.host_pool.used_bytes() \
+                != ledger.host_kv_bytes:
+            checks["host_mismatch"] += 1
+        if ledger.used_bytes() > ledger.budget:
+            checks["over_budget"] += 1
+        for rid, r in reqs.items():
+            if rid not in first_tick and r.generated:
+                first_tick[rid] = eng.decode_steps
+        return more
+
+    t0 = time.perf_counter()
+    step()                               # admits every low
+    if any(r.status.value != "running" for r in reqs.values()):
+        fail(f"{label}: the {len(lows)} lows were not all admitted at once")
+    need = sum(blocks_for_rows(max(blocks_for_rows(len(h), BS) * BS,
+                                   len(h) + TIER_HIGH_GEN - 1), BS)
+               for h in highs[:TIER_N_HIGH])
+    ledger.budget = ledger.kv_reserved_bytes + (need - 1) * bb
+    prefix = set(eng.backend._lane_blocks[reqs["low0"].slot][:256 // BS])
+    if tiered:
+        audit = PageAudit(eng, prefix)
+    step()
+    step()
+    for k, h in enumerate(highs):
+        reqs[f"high{k}"] = eng.submit(h, TIER_HIGH_GEN,
+                                      request_id=f"high{k}",
+                                      priority="high", deadline_ms=60_000.0)
+    while step():
+        pass
+    if cuda:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    s = eng.summary()
+    for rid, r in reqs.items():
+        want = GEN if rid.startswith("low") else TIER_HIGH_GEN
+        if r.status.value != "finished" or len(r.generated) != want:
+            fail(f"{label} {rid}: {len(r.generated)} tokens, status "
+                 f"{r.status.value}")
+    be = eng.backend
+    res = {k: s.get(k) for k in (
+        "peak_live_requests", "peak_concurrency", "n_preempted",
+        "n_resumed", "decode_steps", "block_bytes", "kv_demoted_bytes",
+        "kv_prefetched_bytes", "host_pool_peak_blocks", "host_slab_bytes",
+        "prefetch_hits", "prefetch_misses", "prefetch_hit_rate",
+        "prefetch_copy_done_at_landing", "decode_tok_per_s",
+        "kv_peak_bytes")}
+    res.update(
+        label=label, tiered=tiered, kv_dtype=kv_dtype or "fp",
+        n_layers=cfg.n_layers, prefix_share=prefix_share,
+        budget_bytes=ledger.budget, wall_s=wall, first_tick=first_tick,
+        launches=None if counter is None else counter.launches,
+        tokens={rid: r.generated for rid, r in reqs.items()},
+        preempted=sorted(rid for rid, r in reqs.items() if r.preemptions),
+        drained=(ledger.kv_reserved_bytes == 0 and ledger.host_kv_bytes == 0
+                 and eng.pool.refcounts() == {}
+                 and eng.pool.n_free == eng.pool.n_allocatable
+                 and (not tiered or be.host_pool.n_blocks == 0)),
+        **checks)
+    if cuda:
+        res["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    if tiered:
+        res.update(demoted_blocks=audit.demoted, landed_blocks=audit.landed,
+                   mismatched_elements=int(audit.bad),
+                   prefix_demoted=audit.prefix_demoted,
+                   shared_demoted=audit.shared_demoted,
+                   demote_on_preempt=eng._demote_on_preempt)
+        if cuda:
+            res["rates"] = be.host_pool.transfer_rates()
+    return res
+
+
+def page_move_rates(pool_pages, block_bytes, n_blocks=64, repeats=3):
+    """The page-move machinery alone: ``n_blocks`` blocks of a serve pool
+    demoted through a fresh ``HostBlockPool`` and prefetched back, timed
+    by its side-stream events; the median of ``repeats`` of each
+    direction."""
+    import statistics
+
+    import torch
+
+    from repro_torch.serving.paging import HostBlockPool
+    pool = HostBlockPool(pool_pages, block_bytes)
+    bids = list(range(1, n_blocks + 1))
+    d2h, h2d = [], []
+    for _ in range(repeats):
+        keys = pool.demote(pool_pages, bids)
+        pool.land(pool.prefetch(pool_pages, keys, bids))
+        rates = pool.transfer_rates()
+        pool.transfers.clear()
+        d2h.append(rates["d2h"]["gb_per_s"])
+        h2d.append(rates["h2d"]["gb_per_s"])
+    torch.cuda.synchronize()
+    return {"blocks": n_blocks, "bytes": n_blocks * block_bytes,
+            "d2h_gb_per_s": statistics.median(d2h),
+            "h2d_gb_per_s": statistics.median(h2d),
+            "slab_bytes": pool.slab_bytes()}
+
+
+def tier_gates(label, res, base=None, prefix_gate=True):
+    """The gates every tiered KV run shares; ``base`` (the untiered run of
+    the same requests) for the live-request comparison."""
+    if res["host_mismatch"] or res["over_budget"]:
+        fail(f"{label}: host pool and ledger disagreed after "
+             f"{res['host_mismatch']} step(s), over budget after "
+             f"{res['over_budget']}")
+    if not res["kv_demoted_bytes"] or \
+            res["kv_demoted_bytes"] != res["kv_prefetched_bytes"]:
+        fail(f"{label}: kv_demoted_bytes {res['kv_demoted_bytes']} vs "
+             f"kv_prefetched_bytes {res['kv_prefetched_bytes']}")
+    if res["mismatched_elements"] or \
+            res["landed_blocks"] != res["demoted_blocks"]:
+        fail(f"{label}: {res['landed_blocks']} of {res['demoted_blocks']} "
+             f"demoted blocks landed, {res['mismatched_elements']} elements"
+             f" differ from the rows before demotion")
+    if res["shared_demoted"]:
+        fail(f"{label}: shared or indexed blocks demoted: "
+             f"{res['shared_demoted']}")
+    if prefix_gate and (res["prefix_demoted"] or not {"low0", "low1"}
+                        & set(res["preempted"])):
+        fail(f"{label}: prefix blocks demoted {res['prefix_demoted']} "
+             f"(preempted {res['preempted']})")
+    if not res["drained"]:
+        fail(f"{label}: the pool, ledger or host pool did not drain")
+    if res["launches"] is not None and \
+            res["launches"] != res["decode_steps"] * res["n_layers"]:
+        fail(f"{label}: the decode kernel launched {res['launches']} times; "
+             f"expected decode_steps x layers = "
+             f"{res['decode_steps'] * res['n_layers']}")
+    if base is not None and \
+            res["peak_live_requests"] <= base["peak_live_requests"]:
+        fail(f"{label}: {res['peak_live_requests']} peak live requests, "
+             f"untiered {base['peak_live_requests']}")
+
+
+def tier_line(res):
+    rates = res.get("rates", {})
+    d2h, h2d = rates.get("d2h", {}), rates.get("h2d", {})
+    return (f"peak_live_requests {res['peak_live_requests']}, preempted "
+            f"{res['n_preempted']} resumed {res['n_resumed']}, decode_steps "
+            f"{res['decode_steps']}, launches {res['launches']}, budget "
+            f"{res['budget_bytes']} B, kv_demoted_bytes "
+            f"{res['kv_demoted_bytes']} kv_prefetched_bytes "
+            f"{res['kv_prefetched_bytes']} ({res.get('demoted_blocks')} "
+            f"blocks), host_slab_bytes {res['host_slab_bytes']}, prefetch "
+            f"hits {res['prefetch_hits']} misses {res['prefetch_misses']} "
+            f"hit_rate {res['prefetch_hit_rate']} copy_done_at_landing "
+            f"{res['prefetch_copy_done_at_landing']}, d2h "
+            f"{d2h.get('gb_per_s')} GB/s over {d2h.get('bytes')} B, h2d "
+            f"{h2d.get('gb_per_s')} GB/s over {h2d.get('bytes')} B, wall "
+            f"{res['wall_s']:.3f} s, decode {res['decode_tok_per_s']} tok/s")
+
+
+def phase_tiered_kv(cfg, params, smi, device="cuda"):
+    """(a) byte-blocked preemption untiered, then tiered (eager demotion);
+    (b) the pressure path — eager demotion off, a fifth, longer high, no
+    prefix sharing — untiered, then tiered; (c) (a)'s tiered run over an
+    int8 pool; the page-move rate of 64 blocks alone."""
+    import torch
+
+    from repro_torch.kernels.paged_attention import (
+        paged_attention_lanes, paged_attention_quant_lanes)
+    from repro_torch.serving.slo import SLOPolicy
+
+    cuda = device == "cuda"
+    lows = serve_prompts(cfg.vocab_size)
+    highs = tier_high_prompts(cfg.vocab_size, TIER_N_HIGH)
+    big = tier_high_prompts(cfg.vocab_size, 1, TIER_BIG_PLEN, seed=21)
+    fp = paged_attention_lanes if cuda else None
+    q8 = paged_attention_quant_lanes if cuda else None
+    out = {}
+
+    # (a)
+    base = tiered_kv_run(cfg, params, lows, highs, "tier (a) untiered",
+                         tiered=False, device=device, counter=fp)
+    tier = tiered_kv_run(cfg, params, lows, highs, "tier (a) tiered",
+                         tiered=True, device=device, counter=fp)
+    tier_gates("tier (a)", tier, base)
+    same = sum(tier["tokens"][k] == base["tokens"][k] for k in base["tokens"])
+    log(f"[tier (a)] untiered: {tier_line(base)}")
+    log(f"[tier (a)] tiered: {tier_line(tier)}; tokens equal to untiered "
+        f"for {same} of {len(base['tokens'])} requests (bf16: reported, "
+        f"not gated) ({smi})")
+    out["a"] = {"untiered": base, "tiered": tier, "same_tokens": same}
+
+    # (b)
+    kw = dict(device=device, counter=fp, prefix_share=False)
+    base_b = tiered_kv_run(cfg, params, lows, highs + big,
+                           "tier (b) untiered", tiered=False, **kw)
+    tier_b = tiered_kv_run(cfg, params, lows, highs + big,
+                           "tier (b) tiered", tiered=True,
+                           policy=SLOPolicy(demote_on_preempt=False), **kw)
+    tier_gates("tier (b)", tier_b, prefix_gate=False)
+    big_id = f"high{TIER_N_HIGH}"
+    if tier_b["demote_on_preempt"] or \
+            tier_b["first_tick"][big_id] >= base_b["first_tick"][big_id]:
+        fail(f"tier (b): the long high's first token came at decode step "
+             f"{tier_b['first_tick'][big_id]} tiered vs "
+             f"{base_b['first_tick'][big_id]} untiered (demote_on_preempt "
+             f"{tier_b['demote_on_preempt']})")
+    log(f"[tier (b)] pressure path (demote_on_preempt=False, prefix "
+        f"sharing off, a {TIER_BIG_PLEN}-token fifth high): the long high's "
+        f"first token at decode step {tier_b['first_tick'][big_id]} vs "
+        f"{base_b['first_tick'][big_id]} untiered; tiered: "
+        f"{tier_line(tier_b)}")
+    out["b"] = {"untiered": base_b, "tiered": tier_b}
+
+    # (c)
+    tier_c = tiered_kv_run(cfg, params, lows, highs, "tier (c) int8",
+                           tiered=True, kv_dtype="int8", device=device,
+                           counter=q8)
+    tier_gates("tier (c)", tier_c)
+    log(f"[tier (c)] int8 pool (rows and scales round-trip): "
+        f"{tier_line(tier_c)}")
+    out["c"] = tier_c
+
+    if cuda:
+        from repro_torch.models import api
+        pages = api.init_kv_pages(cfg, 65, BS, device)
+        bb = tier["block_bytes"]
+        out["page_moves"] = page_move_rates(pages, bb)
+        del pages
+        m = out["page_moves"]
+        log(f"[tier] page moves alone: {m['blocks']} blocks ({m['bytes']} "
+            f"B): d2h {m['d2h_gb_per_s']:.2f} GB/s, h2d "
+            f"{m['h2d_gb_per_s']:.2f} GB/s (pinned slab {m['slab_bytes']} "
+            f"B; median of 3) ({smi})")
+        torch.cuda.empty_cache()
+    return out
+
+
+TIER_MODELS, TIER_MIN_SHARDS, TIER_WEIGHT_GEN = 3, 4, 16
+
+
+def tier_partition(cfg, host, plan, max_seq, min_shards):
+    """The serve partition of the largest budget — four times the
+    parameter bytes, then 4/5 of that, and so on — that cuts at least
+    ``min_shards`` shards."""
+    from repro_torch.core import partitioner as pt
+    from repro_torch.core.partitioner import tree_bytes
+    budget = 4 * tree_bytes(host)
+    while True:
+        try:
+            part = pt.partition(cfg, host, plan, budget_bytes=budget,
+                                batch=1, seq=max_seq, train=False)
+        except MemoryError:         # a segment alone exceeds the budget
+            fail(f"no partition of {cfg.name} cut {min_shards} shards")
+        if len(part.shards) >= min_shards:
+            return part
+        budget = budget * 4 // 5
+
+
+def phase_tiered_weights(cfg, smi, device="cuda", seeds=range(TIER_MODELS),
+                         gen=TIER_WEIGHT_GEN, min_shards=TIER_MIN_SHARDS):
+    """(d) shard-resident weights: one model per seed, each partitioned
+    into >= ``min_shards`` shards in a pinned host store, served under ONE
+    ledger of twice the model bytes plus KV slack with ``hot_bytes`` = half
+    the model, capacity 1 and one request each, the engines stepped round
+    robin.  Gates: tokens equal to a fully resident paged engine of the
+    same params; more models holding hot shards at once than the budget
+    holds whole; streamed bytes > 0; between ticks the device holds
+    exactly the hot shards' tensors: the caching allocator's
+    ``requested_bytes`` (the sizes asked for, before its rounding) after
+    each tick, less its reading once every model is drained, equal their
+    bytes to the byte (``memory_allocated``, which rounds each block up
+    to 512 B and keeps a cached large block whole when less than 1 MiB
+    would be left, is reported beside it); the ledger drains to 0."""
+    import torch
+
+    from repro_torch.core import shard_graph as sg
+    from repro_torch.core.spilling import DeviceMemory, HostModelStore
+    from repro_torch.models import api
+    from repro_torch.models.registry import spec as family_spec
+    from repro_torch.optim.optimizers import OptimizerConfig
+    from repro_torch.serving.engine import InferenceEngine
+    from repro_torch.serving.paging import blocks_for_rows
+    from repro_torch.serving.residency import (ResidencyCoordinator,
+                                               ShardResidentParams)
+
+    cuda = device == "cuda"
+    prompt = serve_prompts(cfg.vocab_size)[0]
+    max_seq = len(prompt) + gen
+    plan = sg.build_plan(cfg)
+    t0 = time.perf_counter()
+    stores, refs, part = [], [], None
+    for seed in seeds:
+        gen_ = torch.Generator(device).manual_seed(seed)
+        params = api.init_params(cfg, gen_, device)
+        eng = InferenceEngine(cfg, params, capacity=1, max_seq=max_seq,
+                              backend="paged", block_size=BS, policy="fifo",
+                              device=device)
+        r = eng.submit(prompt, gen)
+        eng.run()
+        refs.append({"tokens": r.generated,
+                     "decode_tok_per_s": eng.summary()["decode_tok_per_s"]})
+        del eng
+        if part is None:
+            part = tier_partition(cfg, sg.prepare_host_params(cfg, params),
+                                  plan, max_seq, min_shards)
+        # sgd: one moment beside the params (the store keeps optimizer
+        # state; serving never reads it)
+        stores.append(HostModelStore(cfg, plan, params,
+                                     OptimizerConfig(kind="sgd",
+                                                     grad_clip=0.0),
+                                     part, device=device))
+        del params
+    setup_s = time.perf_counter() - t0
+    model_bytes = sum(stores[0].shard_transfer_bytes(s, train=False)
+                      for s in part.shards)
+    kv_slack = (blocks_for_rows(max_seq, BS) + 1) * TIER_MODELS * \
+        family_spec(cfg).kv_block_bytes(cfg, BS)
+    budget = 2 * model_bytes + kv_slack
+    ledger = DeviceMemory(-1, budget_bytes=budget)
+    coord = ResidencyCoordinator(ledger)
+    sources, engines, reqs = [], [], []
+    for i, store in enumerate(stores):
+        src = ShardResidentParams(cfg, store, part, ledger,
+                                  hot_bytes=model_bytes // 2,
+                                  name=f"{cfg.name}#{i}")
+        coord.register(src)
+        eng = InferenceEngine(cfg, None, capacity=1, max_seq=max_seq,
+                              backend="paged", block_size=BS, ledger=ledger,
+                              policy="fifo", model_name=src.name,
+                              param_source=src, device=device)
+        sources.append(src)
+        engines.append(eng)
+        reqs.append(eng.submit(prompt, gen))
+    peak_ledger = 0
+    for src in sources:
+        begin = src.begin_tick
+
+        def wrapped(begin=begin):
+            nonlocal peak_ledger
+            out = begin()
+            peak_ledger = max(peak_ledger, ledger.used_bytes())
+            return out
+        src.begin_tick = wrapped
+
+    def requested():
+        return torch.cuda.memory_stats()["requested_bytes.all.current"]
+
+    if cuda:
+        torch.cuda.synchronize()
+        before_gc = torch.cuda.memory_allocated()
+        gc.collect()        # the reference engines' cycles, before the base
+        base_alloc = torch.cuda.memory_allocated()
+        log(f"[tier (d)] allocated before the first tick {base_alloc} B "
+            f"({before_gc - base_alloc} B freed by gc.collect)")
+        torch.cuda.reset_peak_memory_stats()
+    peak_resident, ticks, readings = 0, 0, []
+    t0 = time.perf_counter()
+    while any(e.has_work() for e in engines):
+        for eng in engines:
+            if eng.has_work():
+                eng.step()
+                ticks += 1
+                if cuda:
+                    readings.append((ticks, requested(), sum(
+                        s.held_device_bytes() for s in sources)))
+        peak_resident = max(peak_resident, sum(
+            1 for s in sources if s.hot_resident_bytes > 0))
+    if cuda:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    res = {"models": len(sources), "n_shards": len(part.shards),
+           "model_bytes": model_bytes, "budget_bytes": budget,
+           "whole_model_fit": budget // model_bytes,
+           "peak_resident_models": peak_resident, "ticks": ticks,
+           "setup_s": setup_s, "wall_s": wall,
+           "peak_ledger_in_tick": peak_ledger,
+           "stream_promoted_bytes": sum(s.stream_promoted_bytes
+                                        for s in sources),
+           "n_hot_demotions": sum(s.n_hot_demotions for s in sources),
+           "hot_shards": [sorted(s._hot) for s in sources],
+           "hot_device_bytes": [s.held_device_bytes() for s in sources],
+           "decode_tok_per_s": [e.summary()["decode_tok_per_s"]
+                                for e in engines],
+           "resident_decode_tok_per_s": [r["decode_tok_per_s"]
+                                         for r in refs],
+           "tokens_equal": [r.generated == ref["tokens"]
+                            for r, ref in zip(reqs, refs)]}
+    if cuda:
+        res["in_tick_peak_bytes"] = torch.cuda.max_memory_allocated() \
+            - base_alloc
+        res["allocated_over_held"] = torch.cuda.memory_allocated() \
+            - base_alloc - sum(res["hot_device_bytes"])
+        res["stream_rates"] = [s.transfer_rates() for s in sources]
+    for s in sources:
+        s.demote_all()
+    res["ledger_drained"] = ledger.used_bytes() == 0 and \
+        ledger.host_kv_bytes == 0
+    residency_gaps = []
+    if cuda:
+        torch.cuda.synchronize()
+        drained = requested()
+        residency_gaps = [(t, got - drained - want)
+                          for t, got, want in readings
+                          if got - drained != want]
+        res["residency_gaps"] = residency_gaps[:8]
+        res["after_drain_bytes"] = torch.cuda.memory_allocated() - \
+            base_alloc
+    rate = (None if not cuda else
+            sum(r["bytes"] for r in res["stream_rates"])
+            / sum(r["ms"] for r in res["stream_rates"]) / 1e6)
+    res["stream_gb_per_s"] = rate
+    log(f"[tier (d)] {res['models']} x {cfg.name} ({res['n_shards']} shards,"
+        f" {model_bytes} B each) under one ledger of {budget} B (whole "
+        f"models that fit: {res['whole_model_fit']}), hot_bytes "
+        f"{model_bytes // 2}: peak models holding hot shards "
+        f"{peak_resident}, hot shards {res['hot_shards']} "
+        f"({res['hot_device_bytes']} B on the device), streamed "
+        f"{res['stream_promoted_bytes']} B at {rate} GB/s (host bytes / "
+        f"event time of copies and casts), n_hot_demotions "
+        f"{res['n_hot_demotions']}, ledger peak in a tick "
+        f"{peak_ledger} B vs allocated peak over the baseline "
+        f"{res.get('in_tick_peak_bytes')} B, allocated over the hot "
+        f"shards' bytes at the end {res.get('allocated_over_held')} B, "
+        f"decode "
+        f"{res['decode_tok_per_s']} tok/s vs fully resident "
+        f"{res['resident_decode_tok_per_s']}, tokens equal "
+        f"{res['tokens_equal']}, {ticks} ticks in {wall:.2f} s (stores "
+        f"built in {setup_s:.2f} s) ({smi})")
+    if not all(res["tokens_equal"]):
+        fail("tier (d): shard-resident decode diverged from the fully "
+             "resident engine")
+    if peak_resident <= res["whole_model_fit"]:
+        fail(f"tier (d): {peak_resident} models held hot shards at once; "
+             f"whole-model promotion fits {res['whole_model_fit']}")
+    if not res["stream_promoted_bytes"] or not res["ledger_drained"]:
+        fail("tier (d): nothing streamed, or the ledger did not drain")
+    if residency_gaps:
+        fail(f"tier (d): device bytes between ticks are not the hot "
+             f"shards': (tick, requested - drained - held) "
+             f"{residency_gaps[:8]}")
+    del engines, sources, stores, coord
+    return res
+
+
+def phase_small_tiered_f32(device="cuda"):
+    """(e) (a) and (d) at the smoke shape in f32: a tiered engine whose
+    preempted low demotes and prefetches back, and a 2-shard model with
+    one shard hot, each token-identical to decoding each prompt alone."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import shard_graph as sg
+    from repro_torch.core.spilling import DeviceMemory, HostModelStore
+    from repro_torch.models import api
+    from repro_torch.optim.optimizers import OptimizerConfig
+    from repro_torch.serving.engine import InferenceEngine
+    from repro_torch.serving.residency import ShardResidentParams
+
+    cfg = get_config("qwen3-0.6b", smoke=True).replace(
+        dtype="float32", kv_cache_dtype="float32")
+    params = api.init_params(cfg, torch.Generator(device).manual_seed(0),
+                             device)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab_size, 8, dtype=np.int32)
+               for _ in range(3)]
+    gens = (16, 16, 4)
+
+    def alone():
+        eng = InferenceEngine(cfg, params, capacity=1, max_seq=64,
+                              backend="paged", block_size=8, policy="fifo",
+                              device=device)
+        out = []
+        for p, g in zip(prompts, gens):
+            r = eng.submit(p, g)
+            eng.run()
+            out.append(r.generated)
+        return out
+
+    ref = alone()
+    ledger = DeviceMemory(-1, budget_bytes=10**9)
+    eng = InferenceEngine(cfg, params, capacity=2, max_seq=64,
+                          backend="paged", block_size=8, n_blocks=32,
+                          ledger=ledger, tiered_kv=True, device=device)
+    lows = [eng.submit(p, g, priority="low")
+            for p, g in zip(prompts[:2], gens)]
+    for _ in range(3):
+        eng.step()
+    high = eng.submit(prompts[2], gens[2], priority="high",
+                      deadline_ms=60_000.0)
+    eng.run()
+    s = eng.summary()
+    kv_ok = [r.generated for r in lows + [high]] == ref and \
+        s["kv_demoted_bytes"] > 0 and \
+        s["kv_prefetched_bytes"] == s["kv_demoted_bytes"]
+    plan = sg.build_plan(cfg)
+    part = tier_partition(cfg, sg.prepare_host_params(cfg, params), plan, 64,
+                          2)
+    store = HostModelStore(cfg, plan, params,
+                           OptimizerConfig(kind="sgd", grad_clip=0.0), part,
+                           device=device)
+    weights = store.shard_transfer_bytes(part.shards[0], train=False)
+    src = ShardResidentParams(cfg, store, part,
+                              DeviceMemory(-1, budget_bytes=10**9),
+                              hot_bytes=weights)
+    weng = InferenceEngine(cfg, None, capacity=1, max_seq=64,
+                           backend="paged", block_size=8, policy="fifo",
+                           param_source=src, device=device)
+    r = weng.submit(prompts[0], gens[0])
+    weng.run()
+    ws = weng.summary()
+    w_ok = r.generated == ref[0] and 0 < ws["n_hot_shards"] < \
+        ws["n_shards"] and ws["stream_promoted_bytes"] > 0
+    res = {"kv_identical": kv_ok, "kv_demoted_bytes": s["kv_demoted_bytes"],
+           "weights_identical": w_ok, "n_shards": ws["n_shards"],
+           "n_hot_shards": ws["n_hot_shards"]}
+    log(f"[tier (e)] small f32 engines: tiered KV (demoted "
+        f"{s['kv_demoted_bytes']} B, prefetched "
+        f"{s['kv_prefetched_bytes']} B) token-identical to decoding alone "
+        f"{kv_ok}; shard-resident ({ws['n_hot_shards']} of "
+        f"{ws['n_shards']} shards hot) token-identical {w_ok}")
+    if not kv_ok or not w_ok:
+        fail("tier (e): a small f32 tiered engine diverged from decoding "
+             "each prompt alone")
+    return res
+
+
+def phase_tiering(cfg, smi, device="cuda"):
+    """Phase 20: (a)-(c) tiered KV, (d) shard-resident weights, (e) small
+    f32 engines, at full width on the card."""
+    import torch
+
+    from repro_torch.models import api
+    t0 = time.perf_counter()
+    params = api.init_params(cfg, torch.Generator(device).manual_seed(0),
+                             device)
+    out = phase_tiered_kv(cfg, params, smi, device)
+    del params
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    out["d"] = phase_tiered_weights(cfg, smi, device)
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    out["e"] = phase_small_tiered_f32(device)
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"[tier] phase wall {out['phase_s']:.2f} s ({smi})")
+    return out
+
+
+
+def kernel_entry(name, source, replaces, launches, m, **paths):
+    """One kernel's entry of the kernels line; ``paths``: its launches on
+    other paths of this run, by name (each counted from 0 over that
+    path's own run)."""
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
             "max_abs_err": m["max_abs_err"], "ms": m["ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"],
-            "bound_share": m["bound_share"]}
+            "bound_share": m["bound_share"], **paths}
 
 
 def main() -> None:
@@ -3538,20 +4217,30 @@ def main() -> None:
     report["bucketed_serve"] = phase_bucketed_serve(
         cfg, prompts, report["serve"]["tokens"], smi)
     torch.cuda.empty_cache()
+
+    # 20. tiered memory: KV pages demoted to pinned host slabs and
+    #     prefetched back (fp and int8 pools, eager and pressure-driven),
+    #     shard-resident weights of three models under one ledger, small
+    #     f32 engines
+    report["tiering"] = phase_tiering(cfg, smi)
+    torch.cuda.empty_cache()
     report["total_s"] = time.perf_counter() - t_start
 
     src = "src/repro_torch/kernels/csrc/"
     kernel_line = {"kernels": [
         kernel_entry("paged_attention_lanes", src + "paged_attention.cu",
                      "src/repro/kernels/paged_attention.py:76",
-                     report["serve"]["launches"], main_path),
+                     report["serve"]["launches"], main_path,
+                     tiered_launches=report["tiering"]["a"]["tiered"][
+                         "launches"]),
         kernel_entry("paged_verify_lanes", src + "paged_verify.cu",
                      "src/repro/kernels/paged_verify.py:81",
                      report["spec_random"]["launches"], verify_path),
         kernel_entry("paged_attention_quant_lanes",
                      src + "paged_attention.cu",
                      "src/repro/kernels/paged_attention.py:164",
-                     report["int8_serve"]["launches"], quant_path),
+                     report["int8_serve"]["launches"], quant_path,
+                     tiered_launches=report["tiering"]["c"]["launches"]),
         kernel_entry("flash_attention_bhsd", src + "flash_attention.cu",
                      "src/repro/kernels/flash_attention.py:74",
                      report["spilled_eval"]["cuda"]["launches"],

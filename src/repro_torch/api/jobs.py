@@ -77,11 +77,6 @@ class EvalJob(JobSpec):
     kind: str = field(default="eval", init=False)
 
 
-# what ServeJob still cannot ask for, by the ROADMAP Queue 1 item that
-# brings it
-_TIERING_LATER = ("is ported with ROADMAP Queue 1 item 5 (tiered memory)")
-
-
 @dataclass
 class ServeJob(JobSpec):
     """One served model over the continuous-batching engine.
@@ -114,9 +109,11 @@ class ServeJob(JobSpec):
     prefill right-padded prompts falls back to exact-length groups, with
     the reason in the plan meta's ``capability_fallbacks``.
 
-    Still raising ``NotImplementedError`` at submit, naming the ROADMAP
-    item that brings them: ``residency="shard"`` / ``hot_bytes`` /
-    ``tiered_kv`` (item 5).
+    Tiered memory: ``residency="shard"`` (a cold or ``params_from`` job)
+    serves from the host store shard by shard, holding up to
+    ``hot_bytes`` of shards on the device and streaming the rest each
+    tick; ``tiered_kv`` (paged backend) demotes parked requests' pages to
+    host DRAM and prefetches them back ``prefetch_ticks`` ticks later.
     """
     params: Optional[Any] = None                # init'd from seed if None
     seed: int = 0
@@ -154,8 +151,9 @@ class ServeJob(JobSpec):
     slo_aging_s: float = 30.0                   # starvation aging interval
     soft_overload_s: float = float("inf")       # queued-seconds: degrade spec
     hard_overload_s: float = float("inf")       # queued-seconds: shed/reject
-    # tiered memory: "model" residency (whole-tree promotion of a cold
-    # job) is ported; "shard", hot_bytes and tiered_kv raise at submit
+    # tiered memory: weight residency of a cold job ("model": the whole
+    # tree at the first request; "shard": hot shards + streamed shards)
+    # and the host-DRAM KV tier
     residency: str = "model"                    # "model" | "shard"
     hot_bytes: Optional[int] = None             # shard residency: pin target
     tiered_kv: bool = False                     # host-DRAM KV tier (paged)
@@ -202,7 +200,7 @@ class ServeJob(JobSpec):
 
     def validate_tiering(self) -> None:
         """Fail fast on tiered-memory misconfiguration (submit time, not
-        mid-run), then on the tiering modes the port has not yet."""
+        mid-run): the tiering knobs only compose certain ways."""
         if self.residency not in ("model", "shard"):
             raise ValueError(
                 f"residency={self.residency!r}: weight residency is "
@@ -238,14 +236,6 @@ class ServeJob(JobSpec):
                 "conflicting spec: params_from names a TrainJob to serve "
                 "from, but explicit params were also given; drop one")
         self._validate_kv_dtype()
-        if self.residency == "shard" or self.hot_bytes is not None:
-            raise NotImplementedError(
-                "shard-resident serve weights (residency='shard', "
-                f"hot_bytes) {_TIERING_LATER}; serve with "
-                "residency='model'")
-        if self.tiered_kv:
-            raise NotImplementedError(
-                f"host-DRAM KV tiering (tiered_kv=True) {_TIERING_LATER}")
 
     def _validate_kv_dtype(self) -> None:
         """Fail fast on KV-quantization misconfiguration: int8 needs a

@@ -16,9 +16,11 @@ drains serving.  Paged serve jobs charge their KV pages to the same
 ``DeviceMemory`` ledger SHARP promotions charge, and the plan carves
 their worst case out of the budget before partitioning.  Cold serve jobs
 keep their params spilled in the host store until the first request
-promotes them.  Plans are priced by a ``profiler.CostModel``: against the
-measured facts of ``python -m repro_torch.profiler`` when a fresh profile
-is given or found (``profile="auto"``), else by the analytic priors.
+promotes them — the whole tree (``residency="model"``), or shard by shard
+under one cross-model LRU (``residency="shard"``).  Plans are priced by a
+``profiler.CostModel``: against the measured facts of ``python -m
+repro_torch.profiler`` when a fresh profile is given or found
+(``profile="auto"``), else by the analytic priors.
 SPMD jobs and ``run_async`` come with later slices of the port.
 """
 
@@ -139,6 +141,11 @@ class Session:
         # trace without bound
         self.serve_trace: deque[str] = deque(maxlen=4096)
         self.unit_trace: list[tuple] = []
+        # cross-model weight-residency LRU (serving/residency.py), built
+        # at the first shard-resident serve job: a device-0 ledger
+        # pressure handler, so idle models' hot shards leave the device
+        # when another charge needs the bytes
+        self._residency = None
 
     def __enter__(self) -> "Session":
         return self
@@ -662,13 +669,15 @@ class Session:
         self._cold[jid] = {"store": store, "partition": partition,
                            "promote_bytes": 0, "promote_s": 0.0}
 
-    def _make_engine(self, job: ServeJob, params):
+    def _make_engine(self, job: ServeJob, params, *, param_source=None):
         """Backend selection happens ONCE here: the engine resolves the
         job's requested backend through the FamilySpec registry, and the
         session hands it one ledger choice — no capability branches at
         call sites."""
         from repro_torch.serving.engine import InferenceEngine
         kw: dict[str, Any] = {}
+        if param_source is not None:
+            kw.update(param_source=param_source)
         if self.cost.has_decode_facts(job.cfg):
             # measured per-token prior: slack / TTFT estimates start from
             # this host's probed decode rate instead of the analytic
@@ -701,7 +710,9 @@ class Session:
         elif effective == "paged":
             kw.update(block_size=job.block_size,
                       prefix_share=job.prefix_share,
-                      kv_dtype=job.kv_dtype)
+                      kv_dtype=job.kv_dtype,
+                      tiered_kv=job.tiered_kv,
+                      prefetch_ticks=job.prefetch_ticks)
             if job.kv_budget_bytes is None:
                 # pages charge the session's device-0 ledger — the budget
                 # SHARP promotions charge — unless the job pins a private
@@ -723,7 +734,9 @@ class Session:
         """First request for a cold model: promote its shards out of the
         host store (core/spilling byte accounting) and build the engine.
         The copy is asynchronous on a card: it is timed after a
-        synchronize."""
+        synchronize.  ``residency='shard'`` skips the whole-tree move: the
+        engine gets a ``ShardResidentParams`` source instead, and
+        residency is decided tick by tick (hot + streamed shards)."""
         cold = self._cold[jid]
         job: ServeJob = self._jobs[jid]          # type: ignore[assignment]
         store, partition = cold["store"], cold["partition"]
@@ -733,6 +746,19 @@ class Session:
                 f"{jid}: params_from={tjid!r} has not finished training — "
                 "its weights do not exist to serve yet; run() trains "
                 "before draining serve requests")
+        if job.residency == "shard":
+            from repro_torch.serving.residency import (ResidencyCoordinator,
+                                                       ShardResidentParams)
+            if self._residency is None:
+                self._residency = ResidencyCoordinator(self.devices[0])
+            src = ShardResidentParams(
+                job.cfg, store, partition, self.devices[0],
+                hot_bytes=job.hot_bytes, name=job.name or job.cfg.name)
+            self._residency.register(src)
+            cold["residency"] = src
+            cold["engine"] = self._engines[jid] = self._make_engine(
+                job, None, param_source=src)
+            return
         t0 = time.perf_counter()
         # the transfer itself is the single to_device below; the spilling
         # store's per-shard accounting prices it shard by shard

@@ -56,9 +56,16 @@ class TransferStats:
     n_promotions: int = 0
     n_demotions: int = 0
     act_bytes_moved: int = 0
+    # tiered KV (serving): pages moved between device pool and host pool
+    kv_demoted_bytes: int = 0
+    kv_prefetched_bytes: int = 0
+    n_kv_demotions: int = 0
+    n_kv_prefetches: int = 0
 
     def total_bytes(self) -> int:
-        return self.promoted_bytes + self.demoted_bytes + self.act_bytes_moved
+        return (self.promoted_bytes + self.demoted_bytes
+                + self.act_bytes_moved
+                + self.kv_demoted_bytes + self.kv_prefetched_bytes)
 
 
 class HostModelStore:
@@ -177,9 +184,15 @@ class DeviceMemory:
     (``buffered_bytes``), serving KV-page reservations
     (``kv_reserved_bytes`` — charged by page-granular admission in
     ``repro_torch.serving``), and persistent serve-side weight residency
-    (``weight_resident_bytes``).  The JAX package's tiered terms (KV pages
-    parked in host DRAM, pressure-driven demotion) come with the tiering
-    slice of the port.
+    (``weight_resident_bytes`` — hot shards held across serve ticks,
+    ``serving/residency.py``).
+
+    The tiered extension treats the device budget as a cache over host
+    DRAM: KV pages of parked requests can be demoted into a host pool
+    (``host_kv_bytes`` — tracked, not charged against the device budget)
+    and prefetched back later, and a failing reservation first consults
+    registered *pressure handlers* (LRU demotion of idle models' weight
+    shards or parked KV pages) before giving up.
     """
 
     def __init__(self, device_id: int, budget_bytes: int,
@@ -192,7 +205,11 @@ class DeviceMemory:
         self.kv_reserved_bytes = 0
         self.kv_peak_bytes = 0
         self.weight_resident_bytes = 0
+        self.host_kv_bytes = 0
+        self.host_kv_peak_bytes = 0
         self.stats = TransferStats()
+        self._pressure_handlers: list = []
+        self._in_pressure = False
 
     def used_bytes(self) -> int:
         return (self.resident_bytes + self.buffered_bytes
@@ -227,10 +244,36 @@ class DeviceMemory:
         if double_buffer:
             self.activate_buffer()
 
+    # -- pressure (tiered demotion) -----------------------------------------
+    def on_pressure(self, handler) -> None:
+        """Register ``handler(need_bytes) -> freed_bytes``, consulted when a
+        reservation does not fit.  Handlers demote tiered residents (idle
+        models' weight shards, parked KV pages) to host DRAM."""
+        if handler not in self._pressure_handlers:
+            self._pressure_handlers.append(handler)
+
+    def _relieve(self, need_bytes: int) -> None:
+        # re-entrancy guard: a handler's own reservations must not recurse
+        if self._in_pressure or need_bytes <= 0:
+            return
+        self._in_pressure = True
+        try:
+            freed = 0
+            for handler in list(self._pressure_handlers):
+                if freed >= need_bytes:
+                    break
+                freed += int(handler(need_bytes - freed))
+        finally:
+            self._in_pressure = False
+
     # -- serve weights (shard-granular residency) ---------------------------
     def reserve_weights(self, nbytes: int) -> bool:
         """Charge persistent hot-shard residency for a served model; False
-        when it does not fit."""
+        when it does not fit even after pressure-driven demotion — the
+        caller streams the shard per tick instead of pinning it."""
+        over = self.used_bytes() + nbytes - self.budget
+        if over > 0:
+            self._relieve(over)
         if self.used_bytes() + nbytes > self.budget:
             return False
         self.weight_resident_bytes += nbytes
@@ -255,12 +298,52 @@ class DeviceMemory:
 
     def reserve_kv(self, nbytes: int) -> bool:
         """Charge a KV-page reservation; False (not an error) when it does
-        not fit — admission control degrades to queueing, not crashing."""
+        not fit — admission control degrades to queueing, not crashing.
+        Under pressure, registered handlers may demote tiered residents to
+        make the reservation fit."""
+        if not self.can_reserve_kv(nbytes):
+            self._relieve(self.used_bytes() + nbytes - self.budget)
         if not self.can_reserve_kv(nbytes):
             return False
         self.kv_reserved_bytes += nbytes
         self.kv_peak_bytes = max(self.kv_peak_bytes, self.kv_reserved_bytes)
         return True
+
+    # -- tiered KV: device pool <-> host pool -------------------------------
+    def demote_kv(self, nbytes: int) -> None:
+        """Move a live KV reservation device -> host pool: the device bytes
+        are released (schedulable by others) while the pages stay accounted
+        in ``host_kv_bytes`` until prefetched back or dropped."""
+        self.release_kv(nbytes)
+        self.host_kv_bytes += nbytes
+        self.host_kv_peak_bytes = max(self.host_kv_peak_bytes,
+                                      self.host_kv_bytes)
+        self.stats.kv_demoted_bytes += nbytes
+        self.stats.n_kv_demotions += 1
+
+    def prefetch_kv(self, nbytes: int) -> bool:
+        """Host pool -> device: re-reserve device bytes for demoted pages.
+        False when the device side does not fit yet — the pages stay in the
+        host pool and the owner retries once bytes drain."""
+        if nbytes > self.host_kv_bytes:
+            raise RuntimeError(
+                f"device {self.device_id}: prefetch_kv({nbytes}) exceeds the "
+                f"{self.host_kv_bytes} B parked in the host pool")
+        if not self.reserve_kv(nbytes):
+            return False
+        self.host_kv_bytes -= nbytes
+        self.stats.kv_prefetched_bytes += nbytes
+        self.stats.n_kv_prefetches += 1
+        return True
+
+    def drop_host_kv(self, nbytes: int) -> None:
+        """Discard demoted pages parked in the host pool (cancel / shed of
+        a demoted request) without re-reserving device bytes."""
+        if nbytes > self.host_kv_bytes:
+            raise RuntimeError(
+                f"device {self.device_id}: drop_host_kv({nbytes}) exceeds "
+                f"the {self.host_kv_bytes} B parked in the host pool")
+        self.host_kv_bytes -= nbytes
 
     def release_kv(self, nbytes: int) -> None:
         if nbytes > self.kv_reserved_bytes:

@@ -37,13 +37,21 @@ Three implementations:
 Every state write — prefill scatter, copy-on-write copy, per-step row
 write, slot copy — updates the backend's tensors in place, where the JAX
 package donates them to a jitted program and gets an updated copy back.
-Host-DRAM tiering is a later slice of the port; asking for it raises
-``NotImplementedError``.
+
+A tiered ``PagedBackend`` (``tiered=True``) moves parked snapshots'
+private pages to a ``HostBlockPool`` in host DRAM — eagerly on preempt,
+or least-recently-parked first under ledger pressure — and prefetches
+them back before their lane resumes, ``prefetch_ticks`` engine ticks
+after the fetch starts (the JAX package's modelled transfer latency, so
+hits and misses are the same decisions).  On a card the moves are real
+copies between the pages and pinned host slabs on a side stream, ordered
+by events (``paging.HostBlockPool``).
 """
 
 from __future__ import annotations
 
 import hashlib
+import itertools
 from collections import deque
 from typing import Optional, Protocol, Sequence, runtime_checkable
 
@@ -54,8 +62,8 @@ from repro_torch import resolve_device
 from repro_torch.core.spilling import DeviceMemory
 from repro_torch.models import api
 from repro_torch.models.registry import spec as family_spec
-from repro_torch.serving.paging import (BlockPool, blocks_for_rows,
-                                        default_n_blocks)
+from repro_torch.serving.paging import (BlockPool, HostBlockPool,
+                                        blocks_for_rows, default_n_blocks)
 from repro_torch.serving.queue import KVBudget, PagedKVBudget
 from repro_torch.serving.request import Request
 from repro_torch.serving.slots import SlotPool, stack_trees, write_slots
@@ -68,8 +76,6 @@ from repro_torch.training.train_loop import (make_decode_step,
 # paged decode impls: the attention kernel, its plain version, and the
 # fused decode layer (``models.transformer.paged_decode_step``)
 PAGED_IMPLS = ("cuda", "ref", "fused")
-TIERED_LATER = ("host-DRAM KV tiering is ported in a later slice of the "
-                "PyTorch port")
 
 
 @runtime_checkable
@@ -235,10 +241,9 @@ class PagedBackend:
                  paged_impl: Optional[str] = None,
                  prefix_share: bool = True, verify_headroom: int = 0,
                  kv_dtype: Optional[str] = None,
-                 tiered: bool = False, device="cuda"):
+                 tiered: bool = False, prefetch_ticks: int = 1,
+                 device="cuda"):
         from repro_torch.kernels import ops as kops
-        if tiered:
-            raise NotImplementedError(TIERED_LATER)
         if ledger is not None and kv_budget_bytes is not None:
             raise ValueError(
                 "pass either a shared DeviceMemory ledger or a private "
@@ -305,6 +310,31 @@ class PagedBackend:
         self._preempted: dict[str, tuple[list[int], set[int], int]] = {}
         self.shared_block_hits = 0       # blocks aliased instead of allocated
         self.cow_copies = 0              # copy-on-write block copies
+        # tiered KV: parked snapshots' private pages can leave the device
+        # for a host pool — eagerly on preempt, or LRU-by-park-time under
+        # ledger pressure — and prefetch back before their lane resumes
+        self.tiered = bool(tiered)
+        if prefetch_ticks < 1:
+            raise ValueError("prefetch_ticks must be >= 1")
+        self.prefetch_ticks = prefetch_ticks
+        self.host_pool = (HostBlockPool(self.pool.pages, self.pool.block_bytes)
+                          if self.tiered else None)
+        self._demoted: dict[str, dict[int, int]] = {}   # rid -> {j: hostkey}
+        self._prefetching: dict[str, dict] = {}         # rid -> in flight
+        self._park_seq = itertools.count()
+        self._park_order: dict[str, int] = {}           # rid -> park stamp
+        self._prefetch_done_late: dict[str, bool] = {}
+        self.kv_demote_block_moves = 0      # device -> host block copies
+        self.kv_prefetch_block_moves = 0    # host -> device block copies
+        self.prefetch_hits = 0      # prefetch done before the lane needed it
+        self.prefetch_misses = 0    # lane had to wait on an in-flight fetch
+        # on a card: landings whose copy had already completed on the
+        # device when the compute stream asked for it
+        self.prefetch_landings = 0
+        self.prefetch_copies_done = 0
+        if self.tiered:
+            # failing reservations demote parked pages before giving up
+            self.ledger.on_pressure(self.relieve_pressure)
 
     # -- sizing --------------------------------------------------------------
     def _prefill_width(self, prefill_rows: int) -> int:
@@ -497,21 +527,32 @@ class PagedBackend:
     def preempt(self, req: Request) -> None:
         """Deschedule a RUNNING request: park (block table, committed
         length) under its request_id and free the lane.  Refcounts and the
-        byte reservation are untouched, so resume needs only a lane."""
+        byte reservation are untouched, so resume needs only a lane
+        (tiered engines follow up with ``demote_parked``)."""
         lane = req.slot
         self._preempted[req.request_id] = (
             self._lane_blocks.pop(lane), self._lane_owned.pop(lane),
             int(self._lengths[lane]))
+        self._park_order[req.request_id] = next(self._park_seq)
         self._tables[lane, :] = BlockPool.GARBAGE
         self._lengths[lane] = 0
         self._lane_free.append(lane)
 
     def resume(self, req: Request) -> bool:
         """Re-attach a preempted request's snapshot to a free lane; the
-        caller skips prefill and resumes decode from the last token."""
-        if not self._lane_free:
+        caller skips prefill and resumes decode from the last token.
+        Demoted / still-prefetching snapshots refuse: the engine drives
+        ``start_prefetch`` + ``poll_prefetches`` first."""
+        rid = req.request_id
+        if not self._lane_free or self._demoted.get(rid) \
+                or rid in self._prefetching:
             return False
-        blocks, owned, length = self._preempted.pop(req.request_id)
+        blocks, owned, length = self._preempted.pop(rid)
+        self._park_order.pop(rid, None)
+        late = self._prefetch_done_late.pop(rid, None)
+        if late is not None:
+            self.prefetch_misses += int(late)
+            self.prefetch_hits += int(not late)
         lane = self._lane_free.pop()
         self._lane_blocks[lane] = blocks
         self._lane_owned[lane] = owned
@@ -523,12 +564,177 @@ class PagedBackend:
 
     def discard_preempted(self, req: Request) -> None:
         """Drop a parked snapshot without resuming (cancel / shed while
-        preempted); no-op for requests that never held one."""
-        parked = self._preempted.pop(req.request_id, None)
+        preempted): refcounts and bytes settle like a release, pages
+        demoted to the host pool or caught mid-prefetch included.  No-op
+        for requests that never held one."""
+        rid = req.request_id
+        parked = self._preempted.pop(rid, None)
         if parked is None:
             return
+        self._park_order.pop(rid, None)
+        self._prefetch_done_late.pop(rid, None)
         blocks, owned, _ = parked
-        self._release_blocks(blocks, owned, req.reserved_blocks)
+        # mid-prefetch: the new blocks exist and their device bytes are
+        # re-reserved, but the rows were never attached — the compute
+        # stream waits for the copy into them, then they free like any
+        # owned block
+        st = self._prefetching.pop(rid, None)
+        if st is not None:
+            self.host_pool.land(st["fetch"])
+            for j, bid in st["rows"].items():
+                blocks[j] = bid
+                owned.add(bid)
+        hostmap = self._demoted.pop(rid, {})
+        live = [b for b in blocks if b >= 0]
+        # the demoted blocks' device reservation and physical commitment
+        # were settled at demotion time — release only the rest
+        self._release_blocks(live, owned,
+                             req.reserved_blocks - len(hostmap))
+        for key in hostmap.values():
+            self.host_pool.drop(key)
+        if hostmap:
+            self.budget.drop_host(len(hostmap))
+
+    # -- tiered KV: demotion / prefetch ---------------------------------------
+    def _demotable(self, bid: int, owned: set) -> bool:
+        """Only private pages move tiers: sole-owner, unindexed blocks —
+        the same guard as speculative rollback.  Shared or indexed pages
+        stay on the device for their other readers."""
+        return bid in owned and self.pool.ref(bid) == 1 \
+            and bid not in self._rev
+
+    def demoted_blocks(self, req: Request) -> int:
+        """Blocks of this request host-resident or in flight (the SLO
+        router's resume-cost input)."""
+        rid = req.request_id
+        st = self._prefetching.get(rid)
+        if st is not None:
+            return len(st["rows"])
+        return len(self._demoted.get(rid, ()))
+
+    def parked_state(self, req: Request) -> str:
+        """'resident' | 'demoted' | 'inflight' for a parked snapshot."""
+        rid = req.request_id
+        if rid in self._prefetching:
+            return "inflight"
+        if self._demoted.get(rid):
+            return "demoted"
+        return "resident"
+
+    def _demote_snapshot(self, rid: str, need_blocks=None) -> int:
+        """Move a parked snapshot's private pages device -> host pool (one
+        gather per pages plane for all of them): the physical blocks are
+        freed and their device byte reservation is re-parked as host-pool
+        bytes.  Returns blocks moved."""
+        parked = self._preempted.get(rid)
+        if parked is None or rid in self._prefetching:
+            return 0
+        blocks, owned, _length = parked
+        moves = []
+        for j, bid in enumerate(blocks):
+            if need_blocks is not None and len(moves) >= need_blocks:
+                break
+            if bid >= 0 and self._demotable(bid, owned):
+                moves.append((j, bid))
+        hostmap = self._demoted.setdefault(rid, {})
+        if moves:
+            keys = self.host_pool.demote(self.pool.pages,
+                                         [bid for _, bid in moves])
+            for (j, bid), key in zip(moves, keys):
+                hostmap[j] = key
+                owned.discard(bid)
+                self.pool.decref(bid)
+                blocks[j] = -1
+        if not hostmap:
+            self._demoted.pop(rid, None)
+        moved = len(moves)
+        if moved:
+            self._committed_blocks -= moved
+            self.budget.demote(moved)
+            self.kv_demote_block_moves += moved
+        return moved
+
+    def demote_parked(self, req: Request) -> int:
+        """Eagerly demote a just-preempted request's private pages (the
+        engine calls this right after ``preempt`` when tiering is on).
+        Returns blocks moved."""
+        if not self.tiered:
+            return 0
+        return self._demote_snapshot(req.request_id)
+
+    def relieve_pressure(self, need_bytes: int) -> int:
+        """``DeviceMemory`` pressure handler: demote parked snapshots'
+        pages, least-recently-parked first, until ``need_bytes`` are freed
+        or nothing demotable is left.  Returns bytes freed."""
+        if not self.tiered:
+            return 0
+        bb = self.pool.block_bytes
+        need = blocks_for_rows(need_bytes, bb)   # ceil-div bytes -> blocks
+        freed = 0
+        for rid in sorted(self._preempted, key=self._park_order.get):
+            if freed >= need:
+                break
+            freed += self._demote_snapshot(rid, need - freed)
+        return freed * bb
+
+    def start_prefetch(self, req: Request) -> bool:
+        """Begin the host -> device fetch of a demoted snapshot: re-reserve
+        its device bytes, allocate physical blocks and issue the copies
+        (on a card, on the host pool's side stream); the snapshot becomes
+        resumable when ``poll_prefetches`` lands it ``prefetch_ticks``
+        ticks later.  False when the device bytes or blocks do not fit
+        yet: the caller keeps the request queued and retries as bytes
+        drain (they were part of its original admission reservation)."""
+        rid = req.request_id
+        if rid in self._prefetching:
+            return True
+        hostmap = self._demoted.get(rid)
+        if not hostmap:
+            return True
+        n = len(hostmap)
+        if n > self.pool.n_free:
+            return False
+        if not self.budget.prefetch(n):
+            return False
+        ids = self.pool.alloc(n)
+        self._committed_blocks += n
+        order = sorted(hostmap.items())
+        fetch = self.host_pool.prefetch(self.pool.pages,
+                                        [key for _, key in order], ids)
+        del self._demoted[rid]
+        self._prefetching[rid] = {
+            "rows": {j: bid for (j, _), bid in zip(order, ids)},
+            "fetch": fetch, "ticks": self.prefetch_ticks, "late": False}
+        return True
+
+    def poll_prefetches(self) -> None:
+        """Advance in-flight prefetches one tick; a completed one makes the
+        compute stream wait on its copy and its blocks re-attach to the
+        snapshot, which becomes resumable.  The engine calls this at the
+        top of every step."""
+        for rid in list(self._prefetching):
+            st = self._prefetching[rid]
+            st["ticks"] -= 1
+            if st["ticks"] > 0:
+                continue
+            blocks, owned, _length = self._preempted[rid]
+            done = self.host_pool.land(st["fetch"])
+            if done is not None:
+                self.prefetch_landings += 1
+                self.prefetch_copies_done += int(done)
+            for j, bid in sorted(st["rows"].items()):
+                blocks[j] = bid
+                owned.add(bid)
+            self.kv_prefetch_block_moves += len(st["rows"])
+            self._prefetch_done_late[rid] = st["late"]
+            del self._prefetching[rid]
+
+    def note_prefetch_wait(self, req: Request) -> None:
+        """The scheduler wanted this lane but its pages are still in
+        flight — a prefetch that completed 'late' (miss, not hit)."""
+        st = self._prefetching.get(req.request_id)
+        if st is not None:
+            st["late"] = True
 
     def can_admit_bytes(self, req: Request, prefill_rows: int) -> bool:
         """Byte-side admissibility if a lane WERE free (preemption guard)."""
@@ -625,7 +831,7 @@ class PagedBackend:
         self._lengths[lane] += 1
 
     def summary(self) -> dict:
-        return {
+        out = {
             "block_size": self.block_size,
             "kv_dtype": self.kv_dtype,
             "block_bytes": self.pool.block_bytes,
@@ -638,6 +844,32 @@ class PagedBackend:
             "cow_copies": self.cow_copies,
             "preempted_held": len(self._preempted),
         }
+        if self.tiered:
+            bb = self.pool.block_bytes
+            fetches = self.prefetch_hits + self.prefetch_misses
+            out.update({
+                "tiered": True,
+                "host_pool_blocks": self.host_pool.n_blocks,
+                "host_pool_bytes": self.host_pool.used_bytes(),
+                "host_pool_peak_blocks": self.host_pool.peak_blocks,
+                "kv_demoted_bytes": self.kv_demote_block_moves * bb,
+                "kv_prefetched_bytes": self.kv_prefetch_block_moves * bb,
+                "prefetch_hits": self.prefetch_hits,
+                "prefetch_misses": self.prefetch_misses,
+                "prefetch_hit_rate": (round(self.prefetch_hits / fetches, 3)
+                                      if fetches else None),
+            })
+            if self.device.type == "cuda":
+                # card-only: the pinned slab's size, and the share of
+                # landings whose copy had finished on the device — the
+                # physical counterpart of the modelled hit rate
+                n = self.prefetch_landings
+                out.update({
+                    "host_slab_bytes": self.host_pool.slab_bytes(),
+                    "prefetch_copy_done_at_landing": (
+                        round(self.prefetch_copies_done / n, 3)
+                        if n else None)})
+        return out
 
 
 # ---------------------------------------------------------------------------
@@ -1004,7 +1236,7 @@ _BACKEND_KWARGS = {
              "device"),
     "paged": ("window", "kv_budget_bytes", "ledger", "block_size",
               "n_blocks", "paged_impl", "prefix_share", "verify_headroom",
-              "tiered", "kv_dtype", "device"),
+              "tiered", "prefetch_ticks", "kv_dtype", "device"),
     "spec": ("window", "kv_budget_bytes", "ledger", "block_size",
              "n_blocks", "paged_impl", "prefix_share", "draft_cfg",
              "draft_params", "draft_k", "inner", "kv_dtype",

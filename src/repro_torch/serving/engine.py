@@ -31,9 +31,12 @@ cannot support falls back (spec -> its inner -> slot) with a
 ``CapabilityFallbackWarning``, and ``summary()`` records both the
 requested and the effective backend.
 
-Not ported yet (each raises ``NotImplementedError`` naming the later
-slice): shard-resident weights (``param_source``) and host-DRAM KV
-tiering (``tiered_kv``).
+Tiered memory: ``tiered_kv=True`` (paged backend) demotes parked
+requests' pages to host DRAM and prefetches them back before resume
+(``prefetch_ticks`` ticks after the fetch starts); ``param_source`` (a
+``serving.residency.ShardResidentParams``) replaces ``params``: the
+weights reach the device shard by shard, ``begin_tick`` / ``end_tick``
+around every step.
 """
 
 from __future__ import annotations
@@ -57,8 +60,6 @@ from repro_torch.serving.request import Request, Status
 from repro_torch.serving.slo import SLO, OverloadedError, make_policy
 from repro_torch.training.train_loop import (make_padded_prefill_into_cache,
                                              make_prefill_into_cache)
-
-_LATER = "is ported in a later slice of the PyTorch port"
 
 
 def pow2_buckets(max_seq: int) -> tuple[int, ...]:
@@ -89,14 +90,17 @@ class InferenceEngine:
                  completed_cap: Optional[int] = None,
                  policy: Union[str, object] = "slo",
                  default_slo: Optional[SLO] = None,
-                 tiered_kv: bool = False, param_source=None,
+                 tiered_kv: bool = False, prefetch_ticks: int = 1,
+                 param_source=None,
                  tok_seconds_prior: Optional[float] = None,
                  clock=time.perf_counter, device="cuda"):
         """``params``: the model's parameter tree (JAX layout, any device);
         it is moved to ``device`` and its >= 2-D layer weights are held in
         ``cfg.dtype`` (``api.prepare_params``).  ``device`` defaults to
         CUDA and raises where there is none; pass ``device="cpu"`` to
-        serve on the CPU through the plain attention.
+        serve on the CPU through the plain attention.  Pass
+        ``param_source`` instead of ``params`` for shard-resident weights
+        (it must live on ``device``).
 
         ``backend``: 'slot' (None, the default), 'paged' (``paged=True``
         is the legacy spelling) or 'spec', which wraps ``spec_inner``
@@ -112,10 +116,6 @@ class InferenceEngine:
         a ``CapabilityFallbackWarning``; buckets past ``max_seq`` are
         dropped, and a prompt longer than every bucket keeps its exact
         length."""
-        if param_source is not None:
-            raise NotImplementedError(f"shard-resident weights {_LATER}")
-        if tiered_kv:
-            raise NotImplementedError(f"host-DRAM KV tiering {_LATER}")
         spec = family_spec(cfg)
         if not spec.servable:
             raise ValueError(
@@ -125,7 +125,19 @@ class InferenceEngine:
             raise ValueError("capacity must be >= 1")
         self.device = resolve_device(device)
         self.cfg = cfg
-        self.params = api.prepare_params(cfg, params, self.device)
+        # shard-granular residency (serving/residency.py): the source
+        # assembles the device tree every tick — hot shards stay on the
+        # device, cold ones stream — and `self.params` is refreshed at the
+        # top of every step
+        self._param_source = param_source
+        if param_source is not None and params is not None:
+            raise ValueError("pass params or param_source, not both")
+        src_dev = getattr(param_source, "device", self.device)
+        if torch.device(src_dev) != self.device:
+            raise ValueError(f"param_source holds its weights for {src_dev} "
+                             f"but the engine serves on {self.device}")
+        self.params = (None if params is None
+                       else api.prepare_params(cfg, params, self.device))
         self.model_name = model_name or cfg.name
         self.clock = clock
         self.capacity = capacity
@@ -143,7 +155,9 @@ class InferenceEngine:
                 paged_impl=paged_impl, prefix_share=prefix_share,
                 kv_dtype=kv_dtype, verify_impl=verify_impl,
                 draft_cfg=draft_cfg, draft_params=draft_params,
-                draft_k=draft_k, inner=spec_inner, device=self.device)
+                draft_k=draft_k, inner=spec_inner,
+                tiered=tiered_kv, prefetch_ticks=prefetch_ticks,
+                device=self.device)
         else:
             self.backend = self._injected_backend(backend, paged)
             self.requested_backend = backend.name
@@ -183,6 +197,12 @@ class InferenceEngine:
         self.n_preempted = 0
         self.n_resumed = 0
         self.n_shed = 0
+        # tiered KV (host-DRAM page demotion, serving/backends.py)
+        self._tiered = bool(getattr(self.backend, "tiered", False))
+        self._demote_on_preempt = self._tiered and bool(
+            getattr(self.policy, "demote_on_preempt", True))
+        # active lanes + parked snapshot holders: the live-request
+        # concurrency one byte budget sustains
         self.peak_live_requests = 0
 
     def _resolve_backend(self, spec, backend, paged, spec_inner):
@@ -380,10 +400,22 @@ class InferenceEngine:
                   for r in self.queue if not r.done)
         return rem * self.tok_seconds_estimate()
 
+    def resume_cost_seconds(self, req: Request) -> float:
+        """Extra latency a preempted request pays before its next token:
+        pages demoted to the host pool must prefetch back —
+        ``prefetch_ticks`` engine ticks plus the resume tick, each roughly
+        one pooled decode step at current occupancy.  Zero for
+        device-resident snapshots (resume is a table re-attach)."""
+        if not self._tiered or self.backend.demoted_blocks(req) == 0:
+            return 0.0
+        per_tick = self.tok_seconds_estimate() * max(1, len(self._active))
+        return (self.backend.prefetch_ticks + 1) * per_tick
+
     def min_slack_seconds(self, now: Optional[float] = None
                           ) -> Optional[float]:
         """Tightest deadline slack across live requests, or None when
-        nothing declares a deadline."""
+        nothing declares a deadline.  Preempted-and-demoted requests owe
+        their prefetch and resume latency on top of remaining decode."""
         now = self.clock() if now is None else now
         tok_s = self.tok_seconds_estimate()
         best: Optional[float] = None
@@ -399,6 +431,8 @@ class InferenceEngine:
             est = r.remaining_tokens() * tok_s
             if r.status is Status.QUEUED:
                 est += r.prompt_len * tok_s
+            elif r.status is Status.PREEMPTED:
+                est += self.resume_cost_seconds(r)
             slack = dl - now - est
             best = slack if best is None else min(best, slack)
         return best
@@ -452,6 +486,22 @@ class InferenceEngine:
             if not self.backend.free_lanes:
                 break
             if req.status is Status.PREEMPTED:
+                if self._tiered:
+                    # resume barrier: demoted pages must be back on the
+                    # device before the lane re-attaches
+                    state = self.backend.parked_state(req)
+                    if state == "demoted":
+                        # start the fetch; a failed byte reservation blocks
+                        # admission AT THE HEAD (the bytes were part of
+                        # this request's original reservation, so the wait
+                        # is bounded by running work retiring)
+                        if not self.backend.start_prefetch(req):
+                            break
+                        continue    # in flight; revisit next tick
+                    if state == "inflight":
+                        # still prefetching: others admit past it
+                        self.backend.note_prefetch_wait(req)
+                        continue
                 # resume: the KV snapshot re-attaches, prefill is skipped,
                 # decode restarts from the last generated token (its KV row
                 # was never written)
@@ -522,7 +572,11 @@ class InferenceEngine:
         if not waiting:
             return
         head = self.policy.order(waiting, now)[0]
+        # bytes guard: evicting is useless when the head is blocked on
+        # BYTES rather than a lane — unless eager demotion is on, which
+        # frees exactly the victim's parked bytes
         if head.status is not Status.PREEMPTED \
+                and not self._demote_on_preempt \
                 and not self.backend.can_admit_bytes(
                     head, self._bucket(head.prompt_len)):
             return
@@ -533,6 +587,9 @@ class InferenceEngine:
             return
         lane = victim.slot
         self.backend.preempt(victim)
+        if self._demote_on_preempt:
+            # a parked request stops pinning device bytes
+            self.backend.demote_parked(victim)
         del self._active[lane]
         victim.slot = None
         victim.status = Status.PREEMPTED
@@ -570,6 +627,20 @@ class InferenceEngine:
 
     def step(self) -> bool:
         """One engine tick; returns True while there is work left."""
+        if self._param_source is not None and self.has_work():
+            # the shard-resident param tree for this tick (hot shards are
+            # already on the device; cold shards stream in)
+            self.params = self._param_source.begin_tick()
+        try:
+            return self._step_inner()
+        finally:
+            if self._param_source is not None:
+                self._param_source.end_tick()
+                self.params = None      # streamed shards leave the device
+
+    def _step_inner(self) -> bool:
+        if self._tiered:
+            self.backend.poll_prefetches()   # copies landing this tick
         self._retire_finished()
         self._apply_pressure()
         self._maybe_preempt()        # a freed lane is re-used this tick
@@ -659,4 +730,6 @@ class InferenceEngine:
                 if self.decode_s else None,
         }
         out.update(self.backend.summary())
+        if self._param_source is not None:
+            out.update(self._param_source.summary())
         return out

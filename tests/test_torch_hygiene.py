@@ -8,7 +8,8 @@
   device of an entry point (serving, SHARP training, eval) raises, and
   asking for the CUDA kernel on CPU tensors raises.
 * What is not ported yet raises ``NotImplementedError`` naming the slice
-  or the ROADMAP item it comes with.
+  or the ROADMAP item it comes with; the options of an item since ported
+  (tiered memory, item 5) build as the JAX package's do.
 * Each subpackage exports what the JAX one's ``__all__`` lists, except
   the names of unported items, each listed with its ROADMAP item.
 """
@@ -185,9 +186,15 @@ def test_training_entry_points_default_to_cuda(build):
 
 
 def _serve_job(cfg):
+    """Ported (item 5): a tiered paged ServeJob submits and plans, its
+    tiering in the plan meta (equal to the JAX session's meta in
+    ``tests/test_torch_session_serve.py``)."""
     from repro_torch.api import HydraConfig, ServeJob, Session
-    Session(HydraConfig(), device="cpu").submit(
-        ServeJob(cfg, backend="paged", tiered_kv=True))
+    sess = Session(HydraConfig(), device="cpu", profile=None)
+    jid = sess.submit(ServeJob(cfg, backend="paged", tiered_kv=True))
+    meta = sess.plan().job(jid).meta
+    assert (meta["backend"], meta["tiered_kv"], meta["prefetch_ticks"]) \
+        == ("paged", True, 1)
 
 
 def _spmd_job(cfg):
@@ -207,13 +214,18 @@ def _mesh_train_step(cfg):
 
 
 @pytest.mark.parametrize("build,match", [
-    (_serve_job, "item 5"), (_spmd_job, "sharding slice"),
+    (_serve_job, None), (_spmd_job, "sharding slice"),
     (_probe_oracle, "later slice"), (_mesh_train_step, "sharding slice"),
 ], ids=["serve-job", "spmd-job", "probe-oracle", "mesh"])
 def test_unported_session_options_raise(build, match):
+    """``match`` None: the option has been ported and builds."""
     from repro_torch.configs import get_config
+    cfg = get_config("qwen3-0.6b", smoke=True)
+    if match is None:
+        build(cfg)
+        return
     with pytest.raises(NotImplementedError, match=match):
-        build(get_config("qwen3-0.6b", smoke=True))
+        build(cfg)
 
 
 def test_cuda_impl_on_cpu_tensors_raises():
@@ -229,19 +241,39 @@ def test_cuda_impl_on_cpu_tensors_raises():
         ops.paged_attention(q, pages, pages, tables, lengths, impl="pallas")
 
 
-@pytest.mark.parametrize("kw,match", [
-    ({"param_source": object()}, "later slice"),
-    ({"tiered_kv": True, "backend": "paged"}, "later slice"),
-    ({"tiered_kv": True}, "later slice"),
-])
-def test_unported_serving_options_raise(kw, match):
+def _tiered_paged(eng):
+    assert eng.backend.name == "paged" and eng.backend.tiered
+    assert eng._tiered and eng._demote_on_preempt
+    assert eng.summary()["tiered"] is True
+
+
+def _tiered_slot(eng):
+    # the JAX engine drops tiered_kv for the slot backend without a word
+    assert eng.backend.name == "slot" and not eng._tiered
+    assert "tiered" not in eng.summary()
+
+
+@pytest.mark.parametrize("kw,check", [
+    ({"param_source": object()}, None),
+    ({"tiered_kv": True, "backend": "paged"}, _tiered_paged),
+    ({"tiered_kv": True}, _tiered_slot),
+], ids=["kw0-later slice", "kw1-later slice", "kw2-later slice"])
+def test_unported_serving_options_raise(kw, check):
+    """The serving options of ROADMAP item 5, ported: they build as the
+    JAX engine's do — params and a param source together are the JAX
+    engine's ValueError, tiering on a paged backend turns it on, and on
+    the slot backend it is dropped."""
     from repro_torch.configs import get_config
     from repro_torch.models import api
     from repro_torch.serving.engine import InferenceEngine
     cfg = get_config("qwen3-0.6b", smoke=True)
     params = api.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match=match):
-        InferenceEngine(cfg, params, device="cpu", **kw)
+    if check is None:
+        with pytest.raises(ValueError,
+                           match="pass params or param_source, not both"):
+            InferenceEngine(cfg, params, device="cpu", **kw)
+        return
+    check(InferenceEngine(cfg, params, device="cpu", **kw))
 
 
 def test_unported_config_raises_key_error():

@@ -16,8 +16,9 @@ decision is reproducible and must be the same, not just close:
   JAX ``promote_bytes``), a private vs the shared ledger, the effective
   backend and the fallback reason, draft ``"auto"`` with an explicit
   draft, ``verify_impl`` spellings, cancels (queue, routing name, the
-  ledger back at 0), submit-time validation, and the fields not in the
-  port yet raising ``NotImplementedError`` with their ROADMAP item.
+  ledger back at 0), submit-time validation, and the tiering fields of
+  ROADMAP item 5 (``residency="shard"``, ``hot_bytes``, ``tiered_kv``)
+  planning as in the JAX session.
 """
 
 import _torch_threads  # noqa: F401  (one torch thread per xdist worker)
@@ -374,15 +375,23 @@ def test_bad_serve_specs_fail_at_submit_as_in_jax():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(cold=True, residency="shard"), "item 5"),
-    (dict(cold=True, residency="shard", hot_bytes=0), "item 5"),
-    (dict(backend="paged", tiered_kv=True), "item 5"),
+    (dict(cold=True, residency="shard"), "residency"),
+    (dict(cold=True, residency="shard", hot_bytes=0), "hot_bytes"),
+    (dict(backend="paged", tiered_kv=True), "tiered_kv"),
 ], ids=["shard", "hot-bytes", "tiered-kv"])
 def test_unported_serve_fields_raise_naming_their_item(kw, item):
-    ps = Session(HydraConfig(**HC), device="cpu", profile=None)
-    with pytest.raises(NotImplementedError, match=item):
-        ps.submit(ServeJob(_cfgs()[1], **kw))
-    assert ps.jobs() == {}
+    """ROADMAP item 5's fields, ported: the job submits and plans with
+    the JAX session's meta (its partition too, for a cold job), the
+    field ``item`` carried in it."""
+    jcfg, cfg = _cfgs()
+    js, ps = _sessions()
+    jid = js.submit(JServeJob(jcfg, seed=0, **kw))
+    assert ps.submit(ServeJob(cfg, seed=0, **kw)) == jid
+    jplan, plan = js.plan(), ps.plan()
+    j, p = jplan.job(jid), plan.job(jid)
+    assert _norm(p.meta) == _norm(j.meta)
+    assert (p.partition, p.host_bytes) == (j.partition, j.host_bytes)
+    assert p.meta[item] == kw[item]
 
 
 def test_cancelled_serve_job_drops_queue_and_frees_its_name():
