@@ -201,17 +201,42 @@ Phases (any failure exits non-zero before the result line):
    between ticks ``memory_allocated`` over the baseline is exactly the hot
    shards' tensors, the ledger drains; the in-tick allocated peak beside
    the ledger's, streamed-shard GB/s.  (e) (a) and (d) at the smoke shape
-   in f32: token-identical to decoding each prompt alone.
+   in f32: token-identical to decoding each prompt alone;
+21. planning and the async session — (a) phase 10's first TrainJob
+   planned with ``partition_oracle="probe"`` on one virtual device of
+   ``PROBE_BUDGET`` (6 GB: at ``TRAIN_BUDGET`` the JAX package's rule
+   finds the head segment alone too large, which the line reports): per
+   shard the pilot's allocator peak, the live-bytes count beside the
+   allocator's peak of one more pilot of it, and the rule's two sides;
+   the analytic partition beside it, the pilot count and seconds; gates:
+   an ordered cover, at most segments + shards pilots.  (b) the plan
+   saved, then ``Plan.load`` run by a fresh session: no pilot, (a)'s
+   partition, units = steps x 2 x shards, the ledger in budget, losses
+   equal phase 10's first model's at 3e-4, and the run's
+   ``max_memory_allocated`` over its baseline at most ``TRAIN_BUDGET``
+   (each unit's allocated peak printed beside its shard's probe
+   charge).  (c) ``run_async`` on ``PROBE_BUDGET`` plus the hot job's KV
+   cap with a hot paged ServeJob: phase 4's first 4 requests before, the
+   other 4 once training runs; the handle not done at once and a second
+   ``run_async`` / ``run`` refused; every request gets its tokens, each
+   mid-run request decodes tokens between two shard units, losses equal
+   phase 10's, paged launches = decode_steps x 28, the ledger ends at 0,
+   ``result()`` twice the same report, a second ``run_async`` serves one
+   more request, a loader raising after its first batch makes
+   ``result()`` raise it.  (d) ``examples/quickstart_torch.py``'s
+   ``main()`` on the card (its own assertion), and ``make_grad_step``'s
+   grad norm equal to ``make_train_step``'s at 2e-4 at full width.
 
 Each kernel's launch count is zeroed just before the run of its own path
 (a serve run, the spilled eval, the profiler's ``build_facts`` for
 RMSNorm and SwiGLU, the zamba2 kernel forward for the SSD scan; the
 paged kernel's again before phase 17's session run, phase 19's serve
-runs and each of phase 20's tiered runs, the int8 kernel's before phase
-20 (c)) and read just after;
+runs, each of phase 20's tiered runs and phase 21 (c)'s async run, the
+int8 kernel's before phase 20 (c)) and read just after;
 the kernel line reports it with the kernel's numbers at that path's
-inputs, and the paged and int8 kernels' launches on the tiered path
-(phase 20 (a) tiered, (c)) as ``tiered_launches``.
+inputs, the paged and int8 kernels' launches on the tiered path (phase
+20 (a) tiered, (c)) as ``tiered_launches``, and the paged kernel's on
+the async session path (phase 21 (c)) as ``async_launches``.
 
 The second-to-last lines are a JSON object of per-kernel numbers and the
 card's ``nvidia-smi`` name/power line; the last line is
@@ -3950,6 +3975,482 @@ def phase_tiering(cfg, smi, device="cuda"):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 21: planning and the async session — the probe oracle at full
+# width, a saved plan run by a fresh session, run_async with serving
+# ---------------------------------------------------------------------------
+
+# The probe's rule (the JAX package's) charges the head segment its pilot
+# peak (the tied table, its gradient, the f32 logits and their gradient:
+# 3.8 GB at 2 x 1024 tokens) plus twice the table again for the shared
+# optimizer state, 5.04 GB in all: more than 95% of TRAIN_BUDGET, so at
+# 5 GB the probe finds the model unpartitionable.  Phase 21 plans at 6 GB.
+PROBE_BUDGET = 6 * 10**9
+ASYNC_FIRST = 4         # phase 4's prompts submitted before run_async
+
+
+def probe_train_job(cfg, loader=None):
+    """Phase 10's first TrainJob: seed 0, ``TRAIN_LRS[0]``, AdamW, 3 steps
+    of 2 x 1024 (``loader`` in place of its SyntheticTokens)."""
+    from repro_torch.api import TrainJob
+    return TrainJob(cfg, loader if loader is not None
+                    else train_loader(cfg, 0), lr=TRAIN_LRS[0],
+                    optimizer="adamw", epochs=1, steps_per_epoch=TRAIN_STEPS,
+                    seed=0, batch=TRAIN_BATCH, seq=TRAIN_SEQ)
+
+
+def _sync(device):
+    import torch
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def shard_probe(partition, shard):
+    """The pilot that accepted ``shard``: its record of ``[lo, hi)``."""
+    return next(p for p in reversed(partition.probes)
+                if (p.lo, p.hi) == (shard.seg_lo, shard.seg_hi) and p.fits)
+
+
+def phase_probe_plan(cfg, smi, budget, path, device="cuda"):
+    """21 (a): plan phase 10's first TrainJob with the probe oracle on one
+    virtual device of ``budget`` bytes and save the plan to ``path``;
+    the analytic partition of the same params and budget beside it, and
+    the probe at ``TRAIN_BUDGET`` (reported).  Gates: the shards are an
+    ordered cover; at most segments + shards pilots."""
+    import torch
+
+    from repro_torch.api import HydraConfig, Session
+    from repro_torch.core import partitioner as pt
+    from repro_torch.core import shard_graph as sg
+
+    session = Session(HydraConfig(n_devices=1, device_budget_bytes=budget,
+                                  partition_oracle="probe"),
+                      device=device, profile=None)
+    tid = session.submit(probe_train_job(cfg))
+    pilots0 = pt.pilot_peak.pilots
+    t0 = time.perf_counter()
+    plan = session.plan()
+    plan_s = time.perf_counter() - t0
+    pilots = pt.pilot_peak.pilots - pilots0
+    part = session._train_execs[tid].partition
+    host = session._train_execs[tid].store.params
+    splan = sg.build_plan(cfg)
+    n_seg = len(splan.segments)
+    analytic = pt.partition(cfg, host, splan, budget_bytes=budget,
+                            batch=TRAIN_BATCH, seq=TRAIN_SEQ)
+    bounds = [(s.seg_lo, s.seg_hi) for s in part.shards]
+    abounds = [(s.seg_lo, s.seg_hi) for s in analytic.shards]
+    rows = []
+    for s in part.shards:
+        p = shard_probe(part, s)
+        # the planner's pilots skip the live-bytes count on a card: one
+        # more pilot of each shard takes the allocator's peak and the
+        # count together
+        peak, counted = pt.pilot_peak(cfg, host, splan, s.seg_lo, s.seg_hi,
+                                      TRAIN_BATCH, TRAIN_SEQ, device,
+                                      count=True)
+        rows.append({"shard": s.index, "segments": [s.seg_lo, s.seg_hi],
+                     "peak": p.peak, "recount_peak": peak,
+                     "counted": counted, "counted_over_peak": counted / peak,
+                     "lhs": p.lhs, "limit": p.limit})
+        log(f"[probe (a)] shard {s.index} segments [{s.seg_lo}, "
+            f"{s.seg_hi}): pilot peak {p.peak} B (allocator); counted "
+            f"pilot: allocator {peak} B, live-bytes count {counted} B "
+            f"(ratio {counted / peak:.4f}); rule {p.lhs} B <= "
+            f"{p.limit:.0f} B ({smi})")
+    probe_s = sum(p.seconds for p in part.probes)
+    res = {"budget_bytes": budget, "shards": bounds,
+           "analytic_shards": abounds, "pilots": pilots,
+           "segments": n_seg, "probe_s": probe_s, "plan_s": plan_s,
+           "per_shard": rows,
+           "pilot_peaks": [[p.lo, p.hi, p.peak, p.lhs, p.fits]
+                           for p in part.probes]}
+    try:
+        pt.partition(cfg, host, splan, budget_bytes=TRAIN_BUDGET,
+                     batch=TRAIN_BATCH, seq=TRAIN_SEQ, oracle="probe",
+                     device=device)
+        res["at_train_budget"] = "plans"
+    except MemoryError as e:
+        res["at_train_budget"] = str(e)
+    log(f"[probe (a)] {cfg.name} full width, {TRAIN_BATCH}x{TRAIN_SEQ} "
+        f"tokens, budget {budget} B: probe shards {bounds} "
+        f"({len(bounds)}), analytic shards {abounds} ({len(abounds)}); "
+        f"{pilots} pilots for {n_seg} segments in {probe_s:.2f} s of "
+        f"piloting (plan {plan_s:.2f} s, host store included); the probe "
+        f"at TRAIN_BUDGET {TRAIN_BUDGET} B: {res['at_train_budget']} "
+        f"({smi})")
+    segs = [i for a, b in bounds for i in range(a, b)]
+    if segs != list(range(n_seg)):
+        fail(f"probe (a): the probed shards {bounds} are not an ordered "
+             f"cover of the {n_seg} segments")
+    if pilots > n_seg + len(bounds):
+        fail(f"probe (a): {pilots} pilots for {n_seg} segments and "
+             f"{len(bounds)} shards (at most segments + shards)")
+    plan.save(str(path))
+    del session
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return res
+
+
+def phase_saved_plan_run(cfg, smi, budget, path, probe, ref_losses,
+                         ref_tok_s, device="cuda"):
+    """21 (b): a fresh Session with the same config and job runs
+    ``Plan.load(path)``.  Gates: no pilot; the partition is (a)'s; units
+    = steps x 2 x shards; the ledger within its budget; losses equal
+    ``ref_losses`` at 3e-4; on a card, the run's allocator peak over its
+    baseline at most ``TRAIN_BUDGET``, tighter than the ``budget`` the
+    plan was probed at: the probe's charge is a bound, and a unit that
+    allocates past it (the head unit holding the forward's logits into
+    its backward did: 5.03 GB) fails here.  Each unit's allocated peak
+    beside its shard's probe estimate, trained tok/s beside
+    ``ref_tok_s``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import HydraConfig, Plan, Session
+    from repro_torch.core import partitioner as pt
+
+    cuda = device == "cuda"
+    session = Session(HydraConfig(n_devices=1, device_budget_bytes=budget,
+                                  partition_oracle="probe"),
+                      device=device, profile=None)
+    session.submit(probe_train_job(cfg))
+    plan = Plan.load(str(path))
+    peak_used = track_ledger_peaks(session)
+    units = []                       # (unit key, allocated peak) per unit
+    tick = session.serve_tick
+
+    def unit_peak():
+        if len(session.unit_trace) > len(units):
+            peak = None
+            if cuda:
+                torch.cuda.synchronize()
+                peak = torch.cuda.max_memory_allocated() - base
+                torch.cuda.reset_peak_memory_stats()
+            units.append((session.unit_trace[-1], peak))
+        return tick()
+    session.serve_tick = unit_peak
+
+    pilots0 = pt.pilot_peak.pilots
+    gc.collect()
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() if cuda else 0
+    t0 = time.perf_counter()
+    report = session.run(plan)
+    _sync(device)
+    wall = time.perf_counter() - t0
+    tail_peak = (torch.cuda.max_memory_allocated() - base) if cuda else None
+    pilots = pt.pilot_peak.pilots - pilots0
+    m = session.train_execs[0]
+    bounds = [(s.seg_lo, s.seg_hi) for s in m.partition.shards]
+    losses = report.train.losses[0]
+    est = {tuple(r["segments"]): r["lhs"] for r in probe["per_shard"]}
+    unit_rows = [{"unit": list(k), "peak": p,
+                  "probe_lhs": est[bounds[k[1]]]} for k, p in units]
+    run_peak = max([p for _, p in units if p is not None]
+                   + ([tail_peak] if tail_peak is not None else []),
+                   default=None)
+    tok_s = TRAIN_STEPS * TRAIN_BATCH * TRAIN_SEQ / wall
+    res = {"pilots": pilots, "shards": bounds,
+           "units": report.train.units_executed, "losses": losses,
+           "ref_losses": ref_losses,
+           "max_abs_loss_diff": float(np.abs(np.subtract(losses,
+                                                         ref_losses)).max()),
+           "ledger_peak_bytes": peak_used, "wall_s": wall,
+           "trained_tok_per_s": tok_s, "phase10_tok_per_s": ref_tok_s,
+           "unit_peaks": unit_rows, "run_peak_bytes": run_peak,
+           "budget_bytes": budget}
+    for r in unit_rows:
+        log(f"[probe (b)] unit {r['unit']}: allocated peak {r['peak']} B "
+            f"over the baseline; its shard's probe charge {r['probe_lhs']} "
+            f"B")
+    log(f"[probe (b)] fresh session, Plan.load: {pilots} pilots, shards "
+        f"{bounds}, {res['units']} units, ledger peak {peak_used}, run "
+        f"allocated peak {run_peak} B over the baseline (at most "
+        f"TRAIN_BUDGET {TRAIN_BUDGET} B; planned at {budget} B), trained "
+        f"{tok_s:.1f} tok/s (phase 10: {ref_tok_s}), losses {losses} vs "
+        f"phase 10 {ref_losses} (max abs diff "
+        f"{res['max_abs_loss_diff']:.3g}, tol {SHARP_TOL}) ({smi})")
+    if pilots != 0:
+        fail(f"probe (b): the loaded plan ran {pilots} pilots (expected 0)")
+    if bounds != [tuple(b) for b in probe["shards"]]:
+        fail(f"probe (b): the run's partition {bounds} is not (a)'s "
+             f"{probe['shards']}")
+    expect = TRAIN_STEPS * 2 * len(bounds)
+    if res["units"] != expect or len(units) != expect:
+        fail(f"probe (b): {res['units']} units ({len(units)} traced); "
+             f"expected steps x 2 x shards = {expect}")
+    if max(peak_used.values()) > budget:
+        fail(f"probe (b): the ledger went over its budget: {peak_used}")
+    if not np.allclose(losses, ref_losses, rtol=SHARP_TOL, atol=SHARP_TOL):
+        fail(f"probe (b): losses {losses} differ from phase 10's "
+             f"{ref_losses}")
+    if cuda and run_peak > TRAIN_BUDGET:
+        over = [r for r in unit_rows if r["peak"] > TRAIN_BUDGET]
+        fail(f"probe (b): the run allocated {run_peak} B over its baseline, "
+             f"more than TRAIN_BUDGET ({TRAIN_BUDGET} B; the probe planned "
+             f"for {budget} B) (units over: {over})")
+    del session, report
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return res
+
+
+def _exploding_loader(cfg):
+    """A loader that yields one batch, then raises."""
+    first = next(iter(train_loader(cfg, 0)))
+    yield first
+    raise RuntimeError("probe (c): the loader failed after its first batch")
+
+
+def phase_async_serve(cfg, smi, budget, prompts, ref_losses, device="cuda"):
+    """21 (c): one Session of ``budget`` plus the hot job's KV cap (probe
+    oracle) holding phase 10's first TrainJob and a hot paged ServeJob
+    (seed 0); phase 4's first requests before ``run_async``, the rest
+    once training runs.  Gates: the handle is not done at once, and
+    ``run_async`` / ``run`` raise "already in flight"; every request gets
+    GEN tokens; each request submitted mid-run decodes a token between
+    two shard units; losses equal ``ref_losses`` at 3e-4; the paged
+    kernel launches decode_steps x layers times; the ledger ends at 0
+    reserved; ``result()`` gives the same report twice; a second
+    ``run_async`` serves one more request; a loader that raises after
+    its first batch makes ``result()`` raise its error."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import HydraConfig, ServeJob, Session
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.paged_attention import paged_attention_lanes
+    from repro_torch.models.registry import spec as family_spec
+    from repro_torch.serving.paging import blocks_for_rows
+
+    max_seq = max(len(p) for p in prompts) + GEN
+    cap = (CAPACITY * blocks_for_rows(max_seq, BS)
+           * family_spec(cfg).kv_block_bytes(cfg, BS))
+    session = Session(HydraConfig(n_devices=1,
+                                  device_budget_bytes=budget + cap,
+                                  partition_oracle="probe"),
+                      device=device, profile=None)
+    tid = session.submit(probe_train_job(cfg))
+    hot = session.submit(ServeJob(cfg, seed=0, name=cfg.name,
+                                  capacity=CAPACITY, max_seq=max_seq,
+                                  backend="paged", block_size=BS))
+    reqs = [session.submit_request(hot, p, GEN, request_id=f"r{i}")
+            for i, p in enumerate(prompts[:ASYNC_FIRST])]
+    ticks = []          # (units done, {request id: tokens}) after a tick
+    tick = session.serve_tick
+
+    def traced():
+        out = tick()
+        ticks.append((len(session.unit_trace),
+                      {r.request_id: len(r.generated) for r in reqs}))
+        return out
+    session.serve_tick = traced
+
+    _sync(device)
+    paged_attention_lanes.launches = 0   # count this path's run only
+    t0 = time.perf_counter()
+    handle = session.run_async()
+    done_at_once = handle.done()
+    refused = {}
+    for name, call in (("run_async", session.run_async),
+                       ("run", session.run)):
+        try:
+            call()
+            refused[name] = None
+        except RuntimeError as e:
+            refused[name] = str(e)
+    statuses = set()
+    while session.poll(tid)["status"] != "running":
+        if handle.done():
+            break
+        statuses.add(session.poll(tid)["status"])
+        time.sleep(0.002)
+    units_at_submit = len(session.unit_trace)
+    mid = [session.submit_request(hot, p, GEN, request_id=f"r{i}")
+           for i, p in enumerate(prompts[ASYNC_FIRST:], ASYNC_FIRST)]
+    reqs += mid
+    while not handle.done():
+        statuses.add(session.poll(tid)["status"])
+        time.sleep(0.01)
+    report = handle.result(timeout=600)
+    _sync(device)
+    wall = time.perf_counter() - t0
+    launches = paged_attention_lanes.launches
+    units = report.train.units_executed
+    hrec = report.serve[hot]
+    losses = report.train.losses[0]
+    mid_between = {}
+    for r in mid:
+        prev = 0
+        mid_between[r.request_id] = 0
+        for u, gen in ticks:
+            n = gen.get(r.request_id, 0)
+            if n > prev and 0 < u < units:
+                mid_between[r.request_id] += n - prev
+            prev = n
+    same_twice = handle.result() is report
+    dm = session.devices[0]
+    extra = session.submit_request(hot, prompts[0], GEN, request_id="extra")
+    again = session.run_async().result(timeout=600)
+    res = {"budget_bytes": budget + cap, "kv_cap": cap,
+           "done_at_once": done_at_once, "refused": refused,
+           "statuses_seen": sorted(statuses),
+           "units_at_submit": units_at_submit, "units": units,
+           "wall_s": wall, "launches": launches,
+           "decode_steps": hrec["decode_steps"],
+           "tokens": {r.request_id: len(r.generated) for r in reqs},
+           "mid_tokens_between_units": mid_between,
+           "losses": losses, "ref_losses": ref_losses,
+           "max_abs_loss_diff": float(np.abs(np.subtract(losses,
+                                                         ref_losses)).max()),
+           "kv_reserved_after": dm.kv_reserved_bytes,
+           "same_report_twice": same_twice,
+           "second_run_completed": again.serve[hot]["n_completed"],
+           "extra_tokens": len(extra.generated),
+           "shards": [(s.seg_lo, s.seg_hi)
+                      for s in session.train_execs[0].partition.shards],
+           "decode_tok_per_s": hrec.get("decode_tok_per_s")}
+    log(f"[probe (c)] run_async, {cfg.name} train + hot paged serve, "
+        f"budget {budget} + KV cap {cap} B: done at once {done_at_once}, "
+        f"a second run_async / run refused: {refused}; {ASYNC_FIRST} "
+        f"requests before, {len(mid)} submitted at unit {units_at_submit} "
+        f"of {units}; tokens {res['tokens']}; mid-run requests' tokens "
+        f"decoded between two shard units {mid_between}; paged launches "
+        f"{launches} for {hrec['decode_steps']} decode steps; wall "
+        f"{wall:.2f} s; shards {res['shards']}; decode "
+        f"{res['decode_tok_per_s']} tok/s ({smi})")
+    log(f"[probe (c)] losses {losses} vs phase 10 {ref_losses} (max abs "
+        f"diff {res['max_abs_loss_diff']:.3g}); kv reserved after "
+        f"{dm.kv_reserved_bytes}; result() twice the same report "
+        f"{same_twice}; a second run_async served {len(extra.generated)} "
+        f"tokens of one more request ({res['second_run_completed']} "
+        f"completed in all)")
+    if done_at_once or any(v is None or "already in flight" not in v
+                           for v in refused.values()):
+        fail(f"probe (c): the async run was done at once ({done_at_once}) "
+             f"or a second run was not refused: {refused}")
+    if any(n != GEN for n in res["tokens"].values()) or len(reqs) != 8:
+        fail(f"probe (c): tokens {res['tokens']} (expected {GEN} each)")
+    if not mid or any(v < 1 for v in mid_between.values()):
+        fail(f"probe (c): a request submitted mid-run decoded no token "
+             f"between two shard units: {mid_between}")
+    if not np.allclose(losses, ref_losses, rtol=SHARP_TOL, atol=SHARP_TOL):
+        fail(f"probe (c): losses {losses} differ from phase 10's "
+             f"{ref_losses}")
+    if device == "cuda" and (launches == 0 or launches
+                             != hrec["decode_steps"] * cfg.n_layers):
+        fail(f"probe (c): paged_attention launched {launches} times; "
+             f"expected decode_steps x layers = "
+             f"{hrec['decode_steps'] * cfg.n_layers}")
+    if dm.kv_reserved_bytes != 0 or not same_twice \
+            or len(extra.generated) != GEN:
+        fail(f"probe (c): kv reserved after {dm.kv_reserved_bytes}, the "
+             f"same report twice {same_twice}, the second run's request "
+             f"{len(extra.generated)} tokens")
+    del session, report, again, reqs
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    # a loader that raises after its first batch: result() re-raises it
+    scfg = get_config(cfg.name, smoke=True)
+    failing = Session(HydraConfig(n_devices=1,
+                                  device_budget_bytes=10**9,
+                                  partition_oracle="probe"),
+                      device=device, profile=None)
+    failing.submit(probe_train_job(scfg, _exploding_loader(scfg)))
+    try:
+        failing.run_async().result(timeout=600)
+        res["failure_raised"] = None
+    except RuntimeError as e:
+        res["failure_raised"] = str(e)
+    log(f"[probe (c)] a loader raising after its first batch: result() "
+        f"raised {res['failure_raised']!r}")
+    if res["failure_raised"] is None \
+            or "after its first batch" not in res["failure_raised"]:
+        fail("probe (c): a failing run's result() did not raise its error")
+    return res
+
+
+def phase_quickstart_grad(cfg, smi, device="cuda"):
+    """21 (d): ``examples/quickstart_torch.py``'s ``main()`` in process
+    (its own assertion is the gate), and ``make_grad_step`` on one batch
+    of phase 10 at full width: the global norm of its grads equals
+    ``make_train_step``'s ``grad_norm`` at 2e-4."""
+    import importlib.util
+
+    import torch
+
+    from repro_torch.data.pipeline import as_tensors
+    from repro_torch.models import api
+    from repro_torch.optim import optimizers as opt
+    from repro_torch.training import make_grad_step, make_train_step
+
+    spec = importlib.util.spec_from_file_location(
+        "quickstart_torch", ROOT / "examples" / "quickstart_torch.py")
+    qs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(qs)
+    t0 = time.perf_counter()
+    quick = qs.main(device=device)
+    quick_s = time.perf_counter() - t0
+    params = api.init_params(cfg, torch.Generator(device).manual_seed(0),
+                             device)
+    batch = as_tensors(next(iter(train_loader(cfg, 0))), device)
+    grads, metrics = make_grad_step(cfg)(params, batch)
+    gnorm = float(opt.global_norm(grads))
+    loss = float(metrics["loss"])
+    del grads
+    ocfg = opt.OptimizerConfig(kind="adamw", lr=TRAIN_LRS[0], grad_clip=0.0)
+    _, _, tm = make_train_step(cfg, ocfg)(params, opt.init_state(ocfg,
+                                                                 params),
+                                          batch)
+    ref_norm, ref_loss = float(tm["grad_norm"]), float(tm["loss"])
+    res = {"quickstart": {str(k): v for k, v in quick.items()},
+           "quickstart_s": quick_s, "grad_norm": gnorm,
+           "train_step_grad_norm": ref_norm, "loss": loss,
+           "train_step_loss": ref_loss}
+    log(f"[probe (d)] examples/quickstart_torch.py main() on {device}: "
+        f"model 0 {quick[0]} = sequential {quick['reference']} (its own "
+        f"assertion) in {quick_s:.2f} s; make_grad_step at full width: "
+        f"grad norm {gnorm} vs make_train_step's {ref_norm}, loss {loss} "
+        f"vs {ref_loss} ({smi})")
+    if abs(gnorm - ref_norm) > 2e-4 * (1 + abs(ref_norm)) \
+            or abs(loss - ref_loss) > 2e-4 * (1 + abs(ref_loss)):
+        fail(f"probe (d): make_grad_step's grad norm {gnorm} / loss {loss} "
+             f"differ from make_train_step's {ref_norm} / {ref_loss}")
+    del params, batch
+    return res
+
+
+def phase_probe_async(cfg, smi, prompts, ref_losses, ref_tok_s,
+                      budget=PROBE_BUDGET, device="cuda"):
+    """Phase 21: (a) the probe plan, (b) the saved plan run by a fresh
+    session, (c) run_async with serving, (d) the quickstart and
+    ``make_grad_step``."""
+    import torch
+    t0 = time.perf_counter()
+    path = ROOT / "build" / "probe_plan.json"
+    path.parent.mkdir(exist_ok=True)
+    out = {"a": phase_probe_plan(cfg, smi, budget, path, device)}
+    out["b"] = phase_saved_plan_run(cfg, smi, budget, path, out["a"],
+                                    ref_losses, ref_tok_s, device)
+    out["c"] = phase_async_serve(cfg, smi, budget, prompts, ref_losses,
+                                 device)
+    out["d"] = phase_quickstart_grad(cfg, smi, device)
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"[probe] phase wall {out['phase_s']:.2f} s ({smi})")
+    return out
+
+
 
 def kernel_entry(name, source, replaces, launches, m, **paths):
     """One kernel's entry of the kernels line; ``paths``: its launches on
@@ -4224,6 +4725,14 @@ def main() -> None:
     #     f32 engines
     report["tiering"] = phase_tiering(cfg, smi)
     torch.cuda.empty_cache()
+
+    # 21. planning and the async session: the probe oracle at full width,
+    #     its plan saved and run by a fresh session, run_async beside a
+    #     hot paged serve job, the quickstart and make_grad_step
+    report["probe_async"] = phase_probe_async(
+        cfg, smi, prompts, report["sharp_train"]["losses"][0],
+        report["sharp_train"]["trained_tok_per_s"])
+    torch.cuda.empty_cache()
     report["total_s"] = time.perf_counter() - t_start
 
     src = "src/repro_torch/kernels/csrc/"
@@ -4232,7 +4741,8 @@ def main() -> None:
                      "src/repro/kernels/paged_attention.py:76",
                      report["serve"]["launches"], main_path,
                      tiered_launches=report["tiering"]["a"]["tiered"][
-                         "launches"]),
+                         "launches"],
+                     async_launches=report["probe_async"]["c"]["launches"]),
         kernel_entry("paged_verify_lanes", src + "paged_verify.cu",
                      "src/repro/kernels/paged_verify.py:81",
                      report["spec_random"]["launches"], verify_path),

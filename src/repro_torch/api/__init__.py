@@ -9,15 +9,17 @@ jobs under one device budget.
     session.submit(TrainJob(cfg, loader, lr=1e-3, epochs=1))
     session.submit(ServeJob(cfg, params=weights, cold=True))
     plan = session.plan()        # JSON-serializable
-    report = session.run(plan)
+    plan.save("plan.json")       # ... and Plan.load("plan.json") later
+    report = session.run(plan)   # or session.run_async(plan).result()
 """
 
 from repro_torch.api.jobs import (EvalJob, JobSpec, ServeJob, SpmdTrainJob,
                                   TrainJob)
 from repro_torch.api.plan import JobPlan, Plan
-from repro_torch.api.session import JobState, Session, SessionReport
+from repro_torch.api.session import (AsyncRun, JobState, Session,
+                                     SessionReport)
 from repro_torch.core.sharp import HydraConfig
 
-__all__ = ["Session", "SessionReport", "JobState", "JobSpec", "TrainJob",
-           "EvalJob", "ServeJob", "SpmdTrainJob", "Plan", "JobPlan",
-           "HydraConfig"]
+__all__ = ["Session", "SessionReport", "AsyncRun", "JobState", "JobSpec",
+           "TrainJob", "EvalJob", "ServeJob", "SpmdTrainJob", "Plan",
+           "JobPlan", "HydraConfig"]

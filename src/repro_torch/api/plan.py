@@ -108,6 +108,15 @@ class Plan:
                    jobs=[JobPlan(**j) for j in d["jobs"]],
                    version=d["version"])
 
+    def save(self, path: str) -> None:
+        with open(path, "w") as f:
+            f.write(self.to_json(indent=1))
+
+    @classmethod
+    def load(cls, path: str) -> "Plan":
+        with open(path) as f:
+            return cls.from_json(f.read())
+
     # -- reporting ----------------------------------------------------------
     def summary(self) -> dict:
         out: dict[str, Any] = {

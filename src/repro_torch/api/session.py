@@ -20,8 +20,17 @@ promotes them — the whole tree (``residency="model"``), or shard by shard
 under one cross-model LRU (``residency="shard"``).  Plans are priced by a
 ``profiler.CostModel``: against the measured facts of ``python -m
 repro_torch.profiler`` when a fresh profile is given or found
-(``profile="auto"``), else by the analytic priors.
-SPMD jobs and ``run_async`` come with later slices of the port.
+(``profile="auto"``), else by the analytic priors.  ``run_async`` runs
+the same thing on a background thread (``AsyncRun``); ``poll`` and
+``submit_request`` stay live while it runs.  SPMD jobs come with a later
+slice of the port.
+
+Threads and CUDA: a session's tensors name its device explicitly, and
+every stream a run uses is the calling thread's current stream, read at
+use (the kernels read ``torch.cuda.current_stream`` at launch); the one
+side stream (``serving.paging.HostBlockPool``) is ordered against the
+current stream by events recorded and waited on at use, never captured
+from the thread that built it.
 """
 
 from __future__ import annotations
@@ -134,8 +143,10 @@ class Session:
         self._serve_names: dict[str, str] = {}  # routing name -> job_id
         self._materialized: set[str] = set()
         self._results: dict[str, dict] = {}     # finished eval jobs
-        # serializes engine construction / promotion against a tick loop
-        # walking the engine dict
+        self._async_run: Optional["AsyncRun"] = None
+        # serializes engine construction / promotion against the run
+        # thread: run_async advertises live submit_request, which may
+        # lazily build an engine while serve_tick walks the engine dict
         self._engine_lock = threading.Lock()
         # capped ring: a session serving forever must not grow its tick
         # trace without bound
@@ -604,7 +615,7 @@ class Session:
             budget_bytes=budget,
             batch=batch, seq=seq, oracle=self.hc.partition_oracle,
             buffer_frac=self.hc.buffer_frac, train=train,
-            cost_model=self.cost)
+            cost_model=self.cost, device=self.device)
         return shard_plan, partition
 
     def _build_train(self, job: TrainJob, planned) -> ModelExec:
@@ -844,12 +855,43 @@ class Session:
         return ticks
 
     # -- execution ------------------------------------------------------------
+    def run_async(self, plan: Optional[Plan] = None, *,
+                  max_units: Optional[int] = None) -> "AsyncRun":
+        """``run`` on a background executor thread, returning immediately.
+
+        ``poll(job_id)`` stays live while the run is in flight (execution
+        state is mutated in place), so callers can watch training epochs
+        advance or serve queues drain and keep submitting requests against
+        running serve jobs.  One run at a time: a second ``run_async``
+        before the first finishes raises.
+        """
+        self._guard_single_run()
+        self._async_run = AsyncRun(self, plan, max_units)
+        return self._async_run
+
+    def _guard_single_run(self) -> None:
+        """Two executors over the same stores/ledgers/data iterators would
+        silently corrupt each other — refuse, whether the other run is the
+        async handle's or another thread's plain run()."""
+        if self._async_run is not None and not self._async_run.done():
+            raise RuntimeError(
+                "a session run is already in flight; wait on its handle "
+                "(AsyncRun.result) before starting another")
+
     def run(self, plan: Optional[Plan] = None, *,
             max_units: Optional[int] = None) -> SessionReport:
         """Execute a Plan: SHARP training with serve ticks between shard
         units, then eval jobs (serve ticks between their shard units),
         then the serving drain."""
+        self._guard_single_run()
+        return self._run_impl(plan, max_units)
+
+    def _run_impl(self, plan: Optional[Plan],
+                  max_units: Optional[int]) -> SessionReport:
         wall0 = time.perf_counter()
+        # under the engine lock: a concurrent submit_request during an
+        # async run materializes lazily via engine(), and two builders for
+        # one job would double-init params and clobber cold-serve state
         with self._engine_lock:
             if plan is None:
                 self._materialize()
@@ -957,3 +999,42 @@ class Session:
         """ModelExecs ordered by model_id (ModelOrchestrator compat)."""
         self._materialize()
         return sorted(self._train_execs.values(), key=lambda m: m.model_id)
+
+
+class AsyncRun:
+    """Handle for a background ``Session.run`` (``Session.run_async``).
+
+    ``done()`` is non-blocking; ``result(timeout)`` joins the executor
+    thread and either returns the ``SessionReport`` or re-raises whatever
+    the run raised — a failed background run never disappears silently.
+    """
+
+    def __init__(self, session: Session, plan: Optional[Plan],
+                 max_units: Optional[int]):
+        self._report: Optional[SessionReport] = None
+        self._exc: Optional[BaseException] = None
+
+        def _main():
+            try:
+                # _run_impl, not run(): the single-run guard would see THIS
+                # handle as the in-flight run and refuse its own execution
+                self._report = session._run_impl(plan, max_units)
+            except BaseException as e:          # re-raised in result()
+                self._exc = e
+
+        self._thread = threading.Thread(
+            target=_main, name="hydra-session-run", daemon=True)
+        self._thread.start()
+
+    def done(self) -> bool:
+        return not self._thread.is_alive()
+
+    def result(self, timeout: Optional[float] = None) -> SessionReport:
+        self._thread.join(timeout)
+        if self._thread.is_alive():
+            raise TimeoutError(
+                f"session run still executing after {timeout} s")
+        if self._exc is not None:
+            raise self._exc
+        assert self._report is not None
+        return self._report

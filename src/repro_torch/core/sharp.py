@@ -91,12 +91,7 @@ class HydraConfig:
             raise ValueError(
                 f"unknown scheduler {self.scheduler!r}: choose one of "
                 f"{sorted(sched.SCHEDULERS)}")
-        if self.partition_oracle == "probe":
-            raise NotImplementedError(
-                "partition_oracle='probe' (XLA's compiled-memory analysis of "
-                "a pilot run per candidate shard) has no port yet; it comes "
-                "with a later slice of the port. Use 'analytic'")
-        if self.partition_oracle != "analytic":
+        if self.partition_oracle not in ("analytic", "probe"):
             raise ValueError(
                 f"unknown partition_oracle {self.partition_oracle!r}: "
                 "choose 'analytic' or 'probe'")
@@ -198,7 +193,9 @@ class ShardFunctions:
         return run
 
     def _step(self, own, g_own, opt_state):
-        return opt.update(self.opt_cfg, own, g_own, opt_state)
+        # in place on the promoted copies: the unit's peak holds one
+        # leaf's temporaries, not a second copy of params and moments
+        return opt.update_(self.opt_cfg, own, g_own, opt_state)
 
 
 @dataclass
@@ -343,19 +340,23 @@ class SharpExecutor:
                 _sync(dev)
                 return res, max(time.perf_counter() - t0, 1e-7)
 
+            # each loop drops a shard's promoted copies and gradients
+            # before promoting the next, as the units do
             for shard in m.partition.shards:
-                own, shared = m.store.promote_shard_params(shard)
                 acts[shard.index] = act
                 (act, _), shard.fwd_runtime = timed(
-                    m.fns.fwd(shard), own, shared, act, batch)
+                    m.fns.fwd(shard), *m.store.promote_shard_params(shard),
+                    act, batch)
+            del act                  # the logits: no backward reads them
             for shard in reversed(m.partition.shards):
-                own, shared = m.store.promote_shard_params(shard)
-                args = (own, shared, acts[shard.index])
+                args = (*m.store.promote_shard_params(shard),
+                        acts[shard.index])
                 if shard.index != len(m.partition.shards) - 1:
                     args += (cot,)
                 res, shard.bwd_runtime = timed(m.fns.bwd(shard), *args,
                                                batch)
                 cot = res[-1]
+                del args, res
             for shard in m.partition.shards:
                 shard.est_runtime = shard.fwd_runtime + shard.bwd_runtime
 
@@ -374,8 +375,12 @@ class SharpExecutor:
             m.saved_acts[("entry", shard.index)] = act_in
             out, loss = m.fns.fwd(shard)(own, shared, act_in, batch)
             if shard.index == len(m.partition.shards) - 1:
+                # the last exit (the logits) is no shard's entry, and its
+                # backward recomputes it: keeping it would hold a
+                # logits-sized tensor through that backward unit
                 m.losses.append(float(loss))
-            m.saved_acts[("exit", shard.index)] = out
+            else:
+                m.saved_acts[("exit", shard.index)] = out
         else:
             own, shared, opt_state = m.store.promote_shard(shard)
             act_in = m.saved_acts[("entry", shard.index)]

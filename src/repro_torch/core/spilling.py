@@ -154,8 +154,10 @@ class HostModelStore:
             ref = self.plan.shared_refs[name]
             p = to_device(sg.resolve_ref(self.params, ref), self.device)
             s = to_device(self.shared_opt[name], self.device)
-            new_p, new_s = opt.update(self.opt_cfg, p,
-                                      to_device(g, self.device), s)
+            # in place on the promoted copies (the shared table is the
+            # largest tensor a step touches)
+            new_p, new_s = opt.update_(self.opt_cfg, p,
+                                       to_device(g, self.device), s)
             sg.update_with_ref(self.params, ref, new_p)
             tree_map(lambda dst, src: dst.copy_(src), self.shared_opt[name],
                      new_s)

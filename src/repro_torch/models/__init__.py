@@ -3,8 +3,8 @@ ssm (xLSTM) and hybrid (Mamba2 + shared attention), behind the
 family-agnostic ``api``."""
 
 from repro_torch.models.api import (decode_step, forward, init_decode_state,
-                                    init_params, make_dummy_batch,
-                                    param_count)
+                                    init_params, input_specs,
+                                    make_dummy_batch, param_count)
 
 __all__ = ["init_params", "forward", "decode_step", "init_decode_state",
-           "make_dummy_batch", "param_count"]
+           "input_specs", "make_dummy_batch", "param_count"]

@@ -1,6 +1,5 @@
 """Unified model API: dispatch on ``cfg.family`` through the FamilySpec
-registry (port of ``repro.models.api``; no ``input_specs``, which only
-the JAX dry-run reads)."""
+registry (port of ``repro.models.api``)."""
 
 from __future__ import annotations
 
@@ -11,6 +10,11 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs import torch_dtype
 from repro_torch.models import registry
+
+
+def family_spec(cfg) -> registry.FamilySpec:
+    """The registered FamilySpec for ``cfg`` (or a family name)."""
+    return registry.spec(cfg)
 
 
 def family_module(cfg):
@@ -188,3 +192,30 @@ def paged_verify_step(cfg, params, pages, tables, lengths, tokens, *,
 def decode_state_bytes(cfg, batch: int, max_seq: int) -> int:
     """Residency cost of one decode state (KV-budget admission control)."""
     return registry.spec(cfg).decode_state_bytes(cfg, batch, max_seq)
+
+
+# ---------------------------------------------------------------------------
+# input specs (dry-run stand-ins)
+# ---------------------------------------------------------------------------
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg, shape, *, kind: Optional[str] = None) -> dict:
+    """Meta-tensor inputs for (arch, input shape): the shapes of the JAX
+    package's ``ShapeDtypeStruct``s, in the dtypes of the batches the
+    port's loaders give (int64 tokens and labels).
+
+    kind 'train'/'prefill' -> full-sequence batch; 'decode' -> one token.
+    """
+    kind = kind or shape.kind
+    b, s = shape.global_batch, shape.seq_len
+    if cfg.family in ("audio", "vlm"):
+        raise NotImplementedError(
+            f"input_specs for the {cfg.family} family ({cfg.name}): the "
+            "family comes with ROADMAP Queue 1 item 8 of the port")
+    if kind == "decode":
+        return {"tokens": _meta((b, 1), torch.int64)}
+    return {"tokens": _meta((b, s), torch.int64),
+            "labels": _meta((b, s), torch.int64)}

@@ -109,3 +109,16 @@ def spec(family_or_cfg) -> FamilySpec:
         raise KeyError(f"model family {family!r} is not ported to "
                        f"repro_torch yet (have {sorted(_FAMILY_MODULES)})")
     return _REGISTRY[family]
+
+
+def registered_families() -> tuple[str, ...]:
+    """Every ported family name, importing lazily as needed."""
+    for fam in _FAMILY_MODULES:
+        spec(fam)
+    return tuple(sorted(_REGISTRY))
+
+
+def families_with(capability: str) -> tuple[str, ...]:
+    """Family names declaring ``capability`` True (registry-wide query)."""
+    return tuple(f for f in registered_families()
+                 if getattr(spec(f), capability))

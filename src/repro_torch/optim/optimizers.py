@@ -4,8 +4,10 @@
 Optimizer state is a tree mirroring the params, and ``update`` is a pure
 function that works on any sub-tree, so Hydra steps a shard's params and
 its state slice on the device while the rest of the model is spilled.
-``update`` writes nothing in place: it returns new tensors, so a shard
-promoted from the host store never aliases the master copy it came from.
+``update_`` steps in place, for SHARP's promoted copies: a unit's step
+then holds one leaf's temporaries instead of a second copy of the
+shard's params and moments.  ``update`` runs it on copies and writes
+nothing it was given.
 """
 
 from __future__ import annotations
@@ -96,45 +98,47 @@ def update(cfg: OptimizerConfig, params, grads, state, *,
     ``grad_norm``: pass the *global* norm when stepping a shard so clipping
     matches full-model training exactly.
     """
+    return update_(cfg, tree_map(torch.clone, params), grads,
+                   tree_map(torch.clone, state), grad_norm=grad_norm)
+
+
+def update_(cfg: OptimizerConfig, params, grads, state, *,
+            grad_norm: Optional[torch.Tensor] = None):
+    """``update`` in place: the new params and state are written into the
+    tensors of ``params`` and ``state``, leaf by leaf, and returned.  A
+    step holds one leaf's temporaries.  For tensors the caller owns:
+    SHARP's promoted copies, never a master copy."""
     if cfg.grad_clip > 0:
         grads, _ = clip_by_global_norm(grads, cfg.grad_clip, grad_norm)
     step = state["step"] + 1
     lr = schedule_lr(cfg, step)
+    ps, gs = tree_leaves(params), tree_leaves(grads)
 
     if cfg.kind == "adamw":
         b1, b2 = cfg.b1, cfg.b2
-        mu = tree_map(lambda m, g: b1 * m + (1 - b1) * g, state["mu"], grads)
-        nu = tree_map(lambda v, g: b2 * v + (1 - b2) * torch.square(g),
-                      state["nu"], grads)
         t = step.float()
         bc1 = 1 - torch.pow(b1, t)
         bc2 = 1 - torch.pow(b2, t)
-
-        def upd(p, m, v):
-            mhat = m / bc1
-            vhat = v / bc2
-            return (p - lr * (mhat / (torch.sqrt(vhat) + cfg.eps)
-                              + cfg.weight_decay * p)).to(p.dtype)
-
-        new_params = tree_map(upd, params, mu, nu)
-        return new_params, {"mu": mu, "nu": nu, "step": step}
-
-    if cfg.kind == "sgd":
-        mom = tree_map(lambda m, g: cfg.momentum * m + g, state["mom"], grads)
-        new_params = tree_map(
-            lambda p, m: (p - lr * (m + cfg.weight_decay * p)).to(p.dtype),
-            params, mom)
-        return new_params, {"mom": mom, "step": step}
-
-    if cfg.kind == "lion":
+        for p, m, v, g in zip(ps, tree_leaves(state["mu"]),
+                              tree_leaves(state["nu"]), gs):
+            m.mul_(b1).add_((1 - b1) * g)
+            v.mul_(b2).add_((1 - b2) * torch.square(g))
+            denom = torch.div(v, bc2).sqrt_().add_(cfg.eps)
+            upd = torch.div(m, bc1).div_(denom)
+            del denom
+            upd.add_(cfg.weight_decay * p).mul_(lr)
+            p.sub_(upd)
+    elif cfg.kind == "sgd":
+        for p, m, g in zip(ps, tree_leaves(state["mom"]), gs):
+            m.mul_(cfg.momentum).add_(g)
+            p.sub_(torch.add(m, cfg.weight_decay * p).mul_(lr))
+    elif cfg.kind == "lion":
         b1, b2 = cfg.b1, cfg.b2
-
-        def upd(p, m, g):
+        for p, m, g in zip(ps, tree_leaves(state["mu"]), gs):
             direction = torch.sign(b1 * m + (1 - b1) * g)
-            return (p - lr * (direction + cfg.weight_decay * p)).to(p.dtype)
-
-        new_params = tree_map(upd, params, state["mu"], grads)
-        mu = tree_map(lambda m, g: b2 * m + (1 - b2) * g, state["mu"], grads)
-        return new_params, {"mu": mu, "step": step}
-
-    raise ValueError(cfg.kind)
+            p.sub_(direction.add_(cfg.weight_decay * p).mul_(lr))
+            m.mul_(b2).add_((1 - b2) * g)
+    else:
+        raise ValueError(cfg.kind)
+    state["step"].copy_(step)
+    return params, state

@@ -9,8 +9,8 @@ answer inline, and records *how* it answered in ``self.provenance``:
   ``flops_weight × param_bytes × 1e-12`` byte-identically.
 * ``tok_seconds``          — the per-token decode prior; analytic fallback
   is ``2e-10 × n_active_params``, measured answers interpolate the probe
-  grid.  (Its serving consumers, the serve half of ``Session``, come
-  with a later slice of the port.)
+  grid.  ``Session`` reads it for a serve job's plan meta and engine
+  prior, and the serving engine starts its SLO estimates from it.
 * ``prefill_seconds`` / ``decode_step_seconds`` — TTFT-style estimates
   over the measured (batch, seq) grid.
 * ``transfer_seconds``     — host↔device movement cost from the measured

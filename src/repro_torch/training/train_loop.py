@@ -3,7 +3,8 @@
 
 ``make_train_step(cfg, opt_cfg)`` returns ``step(params, opt_state,
 batch) -> (params, opt_state, metrics)``: gradients by autograd over the
-whole model, then one optimizer update that returns new tensors.  The
+whole model, then one optimizer update that returns new tensors;
+``make_grad_step(cfg)`` stops at the gradients.  The
 serving factories run under ``torch.no_grad``.
 """
 
@@ -82,6 +83,18 @@ def make_train_step(cfg, opt_cfg: opt.OptimizerConfig, *,
         return new_params, new_state, dict(metrics, grad_norm=gnorm)
 
     return train_step
+
+
+def make_grad_step(cfg, *, window: Optional[int] = None):
+    """Gradient-only step (Hydra's shard executor owns the optimizer):
+    ``grad_step(params, batch) -> (grads, metrics)``."""
+    loss_fn = make_loss_fn(cfg, window=window)
+
+    def grad_step(params, batch):
+        (_, metrics), grads = _value_and_grad(loss_fn, params, batch)
+        return grads, metrics
+
+    return grad_step
 
 
 def make_prefill_into_cache(cfg, *, window: Optional[int] = None):

@@ -9,7 +9,8 @@
   asking for the CUDA kernel on CPU tensors raises.
 * What is not ported yet raises ``NotImplementedError`` naming the slice
   or the ROADMAP item it comes with; the options of an item since ported
-  (tiered memory, item 5) build as the JAX package's do.
+  (tiered memory, item 5; the probe oracle, item 6) build as the JAX
+  package's do.
 * Each subpackage exports what the JAX one's ``__all__`` lists, except
   the names of unported items, each listed with its ROADMAP item.
 """
@@ -215,7 +216,7 @@ def _mesh_train_step(cfg):
 
 @pytest.mark.parametrize("build,match", [
     (_serve_job, None), (_spmd_job, "sharding slice"),
-    (_probe_oracle, "later slice"), (_mesh_train_step, "sharding slice"),
+    (_probe_oracle, None), (_mesh_train_step, "sharding slice"),
 ], ids=["serve-job", "spmd-job", "probe-oracle", "mesh"])
 def test_unported_session_options_raise(build, match):
     """``match`` None: the option has been ported and builds."""
@@ -324,14 +325,12 @@ def test_fused_paged_impl_is_ported():
 # JAX exports the port does not have yet, by the ROADMAP Queue 1 item that
 # brings each
 UNPORTED_EXPORTS = {
-    "models": {"input_specs": 7},
-    "training": {"make_grad_step": 7, "moe_total_loss": 8,
-                 "make_prefill_step": 9, "decode_window_for": 9},
+    "training": {"moe_total_loss": 8, "make_prefill_step": 9,
+                 "decode_window_for": 9},
     "checkpoint": {"save": 9, "restore": 9, "latest_step": 9},
     "serving": {"ServingFrontend": 9, "HydraHTTPServer": 9,
                 "encode_prompt": 9},
-    "api": {"AsyncRun": 7},
-    "configs": {"ASSIGNED_ARCHS": 8, "INPUT_SHAPES": 9, "InputShape": 9},
+    "configs": {"ASSIGNED_ARCHS": 8},
 }
 
 

@@ -101,9 +101,12 @@ def test_partition_matches_jax(arch, train):
         assert [vars(s) for s in r.shards] == [vars(s) for s in jr.shards]
         assert (r.shared_bytes, r.budget_bytes, r.oracle) == \
             (jr.shared_bytes, jr.budget_bytes, jr.oracle)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        pt.partition(cfg, params, sg.build_plan(cfg), budget_bytes=budget,
-                     batch=2, seq=SEQ, oracle="probe")
+    probed = pt.partition(cfg, params, sg.build_plan(cfg),
+                          budget_bytes=budget, batch=2, seq=SEQ,
+                          oracle="probe", train=train, device="cpu")
+    segs = [i for s in probed.shards for i in range(s.seg_lo, s.seg_hi)]
+    assert segs == list(range(len(sg.build_plan(cfg).segments)))
+    assert probed.oracle == "probe"
 
 
 # ---------------------------------------------------------------------------
