@@ -225,18 +225,52 @@ Phases (any failure exits non-zero before the result line):
    more request, a loader raising after its first batch makes
    ``result()`` raise it.  (d) ``examples/quickstart_torch.py``'s
    ``main()`` on the card (its own assertion), and ``make_grad_step``'s
-   grad norm equal to ``make_train_step``'s at 2e-4 at full width.
+   grad norm equal to ``make_train_step``'s at 2e-4 at full width;
+22. ROADMAP item 8 up to MoE at full width (each model freed before the
+   next; every depth cut printed, widths as published) — (a) the paged
+   kernel (bf16 2e-2, f32 2e-5), the int8 kernel and verify (k 1, 4, 5)
+   at 5, 6, 7 and 12 query heads per KV head (8 KV heads of 128, phase
+   3's ragged lengths, garbage lane and window case), the fused layer at
+   qwen2.5-32b's, yi-34b's and command-r-plus-104b's d and f, flash at
+   mixtral's 48/8 heads, s 8192, window 4096, each with its times, bound
+   and SDPA's; (b) those three configs cut to 2 layers (f32 params seeded
+   on the card, bf16 compute) serving phase 4's requests, 16 new tokens
+   each, on the paged backend: launches = decode_steps x 2, one decode
+   step both ways and the fused kernel against its plain version
+   (LOGIT_REL on the mean abs logit difference: bf16 steps at these
+   widths do not repeat in the max); (c) mixtral-8x22b and
+   dbrx-132b at 2 layers through ``InferenceEngine``: a paged, bucketed
+   engine falls back to slot without buckets, the requests get exactly
+   16 tokens each on the slot backend, tok/s, each prefill's
+   frac_dropped, a profiled decode step; (d) an ``EvalJob`` of 1 x 8192
+   over (c)'s mixtral through the MoE shard plan (2 shards at 15 GB), flash
+   and plain: flash launches = 2, one full forward both ways with the
+   route flips against f32, the kernel at layer 0's q/k/v; (e) mixtral at
+   1 layer under SHARP (its 32.5 GB pinned store held against half of
+   ``MemAvailable``), 2 AdamW steps of 2 x 1024 at the least budget that
+   cuts the analytic plan in two: units = steps x 2 x shards, the ledger
+   in budget, losses, lb_loss and z_loss equal to plain training stepped
+   in place at 3e-4, each unit's peak beside its charge, the probe
+   oracle's partition beside the analytic one; (f) mixtral and dbrx smoke
+   slot engines give each prompt its tokens alone, command-r-plus smoke at
+   12 query heads per KV head gives identical tokens through the paged
+   kernel and the plain paged engine.  Alone: ``python3
+   tools/item8_phase.py``.
 
 Each kernel's launch count is zeroed just before the run of its own path
 (a serve run, the spilled eval, the profiler's ``build_facts`` for
 RMSNorm and SwiGLU, the zamba2 kernel forward for the SSD scan; the
 paged kernel's again before phase 17's session run, phase 19's serve
-runs, each of phase 20's tiered runs and phase 21 (c)'s async run, the
-int8 kernel's before phase 20 (c)) and read just after;
+runs, each of phase 20's tiered runs, phase 21 (c)'s async run and
+each of phase 22 (b)'s serves, the int8 kernel's before phase 20 (c),
+flash's before each of phase 22 (d)'s eval runs) and read just after;
 the kernel line reports it with the kernel's numbers at that path's
 inputs, the paged and int8 kernels' launches on the tiered path (phase
 20 (a) tiered, (c)) as ``tiered_launches``, and the paged kernel's on
-the async session path (phase 21 (c)) as ``async_launches``.
+the async session path (phase 21 (c)) as ``async_launches``; the paged
+kernel's summed over phase 22 (b)'s three wide dense serves as
+``wide_gqa_launches`` and flash's on phase 22 (d)'s MoE eval as
+``moe_eval_launches``.
 
 The second-to-last lines are a JSON object of per-kernel numbers and the
 card's ``nvidia-smi`` name/power line; the last line is
@@ -327,16 +361,17 @@ def cuda_ms(fn, iters: int = 20, flush=None) -> float:
 # phase 3: the paged-attention kernel against its plain version
 # ---------------------------------------------------------------------------
 
-def paged_bytes_flops(lengths, tables_width, dtype_bytes, q_bytes, n, window):
+def paged_bytes_flops(lengths, tables_width, dtype_bytes, q_bytes, n, window,
+                      nh=NH, nkv=NKV):
     """Least bytes a launch must move — q read, out written, the K and V
     rows each lane attends to (rows inside [length - window, length)),
     tables, lengths — and the flops it must do (q.k and p.v over those
-    rows), from these inputs."""
+    rows), from these inputs (``nh`` query, ``nkv`` KV heads of HD)."""
     rows = sum(int(le) - (max(0, int(le) - window) if window else 0)
                for le in lengths)
-    nbytes = (rows * NKV * HD * 2 * dtype_bytes
-              + 2 * n * NH * HD * q_bytes + 4 * n * tables_width + 4 * n)
-    flops = 4 * rows * NH * HD
+    nbytes = (rows * nkv * HD * 2 * dtype_bytes
+              + 2 * n * nh * HD * q_bytes + 4 * n * tables_width + 4 * n)
+    flops = 4 * rows * nh * HD
     return nbytes, flops
 
 
@@ -371,10 +406,11 @@ def measure_paged(q, kp, vp, tables, lengths, window, dtype_name, flush):
     # library yardstick: SDPA over K/V gathered and head-expanded ahead
     n, B = tables.shape
     S = B * BS
-    g = NH // NKV
+    nh, nkv = q.shape[1], kp.shape[2]
+    g = nh // nkv
     tl = tables.long()
-    k = kp[tl].reshape(n, S, NKV, HD).repeat_interleave(g, 2).transpose(1, 2)
-    v = vp[tl].reshape(n, S, NKV, HD).repeat_interleave(g, 2).transpose(1, 2)
+    k = kp[tl].reshape(n, S, nkv, HD).repeat_interleave(g, 2).transpose(1, 2)
+    v = vp[tl].reshape(n, S, nkv, HD).repeat_interleave(g, 2).transpose(1, 2)
     pos = torch.arange(S, device=q.device)[None, :]
     le = lengths.long()[:, None]
     mask = pos < le
@@ -400,17 +436,18 @@ def measure_paged(q, kp, vp, tables, lengths, window, dtype_name, flush):
         "library_ms": cuda_ms(lib, flush=flush),
     }
     nbytes, flops = paged_bytes_flops(
-        lengths.tolist(), B, kp.element_size(), q.element_size(), n, window)
+        lengths.tolist(), B, kp.element_size(), q.element_size(), n, window,
+        nh, nkv)
     set_bound(res, nbytes, flops, dtype_name)
     res["bytes"], res["flops"] = nbytes, flops
     del k, v
     return res
 
 
-def sweep_inputs(n, dtype, seed, max_len=4096):
+def sweep_inputs(n, dtype, seed, max_len=4096, nh=NH, nkv=NKV):
     """Ragged lengths 1..max_len with block boundaries, distinct random
     physical blocks per lane, the last lane inactive (all-garbage table,
-    length 1)."""
+    length 1); ``nh`` query and ``nkv`` KV heads of HD."""
     import numpy as np
     import torch
     rng = np.random.default_rng(seed)
@@ -430,9 +467,9 @@ def sweep_inputs(n, dtype, seed, max_len=4096):
         tables[i, :nb] = perm[at:at + nb]
         at += nb
     dev = "cuda"
-    q = torch.randn(n, NH, HD, device=dev).to(dtype)
-    kp = torch.randn(P, BS, NKV, HD, device=dev).to(dtype)
-    vp = torch.randn(P, BS, NKV, HD, device=dev).to(dtype)
+    q = torch.randn(n, nh, HD, device=dev).to(dtype)
+    kp = torch.randn(P, BS, nkv, HD, device=dev).to(dtype)
+    vp = torch.randn(P, BS, nkv, HD, device=dev).to(dtype)
     return (q, kp, vp, torch.from_numpy(tables).to(dev),
             torch.from_numpy(lengths.astype(np.int32)).to(dev))
 
@@ -468,7 +505,7 @@ def phase_kernel_sweep(flush):
 # ---------------------------------------------------------------------------
 
 def verify_bytes_flops(lengths, kq, tables_width, dtype_bytes, q_bytes, n,
-                       window):
+                       window, nh=NH, nkv=NKV):
     """Least bytes a verify launch must move — q read, out written, each
     lane's K/V rows [lo, lengths + k) once, tables, lengths — and its flops
     (q.k and p.v of every query row over the rows it attends), from these
@@ -482,9 +519,9 @@ def verify_bytes_flops(lengths, kq, tables_width, dtype_bytes, q_bytes, n,
         for i in range(kq):
             lo_i = max(0, le + i - window + 1) if window else 0
             qk_rows += max(0, min(le + i + 1, cap) - lo_i)
-    nbytes = (rows * NKV * HD * 2 * dtype_bytes
-              + 2 * n * kq * NH * HD * q_bytes + 4 * n * tables_width + 4 * n)
-    return nbytes, 4 * qk_rows * NH * HD
+    nbytes = (rows * nkv * HD * 2 * dtype_bytes
+              + 2 * n * kq * nh * HD * q_bytes + 4 * n * tables_width + 4 * n)
+    return nbytes, 4 * qk_rows * nh * HD
 
 
 def verify_mask(lengths, kq, S, window, device):
@@ -519,12 +556,12 @@ def measure_verify(q, kp, vp, tables, lengths, window, dtype_name, flush,
     ok = bool((diff <= tol + tol * exp[sel].float().abs()).all())
     finite = bool(torch.isfinite(out[sel]).all())
     n, B = tables.shape
-    kq = q.shape[1]
+    kq, nh, nkv = q.shape[1], q.shape[2], kp.shape[2]
     S = B * BS
-    g = NH // NKV
+    g = nh // nkv
     tl = tables.long()
-    k = kp[tl].reshape(n, S, NKV, HD).repeat_interleave(g, 2).transpose(1, 2)
-    v = vp[tl].reshape(n, S, NKV, HD).repeat_interleave(g, 2).transpose(1, 2)
+    k = kp[tl].reshape(n, S, nkv, HD).repeat_interleave(g, 2).transpose(1, 2)
+    v = vp[tl].reshape(n, S, nkv, HD).repeat_interleave(g, 2).transpose(1, 2)
     mask = verify_mask(lengths, kq, S, window, q.device)
     qh = q.transpose(1, 2)
 
@@ -547,14 +584,14 @@ def measure_verify(q, kp, vp, tables, lengths, window, dtype_name, flush,
     }
     nbytes, flops = verify_bytes_flops(
         lengths.tolist(), kq, B, kp.element_size(), q.element_size(), n,
-        window)
+        window, nh, nkv)
     set_bound(res, nbytes, flops, dtype_name)
     res["bytes"], res["flops"] = nbytes, flops
     del k, v
     return res
 
 
-def verify_sweep_inputs(n, kq, dtype, seed, max_len=4096):
+def verify_sweep_inputs(n, kq, dtype, seed, max_len=4096, nh=NH, nkv=NKV):
     """Committed lengths 0..max_len-k with block edges (a round's queries
     straddling one), distinct random physical blocks per lane, the last
     lane on the garbage block as the spec backend leaves lanes outside a
@@ -578,9 +615,9 @@ def verify_sweep_inputs(n, kq, dtype, seed, max_len=4096):
         tables[i, :nb] = perm[at:at + nb]
         at += nb
     dev = "cuda"
-    q = torch.randn(n, kq, NH, HD, device=dev).to(dtype)
-    kp = torch.randn(P, BS, NKV, HD, device=dev).to(dtype)
-    vp = torch.randn(P, BS, NKV, HD, device=dev).to(dtype)
+    q = torch.randn(n, kq, nh, HD, device=dev).to(dtype)
+    kp = torch.randn(P, BS, nkv, HD, device=dev).to(dtype)
+    vp = torch.randn(P, BS, nkv, HD, device=dev).to(dtype)
     return (q, kp, vp, torch.from_numpy(tables).to(dev),
             torch.from_numpy(lengths.astype(np.int32)).to(dev))
 
@@ -615,15 +652,16 @@ def phase_verify_sweep(flush):
 # phase 3c: the int8 kernel against its plain version
 # ---------------------------------------------------------------------------
 
-def quant_bytes_flops(lengths, tables_width, q_bytes, n, window):
+def quant_bytes_flops(lengths, tables_width, q_bytes, n, window, nh=NH,
+                      nkv=NKV):
     """Least bytes an int8 launch must move — q, out, the attended rows'
     int8 K/V (hd bytes each) and f32 scales (4 bytes each), tables,
     lengths — and its flops (q.k, p.v and the dequantizing products)."""
     rows = sum(int(le) - (max(0, int(le) - window) if window else 0)
                for le in lengths)
-    nbytes = (rows * NKV * (HD + 4) * 2
-              + 2 * n * NH * HD * q_bytes + 4 * n * tables_width + 4 * n)
-    return nbytes, 4 * rows * NH * HD + 2 * rows * NKV * HD
+    nbytes = (rows * nkv * (HD + 4) * 2
+              + 2 * n * nh * HD * q_bytes + 4 * n * tables_width + 4 * n)
+    return nbytes, 4 * rows * nh * HD + 2 * rows * nkv * HD
 
 
 def measure_quant(q, kq8, vq8, ks, vs, tables, lengths, window, flush):
@@ -645,12 +683,13 @@ def measure_quant(q, kq8, vq8, ks, vs, tables, lengths, window, flush):
     finite = bool(torch.isfinite(out).all())
     n, B = tables.shape
     S = B * BS
-    g = NH // NKV
+    nh, nkv = q.shape[1], kq8.shape[2]
+    g = nh // nkv
     tl = tables.long()
 
     def deq(p8, sc):
-        x = ref.dequantize_kv(p8[tl].reshape(n, S, NKV, HD),
-                              sc[tl].reshape(n, S, NKV)).to(q.dtype)
+        x = ref.dequantize_kv(p8[tl].reshape(n, S, nkv, HD),
+                              sc[tl].reshape(n, S, nkv)).to(q.dtype)
         return x.repeat_interleave(g, 2).transpose(1, 2)
 
     k, v = deq(kq8, ks), deq(vq8, vs)
@@ -677,7 +716,7 @@ def measure_quant(q, kq8, vq8, ks, vs, tables, lengths, window, flush):
         "library_ms": cuda_ms(lib, flush=flush),
     }
     nbytes, flops = quant_bytes_flops(lengths.tolist(), B, q.element_size(),
-                                      n, window)
+                                      n, window, nh, nkv)
     set_bound(res, nbytes, flops, "bfloat16")
     res["bytes"], res["flops"] = nbytes, flops
     del k, v
@@ -722,9 +761,10 @@ D_MODEL, D_FF = 1024, 3072
 MM_TOL = {"float32": 2e-4, "bfloat16": 2e-2}   # kernels ending in matmuls
 
 
-def fused_weights(dtype, seed, d=D_MODEL, f=D_FF):
-    """wo, the MLP norm scale, Wg, Wu, Wd at qwen3-0.6b's widths, scaled
-    as the model's initializer scales them (N(0, 1/fan_in))."""
+def fused_weights(dtype, seed, d=D_MODEL, f=D_FF, nh=NH):
+    """wo, the MLP norm scale, Wg, Wu, Wd at qwen3-0.6b's widths (or
+    ``d``, ``f`` and ``nh`` heads of HD), scaled as the model's
+    initializer scales them (N(0, 1/fan_in))."""
     import torch
     g = torch.Generator("cuda").manual_seed(seed)
 
@@ -732,20 +772,20 @@ def fused_weights(dtype, seed, d=D_MODEL, f=D_FF):
         return (torch.randn(fan_in, fan_out, device="cuda", generator=g)
                 / fan_in ** 0.5).to(dtype)
     scale = (torch.randn(d, device="cuda", generator=g) * 0.1 + 1.0)
-    return (dense(NH * HD, d), scale.to(dtype), dense(d, f), dense(d, f),
+    return (dense(nh * HD, d), scale.to(dtype), dense(d, f), dense(d, f),
             dense(f, d))
 
 
 def fused_bytes_flops(lengths, tables_width, n, window, act_bytes, kv_bytes,
-                      d=D_MODEL, f=D_FF):
+                      d=D_MODEL, f=D_FF, nh=NH, nkv=NKV):
     """Least bytes of one fused layer: the K/V rows the lanes attend, q, h
     and out, tables and lengths, and the weights read once for all lanes;
     flops: the attention's and 2 n (nh hd d + 3 d f) for the products."""
     nbytes, flops = paged_bytes_flops(lengths, tables_width, kv_bytes,
-                                      act_bytes, n, window)
-    nbytes -= n * NH * HD * act_bytes            # out is (n, d), not q-sized
-    nbytes += (2 * n * d + NH * HD * d + 3 * d * f + d) * act_bytes
-    flops += 2 * n * (NH * HD * d + 3 * d * f)
+                                      act_bytes, n, window, nh, nkv)
+    nbytes -= n * nh * HD * act_bytes            # out is (n, d), not q-sized
+    nbytes += (2 * n * d + nh * HD * d + 3 * d * f + d) * act_bytes
+    flops += 2 * n * (nh * HD * d + 3 * d * f)
     return nbytes, flops
 
 
@@ -772,7 +812,8 @@ def measure_fused(h, q, kp, vp, tables, lengths, weights, window,
            "library_ms": None}     # no one PyTorch call computes the layer
     nbytes, flops = fused_bytes_flops(
         lengths.tolist(), tables.shape[1], h.shape[0], window,
-        h.element_size(), kp.element_size())
+        h.element_size(), kp.element_size(), h.shape[1],
+        weights[2].shape[1], q.shape[1], kp.shape[2])
     set_bound(res, nbytes, flops, dtype_name)
     res["bytes"], res["flops"] = nbytes, flops
     return res
@@ -990,14 +1031,14 @@ def paged_snapshot(eng):
             "tokens": eng._tokens[:, 0, :].copy()}
 
 
-def drive_serve(cfg, eng, prompts, counter, label, snap_step=None):
+def drive_serve(cfg, eng, prompts, counter, label, snap_step=None, gen=GEN):
     """Submit every prompt, zero the kernel's launch count, drive the
     engine to the end (snapshotting the paged state at decode step
-    ``snap_step``), check every request got exactly GEN tokens, and
+    ``snap_step``), check every request got exactly ``gen`` tokens, and
     return (snapshot, result) with the count read just after the run."""
     import torch
     for i, p in enumerate(prompts):
-        eng.submit(p, GEN, request_id=f"r{i}")
+        eng.submit(p, gen, request_id=f"r{i}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     counter.launches = 0                 # count this path's run only
@@ -1016,11 +1057,11 @@ def drive_serve(cfg, eng, prompts, counter, label, snap_step=None):
     if len(done) != len(prompts):
         fail(f"{label}: served {len(done)} of {len(prompts)} requests")
     for rid, r in done.items():
-        if len(r.generated) != GEN or r.status.value != "finished":
+        if len(r.generated) != gen or r.status.value != "finished":
             fail(f"{label} {rid}: {len(r.generated)} tokens, status "
                  f"{r.status}")
     res = {
-        "requests": len(done), "gen": GEN, "wall_s": wall,
+        "requests": len(done), "gen": gen, "wall_s": wall,
         "prompt_lens": [len(p) for p in prompts],
         "launches": launches,
         "max_memory_allocated": torch.cuda.max_memory_allocated(),
@@ -1226,7 +1267,7 @@ def phase_int8_serve(cfg, params, prompts, fp_res):
     return eng, snap, res
 
 
-def phase_both_ways(cfg, eng, snap, params):
+def phase_both_ways(cfg, eng, snap, params, stat="max"):
     """One decode step of the snapshot state through the kernel and
     through the plain attention (both bf16), each held against the same
     step in float32 compute with the plain attention.  bf16 rounding over
@@ -1254,7 +1295,7 @@ def phase_both_ways(cfg, eng, snap, params):
                 c, p, pages, tables, lengths, tokens, impl=impl).float()
             del pages
     torch.cuda.synchronize()
-    return logit_gate("one decode step", logits)
+    return logit_gate(f"{cfg.name} one decode step", logits, stat=stat)
 
 
 def profiled(label, fn):
@@ -1317,19 +1358,20 @@ def phase_profile(cfg, eng, snap, label="one decode step (8 lanes)",
     return res
 
 
-def logit_gate(label, logits, names=("kernel", "plain")):
+def logit_gate(label, logits, names=("kernel", "plain"), stat="max"):
     """The both-ways gate over {"cuda", "ref", "f32"} logits: the kernel's
-    logits may be at most LOGIT_REL times as far (max abs) from the f32
-    run as the plain bf16 path's are.  ``names`` say in the log what the
+    logits may be at most LOGIT_REL times as far from the f32 run as the
+    plain bf16 path's are, by the max abs difference (``stat="max"``) or
+    the mean (``"mean"``: phase 22, whose plain bf16 steps differ by up
+    to 1.44 in the max between two calls on the same inputs, PERF.md
+    §6).  ``names`` say in the log what the
     "cuda" and "ref" runs are."""
     import torch
     kn, pn = names
     a, b, f = logits["cuda"], logits["ref"], logits["f32"]
-    err_k = float((a - f).abs().max())
-    err_p = float((b - f).abs().max())
     res = {"max_abs_logit_diff_kernel_vs_plain": float((a - b).abs().max()),
-           "max_abs_err_kernel_vs_f32": err_k,
-           "max_abs_err_plain_vs_f32": err_p,
+           "max_abs_err_kernel_vs_f32": float((a - f).abs().max()),
+           "max_abs_err_plain_vs_f32": float((b - f).abs().max()),
            "mean_abs_err_kernel_vs_f32": float((a - f).abs().mean()),
            "mean_abs_err_plain_vs_f32": float((b - f).abs().mean()),
            "max_abs_logit": float(f.abs().max()),
@@ -1340,12 +1382,19 @@ def logit_gate(label, logits, names=("kernel", "plain")):
            "argmax_flips_plain_vs_f32": int(
                (b.argmax(-1) != f.argmax(-1)).sum()),
            "positions": int(a.numel() // a.shape[-1])}
+    err_k = res[f"{stat}_abs_err_kernel_vs_f32"]
+    err_p = res[f"{stat}_abs_err_plain_vs_f32"]
     res["within_tol"] = (err_k <= LOGIT_REL * err_p
                          and bool(torch.isfinite(a).all()))
+    res["gate_stat"] = stat
+    also_max = ("" if stat == "max" else
+                f" (max {res['max_abs_err_kernel_vs_f32']:.4g}, "
+                f"{res['max_abs_err_plain_vs_f32']:.4g})")
     log(f"[both-ways] {label}: {kn} vs {pn} max abs logit diff "
-        f"{res['max_abs_logit_diff_kernel_vs_plain']:.4g}; vs f32 {kn} "
-        f"{err_k:.4g}, {pn} {err_p:.4g} (gate: {kn} <= {LOGIT_REL} x "
-        f"{pn}; max |logit| {res['max_abs_logit']:.3g}); argmax flips "
+        f"{res['max_abs_logit_diff_kernel_vs_plain']:.4g}; {stat} abs "
+        f"diff from f32 {kn} {err_k:.4g}, {pn} {err_p:.4g}{also_max} (gate: "
+        f"{kn} <= {LOGIT_REL} x {pn}; max |logit| "
+        f"{res['max_abs_logit']:.3g}); argmax flips "
         f"{kn}/{pn} {res['argmax_flips_kernel_vs_plain']}, {kn}/f32 "
         f"{res['argmax_flips_kernel_vs_f32']}, {pn}/f32 "
         f"{res['argmax_flips_plain_vs_f32']} of {res['positions']}")
@@ -1447,7 +1496,6 @@ def phase_fused_serve(cfg, params, prompts, fp_res, fp_profile, flush):
     import torch
 
     from repro_torch.kernels.fused_decode import fused_decode_layer
-    from repro_torch.models import api
     from repro_torch.models import transformer
     from repro_torch.serving.engine import InferenceEngine
 
@@ -1475,31 +1523,7 @@ def phase_fused_serve(cfg, params, prompts, fp_res, fp_profile, flush):
     tables = torch.from_numpy(snap["tables"]).to(dev)
     lengths = torch.from_numpy(snap["lengths"]).to(dev)
     tokens = torch.from_numpy(snap["tokens"]).long().to(dev)
-    cfg32 = cfg.replace(dtype="float32")
-    runs = {"fused": (cfg, eng.params, "fused"),
-            "fused_ref": (cfg, eng.params, "fused_ref"),
-            "ref": (cfg, eng.params, "ref"),
-            "f32": (cfg32, api.prepare_params(cfg32, params, dev), "ref")}
-    logits = {}
-    with torch.no_grad():
-        for key, (c, p, impl) in runs.items():
-            pages = {k: v.clone() for k, v in snap["pages"].items()}
-            logits[key] = api.paged_decode_step(
-                c, p, pages, tables, lengths, tokens, impl=impl).float()
-            del pages
-    torch.cuda.synchronize()
-    del runs
-    res["both_ways_kernel"] = logit_gate(
-        "one fused decode step, fused kernel", dict(
-            cuda=logits["fused"], ref=logits["ref"], f32=logits["f32"]))
-    res["both_ways_plain"] = logit_gate(
-        "one fused decode step, fused plain version", dict(
-            cuda=logits["fused_ref"], ref=logits["ref"], f32=logits["f32"]))
-    res["max_abs_logit_diff_kernel_vs_fused_plain"] = float(
-        (logits["fused"] - logits["fused_ref"]).abs().max())
-    log(f"[both-ways] fused kernel vs fused plain version: max abs logit "
-        f"diff {res['max_abs_logit_diff_kernel_vs_fused_plain']:.4g}")
-    del logits
+    res.update(fused_both_ways(cfg, eng, snap, params))
     res["step_host_ms"] = step_turns(cfg, eng.params, snap, tables, lengths,
                                      tokens, {"unfused": "cuda",
                                               "fused": "fused"})
@@ -1541,6 +1565,62 @@ def phase_fused_serve(cfg, params, prompts, fp_res, fp_profile, flush):
              "the fused serve path's inputs")
     res["main_path_kernel"] = m
     del eng, snap
+    return res
+
+
+def fused_both_ways(cfg, eng, snap, params, label="one fused decode step",
+                    yardstick="ref", stat="max"):
+    """One decode step of the snapshot state through the fused layer's
+    kernel and its plain version (bf16), against the same step in f32 as
+    phase 5 gates the attention kernel.  ``yardstick="ref"`` (phase 5b)
+    gates both at most LOGIT_REL x as far from f32 as the plain unfused
+    bf16 step; ``"fused_ref"`` (phase 22) gates the kernel against its
+    own plain version and reports the unfused step's distance."""
+    import torch
+
+    from repro_torch.models import api
+
+    dev = "cuda"
+    tables = torch.from_numpy(snap["tables"]).to(dev)
+    lengths = torch.from_numpy(snap["lengths"]).to(dev)
+    tokens = torch.from_numpy(snap["tokens"]).long().to(dev)
+    cfg32 = cfg.replace(dtype="float32")
+    runs = {"fused": (cfg, eng.params, "fused"),
+            "fused_ref": (cfg, eng.params, "fused_ref"),
+            "ref": (cfg, eng.params, "ref"),
+            "f32": (cfg32, api.prepare_params(cfg32, params, dev), "ref")}
+    logits = {}
+    with torch.no_grad():
+        for key, (c, p, impl) in runs.items():
+            pages = {k: v.clone() for k, v in snap["pages"].items()}
+            logits[key] = api.paged_decode_step(
+                c, p, pages, tables, lengths, tokens, impl=impl).float()
+            del pages
+    torch.cuda.synchronize()
+    del runs
+    if yardstick == "fused_ref":
+        res = {"both_ways_kernel": logit_gate(
+            f"{label}, fused kernel vs its plain version", dict(
+                cuda=logits["fused"], ref=logits["fused_ref"],
+                f32=logits["f32"]), names=("fused kernel", "fused plain"),
+            stat=stat),
+            "max_abs_err_unfused_plain_vs_f32": float(
+                (logits["ref"] - logits["f32"]).abs().max())}
+        log(f"[both-ways] {label}: the plain unfused bf16 step is "
+            f"{res['max_abs_err_unfused_plain_vs_f32']:.4g} from f32")
+    else:
+        res = {"both_ways_kernel": logit_gate(
+            f"{label}, fused kernel", dict(
+                cuda=logits["fused"], ref=logits["ref"], f32=logits["f32"])),
+            "both_ways_plain": logit_gate(
+                f"{label}, fused plain version", dict(
+                    cuda=logits["fused_ref"], ref=logits["ref"],
+                    f32=logits["f32"]))}
+    res["max_abs_logit_diff_kernel_vs_fused_plain"] = float(
+        (logits["fused"] - logits["fused_ref"]).abs().max())
+    log(f"[both-ways] {label}: fused kernel vs fused plain version: max "
+        f"abs logit diff "
+        f"{res['max_abs_logit_diff_kernel_vs_fused_plain']:.4g}")
     return res
 
 
@@ -1894,7 +1974,8 @@ def layer0_qkv(cfg, params, batch):
 
     with torch.no_grad():
         embed = to_device(params["embed"], "cuda")
-        lp = to_device(transformer.layer_slices(params["layers"], 1)[0],
+        lp = transformer.layer_slices(params["layers"], 1)[0]
+        lp = to_device({"attn_norm": lp["attn_norm"], "attn": lp["attn"]},
                        "cuda")
         x = nn.embed(embed, batch["tokens"], torch_dtype(cfg.dtype))
         q, k, v = nn._project_qkv(lp["attn"],
@@ -2540,6 +2621,13 @@ def phase_small_hybrid_f32():
     """A small float32 zamba2 engine (smoke width): lanes at different
     positions in one pooled step give each request the tokens it gets
     decoded alone."""
+    return small_slot_f32("zamba2-1.2b", 5)
+
+
+def small_slot_f32(arch, seed):
+    """A small float32 slot engine of ``arch`` (smoke width), 3 lanes
+    joining one tick apart: each request gets the tokens it gets decoded
+    alone."""
     import numpy as np
     import torch
 
@@ -2547,11 +2635,11 @@ def phase_small_hybrid_f32():
     from repro_torch.models import api
     from repro_torch.serving.engine import InferenceEngine
 
-    cfg = get_config("zamba2-1.2b", smoke=True).replace(
+    cfg = get_config(arch, smoke=True).replace(
         dtype="float32", kv_cache_dtype="float32")
-    params = api.init_params(cfg, torch.Generator("cuda").manual_seed(5),
+    params = api.init_params(cfg, torch.Generator("cuda").manual_seed(seed),
                              "cuda")
-    rng = np.random.default_rng(5)
+    rng = np.random.default_rng(seed)
     prompts = [rng.integers(0, cfg.vocab_size, n, dtype=np.int32)
                for n in (5, 17, 9, 12)]
 
@@ -2572,11 +2660,11 @@ def phase_small_hybrid_f32():
     for i, p in enumerate(prompts):
         alone.update({f"h{i}": serve([p], 1, 1)["h0"]})
     same = sum(pooled[k] == alone[k] for k in alone)
-    log(f"[small f32] zamba2 smoke engine, 3 lanes joining one tick apart: "
-        f"{same} of {len(alone)} requests token-identical to decoding "
+    log(f"[small f32] {arch} smoke engine, 3 lanes joining one tick apart:"
+        f" {same} of {len(alone)} requests token-identical to decoding "
         f"alone")
     if same != len(alone):
-        fail("zamba2 smoke f32: pooled lanes at different positions did "
+        fail(f"{arch} smoke f32: pooled lanes at different positions did "
              "not give the tokens each request gets alone")
     return {"requests": len(alone), "identical": same}
 
@@ -4452,6 +4540,733 @@ def phase_probe_async(cfg, smi, prompts, ref_losses, ref_tok_s,
 
 
 
+# ---------------------------------------------------------------------------
+# phase 22: ROADMAP Queue 1 item 8 up to MoE at full width — the split-KV
+# kernels at 5, 6, 7 and 12 query heads per KV head, the three widest
+# dense configs, mixtral-8x22b and dbrx-132b
+# ---------------------------------------------------------------------------
+
+WIDE_GROUPS = (5, 6, 7, 12)     # qwen2.5-32b 5, yi-34b 7, command-r-plus 12
+WIDE_DENSE = ("qwen2.5-32b", "yi-34b", "command-r-plus-104b")
+ITEM8_LAYERS = 2                # the depth cut of (b)-(d): device memory
+ITEM8_GEN = 16
+MOE_EVAL_SEQ = 8192
+MOE_EVAL_BUDGET = 15 * 10**9    # forward-only: one layer a shard
+MOE_TRAIN_STEPS = 2
+
+
+def wide_gate(kind, label, r, tol, rows):
+    """Log one phase-22 kernel row and fail if it disagrees."""
+    rows.append(r)
+    lib = ("-" if r["library_ms"] is None else f"{r['library_ms']:.4f}")
+    log(f"[wide] {kind} {label}: max_abs_err={r['max_abs_err']:.3g} (tol "
+        f"{tol}) ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+        f"library_ms={lib} bound_ms={r['bound_ms']:.4f} "
+        f"bound_share={r['bound_share']:.3f} ({r['bound_by']})")
+    if not r["within_tol"]:
+        fail(f"{kind} kernel disagrees with its plain version ({label}): "
+             f"max abs err {r['max_abs_err']}")
+
+
+def phase_wide_kernels(flush):
+    """22 (a): each split-KV kernel at 5, 6, 7 and 12 query heads per KV
+    head (8 KV heads of 128, block 16, phase 3's ragged lengths, garbage
+    lane and window case), the fused layer at each wide dense config's
+    d and f, and flash at mixtral's 48/8 heads, s 8192, window 4096."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref
+
+    out = {"paged": [], "int8": [], "verify": [], "fused": [], "flash": []}
+    for g in WIDE_GROUPS:
+        nh = NKV * g
+        for i, (dt, n, window) in enumerate(
+                [("bfloat16", 8, None), ("bfloat16", 32, None),
+                 ("float32", 8, None), ("float32", 32, None),
+                 ("bfloat16", 32, 512)]):
+            seed = 400 + 10 * g + i
+            torch.manual_seed(seed)
+            args = sweep_inputs(n, getattr(torch, dt), seed, nh=nh)
+            r = measure_paged(*args, window, dt, flush)
+            r.update(groups=g, dtype=dt, lanes=n, window=window)
+            wide_gate("paged_attention", f"groups={g} {dt} lanes={n} "
+                      f"window={window}", r, TOL[dt], out["paged"])
+            del args
+        for i, (n, window) in enumerate([(8, None), (32, 512)]):
+            seed = 500 + 10 * g + i
+            torch.manual_seed(seed)
+            q, kp, vp, tables, lengths = sweep_inputs(n, torch.float32, seed,
+                                                      nh=nh)
+            kq8, ks = ref.quantize_kv(kp)
+            vq8, vs = ref.quantize_kv(vp)
+            del kp, vp
+            r = measure_quant(q.to(torch.bfloat16), kq8, vq8, ks, vs, tables,
+                              lengths, window, flush)
+            r.update(groups=g, dtype="bfloat16 q, int8 pages", lanes=n,
+                     window=window)
+            wide_gate("paged_attention_quant", f"groups={g} bf16/int8 "
+                      f"lanes={n} window={window}", r, TOL["bfloat16"],
+                      out["int8"])
+            del q, kq8, vq8, ks, vs
+        for i, (dt, n, kq, window) in enumerate(
+                [("bfloat16", 8, 1, None), ("bfloat16", 8, 4, None),
+                 ("float32", 8, 5, None), ("bfloat16", 32, 5, 512)]):
+            seed = 600 + 10 * g + i
+            torch.manual_seed(seed)
+            args = verify_sweep_inputs(n, kq, getattr(torch, dt), seed,
+                                       nh=nh)
+            r = measure_verify(*args, window, dt, flush)
+            r.update(groups=g, dtype=dt, lanes=n, k=kq, window=window)
+            wide_gate("paged_verify", f"groups={g} {dt} lanes={n} k={kq} "
+                      f"window={window}", r, TOL[dt], out["verify"])
+            del args
+    for arch in WIDE_DENSE:
+        cfg = get_config(arch)
+        for i, (dt, n, window) in enumerate(
+                [("bfloat16", 8, None), ("float32", 8, None),
+                 ("bfloat16", 32, 512)]):
+            seed = 700 + 10 * WIDE_DENSE.index(arch) + i
+            torch.manual_seed(seed)
+            dtype = getattr(torch, dt)
+            q, kp, vp, tables, lengths = sweep_inputs(
+                n, dtype, seed, nh=cfg.n_heads, nkv=cfg.n_kv_heads)
+            h = torch.randn(n, cfg.d_model, device="cuda").to(dtype)
+            weights = fused_weights(dtype, seed, cfg.d_model, cfg.d_ff,
+                                    cfg.n_heads)
+            r = measure_fused(h, q, kp, vp, tables, lengths, weights, window,
+                              dt, flush)
+            r.update(arch=arch, groups=cfg.n_heads // cfg.n_kv_heads,
+                     d=cfg.d_model, f=cfg.d_ff, dtype=dt, lanes=n,
+                     window=window)
+            wide_gate("fused_decode_layer", f"{arch} d={cfg.d_model} "
+                      f"f={cfg.d_ff} {dt} lanes={n} window={window}", r,
+                      MM_TOL[dt], out["fused"])
+            del q, kp, vp, h, weights
+            torch.cuda.empty_cache()
+    mcfg = get_config("mixtral-8x22b")
+    for i, dt in enumerate(("bfloat16", "float32")):
+        gen = torch.Generator("cuda").manual_seed(800 + i)
+        dtype = getattr(torch, dt)
+
+        def draw(heads):
+            return torch.randn(1, MOE_EVAL_SEQ, heads, HD, device="cuda",
+                               generator=gen).to(dtype)
+        q, k, v = draw(mcfg.n_heads), draw(mcfg.n_kv_heads), \
+            draw(mcfg.n_kv_heads)
+        r = measure_flash(q, k, v, True, mcfg.window, dt, flush)
+        r.update(dtype=dt, b=1, sq=MOE_EVAL_SEQ, heads=[mcfg.n_heads,
+                                                         mcfg.n_kv_heads],
+                 window=mcfg.window)
+        wide_gate("flash_attention", f"{dt} b=1 s={MOE_EVAL_SEQ} heads "
+                  f"{mcfg.n_heads}/{mcfg.n_kv_heads} window={mcfg.window}",
+                  r, TOL[dt], out["flash"])
+        del q, k, v
+        torch.cuda.empty_cache()
+    return out
+
+
+def depth_cut(cfg, full):
+    """Log the depth cut of a phase-22 model; widths are the config's."""
+    log(f"[item8] {full.name}: depth cut {full.n_layers} -> {cfg.n_layers} "
+        f"layers (device memory: {cfg.n_params} params, "
+        f"{4 * cfg.n_params} B in f32); widths as published: d "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+        f"{cfg.head_dim}, f {cfg.d_ff}, vocab {cfg.vocab_size}"
+        + (f", {cfg.n_experts} experts top-{cfg.top_k}"
+           if cfg.family == "moe" else "")
+        + (f", window {cfg.window}" if cfg.window else ""))
+
+
+def step_repeat_diff(cfg, eng, snap, impl="ref"):
+    """Max abs difference of two paged decode steps of the snapshot state
+    with the same params, inputs and ``impl``."""
+    import torch
+
+    from repro_torch.models import api
+    dev = "cuda"
+    args = (torch.from_numpy(snap["tables"]).to(dev),
+            torch.from_numpy(snap["lengths"]).to(dev),
+            torch.from_numpy(snap["tokens"]).long().to(dev))
+    out = []
+    with torch.no_grad():
+        for _ in range(2):
+            pages = {k: v.clone() for k, v in snap["pages"].items()}
+            out.append(api.paged_decode_step(cfg, eng.params, pages, *args,
+                                             impl=impl).float())
+            del pages
+    return float((out[0] - out[1]).abs().max())
+
+
+def phase_wide_dense(flush):
+    """22 (b): each wide dense config at 2 layers (f32 params seeded on the
+    card, bf16 compute) serves cell 1's 8 requests, 16 new tokens each, on
+    the paged backend: every request gets its tokens, paged launches =
+    decode_steps x 2; one decode step both ways against the f32 step
+    (LOGIT_REL, as phase 5, on the mean abs difference) and one fused
+    step, the kernel against its plain version: at 2 layers of these
+    widths the bf16 step does not repeat (two calls on the same inputs
+    differ by up to 1.44 in the max, PERF.md §6), so the max makes a
+    noisy yardstick; the plain step run twice, its two logits' max
+    difference reported; the kernel at the serve path's layer-0
+    inputs."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.paged_attention import paged_attention_lanes
+    from repro_torch.models import api
+    from repro_torch.serving.engine import InferenceEngine
+
+    out = {}
+    for arch in WIDE_DENSE:
+        full = get_config(arch)
+        cfg = full.replace(n_layers=ITEM8_LAYERS)
+        depth_cut(cfg, full)
+        params = api.init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                                 "cuda")
+        prompts = serve_prompts(cfg.vocab_size)
+        max_seq = max(len(p) for p in prompts) + ITEM8_GEN
+        eng = InferenceEngine(cfg, params, capacity=CAPACITY,
+                              max_seq=max_seq, backend="paged",
+                              block_size=BS, device="cuda")
+        snap, res, summary = drive_serve(cfg, eng, prompts,
+                                         paged_attention_lanes,
+                                         f"wide dense {arch}", snap_step=8,
+                                         gen=ITEM8_GEN)
+        expect = summary["decode_steps"] * cfg.n_layers
+        if res["launches"] != expect:
+            fail(f"{arch}: paged_attention launched {res['launches']} "
+                 f"times; expected decode_steps x layers = {expect}")
+        groups = cfg.n_heads // cfg.n_kv_heads
+        log(f"[item8] {arch} paged serve ({groups} query heads per KV "
+            f"head): {res['requests']} requests x {ITEM8_GEN} tokens, "
+            f"prefill {res['prefill_tok_per_s']} tok/s, decode "
+            f"{res['decode_tok_per_s']} tok/s, decode_steps "
+            f"{res['decode_steps']}, paged launches {res['launches']}, "
+            f"max_memory_allocated {res['max_memory_allocated']}")
+        le = torch.from_numpy(snap["lengths"] + 1).cuda()
+        tb = torch.from_numpy(snap["tables"]).cuda()
+        q = torch.randn(CAPACITY, cfg.n_heads, HD,
+                        device="cuda").to(torch.bfloat16)
+        m = measure_paged(q, snap["pages"]["k"][0], snap["pages"]["v"][0],
+                          tb, le, None, "bfloat16", flush)
+        m["lengths"] = le.tolist()
+        wide_gate("paged_attention", f"at {arch}'s serve inputs (lengths "
+                  f"{m['lengths']})", m, TOL["bfloat16"], [])
+        res["main_path_kernel"] = m
+        res["both_ways"] = phase_both_ways(cfg, eng, snap, params,
+                                           stat="mean")
+        res["fused_both_ways"] = fused_both_ways(
+            cfg, eng, snap, params, label=f"{arch} one fused decode step",
+            yardstick="fused_ref", stat="mean")
+        res["plain_step_repeat_diff"] = step_repeat_diff(cfg, eng, snap)
+        log(f"[item8] {arch}: the plain bf16 decode step twice on the same "
+            f"inputs: max abs logit diff {res['plain_step_repeat_diff']}")
+        res.pop("tokens")
+        out[arch] = res
+        del eng, snap, params, q
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_moe_serve(cfg, params, prompts):
+    """22 (c): a full-width MoE model through ``InferenceEngine``: a paged,
+    bucketed engine falls back to slot and drops its buckets, with JAX's
+    warnings; cell 1's requests, 16 new tokens each, on the slot backend:
+    every request gets exactly 16; decode and prefill tok/s, each prefill
+    call's frac_dropped, one decode step profiled."""
+    import warnings
+
+    import torch
+
+    from repro_torch.models import api, moe
+    from repro_torch.models.registry import CapabilityFallbackWarning
+    from repro_torch.serving.engine import InferenceEngine, pow2_buckets
+    from repro_torch.tree import tree_map
+
+    max_seq = max(len(p) for p in prompts) + ITEM8_GEN
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        peng = InferenceEngine(cfg, params, capacity=1, max_seq=max_seq,
+                               backend="paged",
+                               bucket_sizes=pow2_buckets(max_seq),
+                               device="cuda")
+    s = peng.summary()
+    msgs = [str(w.message) for w in caught
+            if issubclass(w.category, CapabilityFallbackWarning)]
+    fell_back = ((s["backend"], s["requested_backend"]) == ("slot", "paged")
+                 and any("paging" in m for m in msgs))
+    no_buckets = (peng.bucket_sizes is None
+                  and any("padded_prefill" in m for m in msgs))
+    del peng
+    torch.cuda.empty_cache()
+    if not fell_back or not no_buckets:
+        fail(f"{cfg.name}: backend='paged' with buckets did not fall back "
+             f"to slot without buckets, with the warnings ({msgs})")
+
+    drops = []                       # each prefill call's frac_dropped
+    inner = moe._moe_mlp_inner
+
+    def spy(p, x, c):
+        y, aux = inner(p, x, c)
+        if x.shape[1] > 1:
+            drops.append(aux["frac_dropped"])
+        return y, aux
+
+    moe._moe_mlp_inner = spy
+    try:
+        eng = InferenceEngine(cfg, params, capacity=CAPACITY,
+                              max_seq=max_seq, device="cuda")
+        for i, p in enumerate(prompts):
+            eng.submit(p, ITEM8_GEN, request_id=f"m{i}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        moe._moe_mlp_inner = inner
+    summary = eng.summary()
+    done = {r.request_id: r for r in eng.completed}
+    if len(done) != len(prompts):
+        fail(f"{cfg.name} serve: served {len(done)} of {len(prompts)}")
+    for rid, r in done.items():
+        if len(r.generated) != ITEM8_GEN or r.status.value != "finished":
+            fail(f"{cfg.name} serve {rid}: {len(r.generated)} tokens, "
+                 f"status {r.status}")
+    frac = [float(d) for d in drops]
+    res = {"requests": len(done), "gen": ITEM8_GEN, "wall_s": wall,
+           "fell_back_from_paged": fell_back, "buckets_dropped": no_buckets,
+           "prompt_lens": [len(p) for p in prompts],
+           "prefill_frac_dropped": frac,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           **{k: summary.get(k) for k in (
+               "backend", "slot_bytes", "decode_steps", "prefill_calls",
+               "prefill_tok_per_s", "decode_tok_per_s",
+               "peak_concurrency")}}
+    log(f"[item8] {cfg.name} slot serve: {res['requests']} requests x "
+        f"{ITEM8_GEN} tokens, prefill {res['prefill_tok_per_s']} tok/s, "
+        f"decode {res['decode_tok_per_s']} tok/s, decode_steps "
+        f"{res['decode_steps']}, prefill_calls {res['prefill_calls']}, "
+        f"prefill frac_dropped per expert layer call: mean "
+        f"{statistics.mean(frac):.4f}, max {max(frac):.4f} over "
+        f"{len(frac)}; wall {wall:.2f} s, max_memory_allocated "
+        f"{res['max_memory_allocated']}; paged + buckets fell back to slot "
+        f"without buckets: {fell_back and no_buckets}")
+    state = tree_map(lambda t: t.clone() if isinstance(t, torch.Tensor)
+                     else t, eng.pool.state)
+    toks = torch.zeros((CAPACITY, 1), dtype=torch.long, device="cuda")
+    res["profile"] = profiled(
+        f"{cfg.name} one decode step ({CAPACITY} lanes)",
+        lambda: api.decode_step(cfg, eng.params, state, toks))
+    del eng, state
+    torch.cuda.empty_cache()
+    return res
+
+
+def moe_eval_loader(cfg):
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    return SyntheticTokens(DataConfig(batch_size=1, seq_len=MOE_EVAL_SEQ,
+                                      vocab_size=cfg.vocab_size, seed=11))
+
+
+def phase_moe_eval(cfg, params):
+    """22 (d): an ``EvalJob`` of 1 batch of 1 x 8192 over (c)'s mixtral
+    through the MoE shard plan at MOE_EVAL_BUDGET (>= 2 shards), with the
+    flash kernel and without: launches = batches x layers; one full
+    forward through the kernel gated against an f32 forward (LOGIT_REL on
+    the mean abs difference: route flips set the max), with the route
+    flips of each bf16 forward against the f32 one.
+    Returns the result and layer 0's q/k/v of the batch."""
+    import torch
+
+    from repro_torch.api import EvalJob, HydraConfig, Session
+    from repro_torch.data.pipeline import as_tensors
+    from repro_torch.kernels.flash_attention import flash_attention_bhsd
+    from repro_torch.models import api, moe
+
+    res = {}
+    for impl in ("cuda", "xla"):
+        session = Session(HydraConfig(n_devices=1,
+                                      device_budget_bytes=MOE_EVAL_BUDGET),
+                          device="cuda", profile=None)
+        session.submit(EvalJob(cfg.replace(attn_impl=impl),
+                               moe_eval_loader(cfg), n_batches=1,
+                               params=params, batch=1, seq=MOE_EVAL_SEQ))
+        t0 = time.perf_counter()
+        session.plan()                          # the pinned host store
+        plan_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        flash_attention_bhsd.launches = 0
+        t0 = time.perf_counter()
+        ev = session.run().evals["eval-0"]
+        torch.cuda.synchronize()
+        ev["wall_s"] = time.perf_counter() - t0
+        ev["plan_s"] = plan_s
+        ev["launches"] = flash_attention_bhsd.launches
+        res[impl] = ev
+        log(f"[item8] {cfg.name} eval attn_impl={impl}: 1 x "
+            f"{MOE_EVAL_SEQ} tokens, {ev['n_shards']} shards at "
+            f"{MOE_EVAL_BUDGET} B, loss {ev['losses']}, bytes moved "
+            f"{ev['bytes_moved']}, run {ev['wall_s']:.2f} s (plan with the "
+            f"host store {plan_s:.2f} s), flash launches {ev['launches']}")
+        del session
+        gc.collect()
+        empty_host_cache()
+    if res["cuda"]["launches"] != cfg.n_layers:
+        fail(f"{cfg.name} eval: flash launched {res['cuda']['launches']} "
+             f"times; expected batches x layers = {cfg.n_layers}")
+    if res["xla"]["launches"] != 0 or res["cuda"]["n_shards"] < 2:
+        fail(f"{cfg.name} eval: the plain run launched flash, or the eval "
+             f"ran in {res['cuda']['n_shards']} shard")
+
+    batch = as_tensors(next(iter(moe_eval_loader(cfg))), "cuda")
+    routes = {}
+    routing = moe._routing
+
+    def spy_routes(key):
+        def run(x, router, c):
+            out = routing(x, router, c)
+            routes.setdefault(key, []).append(out[1])
+            return out
+        return run
+
+    logits = {}
+    try:
+        with torch.no_grad():
+            for key, c in (("cuda", cfg.replace(attn_impl="cuda")),
+                           ("ref", cfg), ("f32", cfg.replace(
+                               dtype="float32"))):
+                moe._routing = spy_routes(key)
+                logits[key] = api.forward(c, params, batch)
+    finally:
+        moe._routing = routing
+    flips = {k: int(sum(int((a != b).sum()) for a, b in
+                        zip(routes[k], routes["f32"])))
+             for k in ("cuda", "ref")}
+    slots = int(sum(a.numel() for a in routes["f32"]))
+    res["route_flips_vs_f32"] = flips
+    res["route_slots"] = slots
+    log(f"[item8] {cfg.name} full forward 1 x {MOE_EVAL_SEQ}: expert "
+        f"choices differing from the f32 forward's: kernel {flips['cuda']},"
+        f" plain bf16 {flips['ref']} of {slots} (token, slot) routes")
+    res["both_ways"] = logit_gate(
+        f"{cfg.name} one full forward (1 x {MOE_EVAL_SEQ})", logits,
+        stat="mean")
+    del logits, routes
+    torch.cuda.empty_cache()
+    qkv = layer0_qkv(cfg, params, batch)
+    return res, qkv
+
+
+def two_shard_budget(cfg, params, batch, seq):
+    """The least budget at which the analytic rule fits the plan's first
+    two segments as one shard (and, for a one-layer model, not the
+    third): the plan then cuts after them."""
+    from repro_torch.core import partitioner as pt
+    from repro_torch.core import shard_graph as sg
+    plan = sg.build_plan(cfg)
+    shared = pt.shared_cost(cfg, params, plan)
+    lo, hi = 1, 10**12
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if pt.analytic_fits(cfg, params, plan, 0, 2, batch, seq, mid,
+                            shared, 0.05):
+            hi = mid
+        else:
+            lo = mid + 1
+    return lo
+
+
+def phase_moe_sharp(smi):
+    """22 (e): one full-width mixtral-8x22b TrainJob cut to one layer (its
+    pinned store of f32 params and two Adam moments held against half of
+    MemAvailable), 2 AdamW steps of 2 x 1024 on one virtual device whose
+    budget makes the analytic plan cut two shards; gates: units = steps x
+    2 x shards, the ledger within its budget, losses, lb_loss and z_loss
+    equal plain training stepped in place (``make_grad_step`` +
+    ``optimizers.update_``) at 3e-4; each unit's allocated peak beside its
+    shard's charge; then the probe oracle's partition of the same host
+    store beside the analytic one (its pilots through ``_peaks``, which
+    runs the same ``pilot_peak`` and keeps each peak)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import HydraConfig, Session, TrainJob
+    from repro_torch.configs import get_config
+    from repro_torch.core import partitioner as pt
+    from repro_torch.core import shard_graph as sg
+    from repro_torch.data.pipeline import as_tensors
+    from repro_torch.models import api
+    from repro_torch.optim import optimizers as opt
+    from repro_torch.training.train_loop import make_grad_step
+
+    full = get_config("mixtral-8x22b")
+    cfg = full.replace(n_layers=1)
+    depth_cut(cfg, full)
+    store_bytes = 12 * cfg.n_params          # f32 params + two moments
+    empty_host_cache()
+    avail = settled_mem_available()
+    log(f"[item8] mixtral SHARP: pinned store {store_bytes} B against half "
+        f"of MemAvailable {avail} B")
+    if store_bytes > avail // 2:
+        fail(f"mixtral SHARP: the pinned store ({store_bytes} B) does not "
+             f"fit in half of MemAvailable ({avail} B)")
+    params = api.init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                             "cuda")
+    budget = two_shard_budget(cfg, params, TRAIN_BATCH, TRAIN_SEQ)
+    del params
+    torch.cuda.empty_cache()
+
+    splan = sg.build_plan(cfg)
+    records = []                      # (loss, lb, z) of each loss backward
+    orig_loss = splan.loss
+
+    def loss(c, act, batch):
+        out = orig_loss(c, act, batch)
+        if torch.is_grad_enabled():   # a backward unit (the pilot's too)
+            aux = {k: float(v.detach()) / c.n_layers
+                   for k, v in act["aux"].items()}
+            records.append((float(out.detach()), aux["lb"], aux["z"]))
+        return out
+
+    session = Session(HydraConfig(n_devices=1, device_budget_bytes=budget),
+                      device="cuda", profile=None)
+    job = TrainJob(cfg, train_loader(cfg, 0), lr=TRAIN_LRS[0],
+                   optimizer="adamw", epochs=1,
+                   steps_per_epoch=MOE_TRAIN_STEPS, seed=0,
+                   batch=TRAIN_BATCH, seq=TRAIN_SEQ)
+    session.submit(job)
+    t0 = time.perf_counter()
+    plan = session.plan()
+    plan_s = time.perf_counter() - t0
+    m = session.train_execs[0]
+    bounds = [(s.seg_lo, s.seg_hi) for s in m.partition.shards]
+    charge = {s.index: s.param_bytes + s.act_bytes + m.partition.shared_bytes
+              for s in m.partition.shards}
+    peak_used = track_ledger_peaks(session)
+    units = []
+    tick = session.serve_tick
+
+    def unit_peak():
+        if len(session.unit_trace) > len(units):
+            torch.cuda.synchronize()
+            units.append((session.unit_trace[-1],
+                          torch.cuda.max_memory_allocated() - base))
+            torch.cuda.reset_peak_memory_stats()
+        return tick()
+    session.serve_tick = unit_peak
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    splan.loss = loss
+    try:
+        t0 = time.perf_counter()
+        report = session.run(plan)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        splan.loss = orig_loss
+    losses = report.train.losses[0]
+    # each step's (lb, z): those of the backward whose loss SHARP reported
+    aux_log = [next(((lb, z) for ls, lb, z in reversed(records)
+                     if ls == step_loss), None) for step_loss in losses]
+    res = {"budget_bytes": budget, "shards": bounds,
+           "store_bytes": store_bytes, "mem_available": avail,
+           "units": report.train.units_executed, "losses": losses,
+           "aux": aux_log, "ledger_peak_bytes": peak_used,
+           "plan_s": plan_s, "wall_s": wall,
+           "unit_peaks": [{"unit": list(k), "peak": p,
+                           "charge": charge[k[1]]} for k, p in units]}
+    for r in res["unit_peaks"]:
+        log(f"[item8] mixtral SHARP unit {r['unit']}: allocated peak "
+            f"{r['peak']} B over the baseline; its shard's analytic charge "
+            f"{r['charge']} B")
+    log(f"[item8] mixtral SHARP at budget {budget} B: shards {bounds}, "
+        f"{res['units']} units, ledger peak {peak_used}, plan (host store "
+        f"included) {plan_s:.2f} s, run {wall:.2f} s, losses {losses}, "
+        f"lb/z {aux_log} ({smi})")
+    if len(bounds) < 2:
+        fail(f"mixtral SHARP: the analytic plan at {budget} B has "
+             f"{len(bounds)} shard")
+    expect = MOE_TRAIN_STEPS * 2 * len(bounds)
+    if res["units"] != expect:
+        fail(f"mixtral SHARP: {res['units']} units; expected steps x 2 x "
+             f"shards = {expect}")
+    if max(peak_used.values()) > budget:
+        fail(f"mixtral SHARP: the ledger went over its budget: {peak_used}")
+    if len(losses) != MOE_TRAIN_STEPS or None in aux_log:
+        fail(f"mixtral SHARP: {len(losses)} losses for {MOE_TRAIN_STEPS} "
+             f"steps, aux terms {aux_log}")
+
+    # the probe oracle over the same host store (pilots of the shard that
+    # starts at layer 0 enter with the aux sums)
+    # (each pilot's peak kept here too: a refusal returns no record)
+    host = m.store.params
+    pilots = []
+
+    def pilot(lo, hi):
+        try:
+            peak, _ = pt.pilot_peak(cfg, host, splan, lo, hi, TRAIN_BATCH,
+                                    TRAIN_SEQ, "cuda")
+        except torch.OutOfMemoryError:
+            peak = None
+        torch.cuda.empty_cache()
+        own = sum(pt.tree_bytes(sg.resolve_ref(host, splan.segments[i]
+                                                .param_ref))
+                  for i in range(lo, hi)
+                  if splan.segments[i].param_ref is not None)
+        pilots.append({"lo": lo, "hi": hi, "peak": peak,
+                       "rule_lhs": None if peak is None else
+                       peak + 2 * own + m.partition.shared_bytes // 2})
+        return float("inf") if peak is None else peak
+
+    t0 = time.perf_counter()
+    try:
+        probe = pt.partition(cfg, host, splan, budget_bytes=budget,
+                             batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                             oracle="probe", _peaks=pilot)
+        res["probe_shards"] = [(s.seg_lo, s.seg_hi) for s in probe.shards]
+    except MemoryError as e:        # the JAX rule refusing a segment
+        res["probe_shards"] = str(e)
+    res["probe_pilots"] = pilots
+    log(f"[item8] mixtral probe plan at {budget} B (rule limit "
+        f"{0.95 * budget:.0f} B): shards {res['probe_shards']} beside "
+        f"analytic {bounds}; pilots {pilots} "
+        f"({time.perf_counter() - t0:.2f} s)")
+    ocfg = job.opt_config()
+    del session, report, m, job
+    gc.collect()
+    torch.cuda.empty_cache()
+    empty_host_cache()
+
+    # plain training on the card, stepped in place: params, gradients and
+    # two moments (43 GB here) and no second copy
+    params = api.init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                             "cuda")
+    state = opt.init_state(ocfg, params)
+    grad_step = make_grad_step(cfg)
+    it = iter(train_loader(cfg, 0))
+    ref_losses, ref_aux = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(MOE_TRAIN_STEPS):
+        grads, mt = grad_step(params, as_tensors(next(it), "cuda"))
+        opt.update_(ocfg, params, grads, state)
+        del grads
+        ref_losses.append(float(mt["loss"]))
+        ref_aux.append((float(mt["lb_loss"]), float(mt["z_loss"])))
+    res["ref_max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    del params, state
+    torch.cuda.empty_cache()
+    res["ref_losses"], res["ref_aux"] = ref_losses, ref_aux
+    diff = max(float(np.abs(np.subtract(losses, ref_losses)).max()),
+               float(np.abs(np.subtract(aux_log, ref_aux)).max()))
+    res["max_abs_diff"] = diff
+    log(f"[item8] mixtral plain training stepped in place: losses "
+        f"{ref_losses}, lb/z {ref_aux}, max_memory_allocated "
+        f"{res['ref_max_memory_allocated']}; max abs diff to SHARP "
+        f"{diff:.3g} (tol {SHARP_TOL})")
+    if not (np.allclose(losses, ref_losses, rtol=SHARP_TOL, atol=SHARP_TOL)
+            and np.allclose(aux_log, ref_aux, rtol=SHARP_TOL,
+                            atol=SHARP_TOL)):
+        fail(f"mixtral SHARP: losses {losses} / lb, z {aux_log} differ "
+             f"from plain training's {ref_losses} / {ref_aux}")
+    return res
+
+
+def phase_small_item8_f32():
+    """22 (f): mixtral and dbrx smoke slot engines, lanes at different
+    positions, give each prompt its tokens alone; command-r-plus smoke at
+    12 query heads per KV head gives identical tokens through the paged
+    kernel and the plain paged engine."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.paged_attention import paged_attention_lanes
+    from repro_torch.models import api
+    from repro_torch.serving.engine import InferenceEngine
+
+    res = {"mixtral": small_slot_f32("mixtral-8x22b", 6),
+           "dbrx": small_slot_f32("dbrx-132b", 7)}
+    cfg = get_config("command-r-plus-104b", smoke=True).replace(
+        n_heads=12, n_kv_heads=1, head_dim=32, dtype="float32",
+        kv_cache_dtype="float32")
+    params = api.init_params(cfg, torch.Generator("cuda").manual_seed(8),
+                             "cuda")
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(0, cfg.vocab_size, n, dtype=np.int32)
+               for n in (5, 17, 32, 9)]
+    out = {}
+    for impl in ("cuda", "ref"):
+        eng = InferenceEngine(cfg, params, capacity=2, max_seq=64,
+                              block_size=8, backend="paged", paged_impl=impl,
+                              device="cuda")
+        for i, p in enumerate(prompts):
+            eng.submit(p, 12, request_id=f"c{i}")
+        before = paged_attention_lanes.launches
+        eng.run()
+        out[impl] = ({r.request_id: r.generated for r in eng.completed},
+                     paged_attention_lanes.launches - before)
+    same = out["cuda"][0] == out["ref"][0] and len(out["cuda"][0]) == 4
+    res["wide_gqa"] = {"identical": same, "launches": out["cuda"][1]}
+    log(f"[small f32] command-r-plus-104b smoke at 12/1 heads of 32: paged "
+        f"kernel ({out['cuda'][1]} launches) vs plain paged tokens "
+        f"identical: {same}")
+    if not same or out["cuda"][1] == 0 or out["ref"][1] != 0:
+        fail("command-r-plus smoke f32 at 12 query heads per KV head: the "
+             "paged kernel did not give the plain paged engine's tokens")
+    return res
+
+
+def phase_item8(flush, smi):
+    """Phase 22: (a) the kernels at the new group counts, (b) the wide
+    dense configs, (c)-(d) mixtral served and evaluated, then dbrx served,
+    (e) mixtral under SHARP, (f) small f32 engines."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    t0 = time.perf_counter()
+    out = {"a": phase_wide_kernels(flush), "b": phase_wide_dense(flush),
+           "c": {}}
+    out["wide_gqa_launches"] = sum(r["launches"] for r in out["b"].values())
+    for arch in ("mixtral-8x22b", "dbrx-132b"):
+        full = get_config(arch)
+        cfg = full.replace(n_layers=ITEM8_LAYERS)
+        depth_cut(cfg, full)
+        params = api.init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                                 "cuda")
+        out["c"][arch] = phase_moe_serve(cfg, params,
+                                         serve_prompts(cfg.vocab_size))
+        if arch == "mixtral-8x22b":
+            out["d"], (q, k, v) = phase_moe_eval(cfg, params)
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+            m = measure_flash(q, k, v, True, cfg.window, "bfloat16", flush)
+            wide_gate("flash_attention", f"at the {arch} eval path's layer 0"
+                      f" q/k/v (b 1, s {MOE_EVAL_SEQ}, window {cfg.window})",
+                      m, TOL["bfloat16"], [])
+            out["d"]["main_path_kernel"] = m
+            out["moe_eval_launches"] = out["d"]["cuda"]["launches"]
+            del q, k, v
+        else:
+            del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["e"] = phase_moe_sharp(smi)
+    out["f"] = phase_small_item8_f32()
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"[item8] phase wall {out['phase_s']:.2f} s ({smi})")
+    return out
+
+
 def kernel_entry(name, source, replaces, launches, m, **paths):
     """One kernel's entry of the kernels line; ``paths``: its launches on
     other paths of this run, by name (each counted from 0 over that
@@ -4733,6 +5548,13 @@ def main() -> None:
         cfg, smi, prompts, report["sharp_train"]["losses"][0],
         report["sharp_train"]["trained_tok_per_s"])
     torch.cuda.empty_cache()
+
+    # 22. ROADMAP item 8 up to MoE: the kernels at 5, 6, 7 and 12 query
+    #     heads per KV head, the three widest dense configs served, mixtral
+    #     and dbrx served, mixtral's spilled eval and SHARP, small f32
+    #     engines
+    report["item8"] = phase_item8(flush, smi)
+    torch.cuda.empty_cache()
     report["total_s"] = time.perf_counter() - t_start
 
     src = "src/repro_torch/kernels/csrc/"
@@ -4742,7 +5564,9 @@ def main() -> None:
                      report["serve"]["launches"], main_path,
                      tiered_launches=report["tiering"]["a"]["tiered"][
                          "launches"],
-                     async_launches=report["probe_async"]["c"]["launches"]),
+                     async_launches=report["probe_async"]["c"]["launches"],
+                     wide_gqa_launches=report["item8"][
+                         "wide_gqa_launches"]),
         kernel_entry("paged_verify_lanes", src + "paged_verify.cu",
                      "src/repro/kernels/paged_verify.py:81",
                      report["spec_random"]["launches"], verify_path),
@@ -4754,7 +5578,9 @@ def main() -> None:
         kernel_entry("flash_attention_bhsd", src + "flash_attention.cu",
                      "src/repro/kernels/flash_attention.py:74",
                      report["spilled_eval"]["cuda"]["launches"],
-                     flash_path),
+                     flash_path,
+                     moe_eval_launches=report["item8"][
+                         "moe_eval_launches"]),
         kernel_entry("fused_decode_layer", src + "fused_decode.cu",
                      "src/repro/kernels/fused_decode.py:92",
                      report["fused_serve"]["launches"],

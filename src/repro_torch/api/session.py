@@ -646,7 +646,7 @@ class Session:
             planned=planned)
         ocfg = opt.OptimizerConfig(grad_clip=0.0)
         store = HostModelStore(cfg, shard_plan, params, ocfg, partition,
-                               device=self.device)
+                               device=self.device, train=False)
         fns = ShardFunctions(cfg, shard_plan, partition, ocfg)
         return _EvalExec(cfg=cfg, plan=shard_plan, partition=partition,
                          store=store, fns=fns)
@@ -676,7 +676,7 @@ class Session:
             planned=planned)
         store = HostModelStore(job.cfg, shard_plan, params,
                                opt.OptimizerConfig(grad_clip=0.0), partition,
-                               device=self.device)
+                               device=self.device, train=False)
         self._cold[jid] = {"store": store, "partition": partition,
                            "promote_bytes": 0, "promote_s": 0.0}
 

@@ -1,15 +1,30 @@
 """Config registry — importing this package registers every ported
-architecture (``qwen3-0.6b``, ``bert-large-1b``, ``zamba2-1.2b`` and
-``xlstm-350m`` so far)."""
+architecture: the assigned ones in ``ASSIGNED_ARCHS`` and the paper's
+own workloads (``bert-large-1b``)."""
 
 from repro_torch.configs.base import (ARCH_REGISTRY, INPUT_SHAPES,
                                       SMOKE_REGISTRY, ArchConfig, InputShape,
                                       get_config, torch_dtype)
 
-from repro_torch.configs import paper_workloads  # noqa: F401  (registration)
-from repro_torch.configs import qwen3_0_6b  # noqa: F401  (registration)
-from repro_torch.configs import xlstm_350m  # noqa: F401  (registration)
-from repro_torch.configs import zamba2_1_2b  # noqa: F401  (registration)
+# assigned architectures (registration side effects)
+from repro_torch.configs import qwen2_5_32b            # noqa: F401
+from repro_torch.configs import qwen3_0_6b             # noqa: F401
+from repro_torch.configs import mixtral_8x22b          # noqa: F401
+from repro_torch.configs import dbrx_132b              # noqa: F401
+from repro_torch.configs import xlstm_350m             # noqa: F401
+from repro_torch.configs import yi_34b                 # noqa: F401
+from repro_torch.configs import command_r_plus_104b    # noqa: F401
+from repro_torch.configs import zamba2_1_2b            # noqa: F401
+# the paper's own workloads
+from repro_torch.configs import paper_workloads        # noqa: F401
+
+# the JAX package's list in its order, less the two families still to
+# port (ROADMAP Queue 1 item 8): llava-next-mistral-7b (vlm) after
+# qwen2.5-32b, whisper-medium (audio) at the end
+ASSIGNED_ARCHS = [
+    "qwen2.5-32b", "qwen3-0.6b", "mixtral-8x22b", "dbrx-132b",
+    "xlstm-350m", "yi-34b", "command-r-plus-104b", "zamba2-1.2b",
+]
 
 __all__ = ["ArchConfig", "InputShape", "ARCH_REGISTRY", "SMOKE_REGISTRY",
-           "INPUT_SHAPES", "get_config", "torch_dtype"]
+           "INPUT_SHAPES", "ASSIGNED_ARCHS", "get_config", "torch_dtype"]

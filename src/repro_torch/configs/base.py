@@ -1,6 +1,6 @@
 """Architecture config dataclass + registry (port of ``repro.configs.base``,
-with the fields the ported families read: dense, ssm and hybrid; the
-MoE and encoder-decoder fields come with those families).
+with the fields the ported families read: dense, moe, ssm and hybrid;
+the encoder-decoder and VLM fields come with those families).
 
 ``attn_impl`` follows the port's kernel vocabulary: ``"xla"`` (the
 default, as in the JAX package: plain attention, no kernel) or ``"cuda"``
@@ -57,6 +57,11 @@ class ArchConfig:
     window: Optional[int] = None      # native sliding window
     attn_impl: str = "xla"            # xla | cuda (see ATTN_IMPLS)
 
+    # MoE
+    n_experts: int = 0
+    top_k: int = 0
+    capacity_factor: float = 1.25
+
     # SSM / recurrent
     ssm_state: int = 0                # Mamba2 state dim N
     ssm_expand: int = 2
@@ -107,6 +112,9 @@ class ArchConfig:
 
     @property
     def layer_params(self) -> int:
+        if self.family == "moe":
+            return self.attn_params + self.n_experts * self.mlp_params + \
+                self.d_model * self.n_experts  # router
         if self.family == "ssm":
             d_in = self.d_model * self.ssm_expand
             return 2 * self.d_model * d_in + d_in * (2 * self.ssm_state + 2)
@@ -120,7 +128,11 @@ class ArchConfig:
 
     @property
     def n_active_params(self) -> int:
-        return self.n_params
+        """Per-token active params (MoE counts top_k experts only)."""
+        if self.family != "moe":
+            return self.n_params
+        dense_layer = self.attn_params + self.top_k * self.mlp_params
+        return self.vocab_size * self.d_model + self.n_layers * dense_layer
 
 
 # ---------------------------------------------------------------------------

@@ -118,7 +118,8 @@ class SpilledInference:
         # inference transfers exclude grads/optimizer state
         self.store = HostModelStore(cfg, self.plan, params,
                                     opt.OptimizerConfig(grad_clip=0.0),
-                                    self.partition, device=device)
+                                    self.partition, device=device,
+                                    train=False)
         self.fns = ShardFunctions(cfg, self.plan, self.partition,
                                   opt.OptimizerConfig(grad_clip=0.0))
         self.bytes_moved = 0

@@ -212,11 +212,16 @@ def _batch_spec(cfg, batch, seq):
 def _entry_act_spec(cfg, plan, lo, batch, seq):
     """The entry activation of a shard starting at segment ``lo``: the
     previous shard's exit, ``{"x": (batch, seq, d_model)}`` in the
-    compute dtype (none for the first shard)."""
+    compute dtype, and for the moe family the f32 scalar aux sums
+    ``{"aux": {"lb", "z"}}`` (none for the first shard)."""
     if lo == 0:
         return {}
-    return {"x": torch.empty((batch, seq, cfg.d_model),
+    spec = {"x": torch.empty((batch, seq, cfg.d_model),
                              dtype=torch_dtype(cfg.dtype), device="meta")}
+    if cfg.family == "moe":
+        spec["aux"] = {k: torch.empty((), dtype=torch.float32, device="meta")
+                       for k in ("lb", "z")}
+    return spec
 
 
 def _pilot_fwd_bwd(cfg, plan, lo, hi, own, shared, act, batch):

@@ -1,8 +1,9 @@
 """Model-as-a-queue-of-segments: the structural substrate for Hydra (port
-of ``repro.core.shard_graph``: the dense and vlm plans, the ssm plan
-(one segment per xLSTM group) and the hybrid plan (one segment per Mamba2
-layer, the shared attention block a shared group); the MoE and audio
-plans come with their model code).
+of ``repro.core.shard_graph``: the dense and vlm plans, the MoE plan
+(the dense plan's segments, with the layers' aux sums carried in the
+activation), the ssm plan (one segment per xLSTM group) and the hybrid
+plan (one segment per Mamba2 layer, the shared attention block a shared
+group); the audio plan comes with its model code).
 
 A *segment* is the finest cut-point granularity (one layer, or the embed /
 head ends).  The partitioner groups contiguous segments into *shards*;
@@ -31,7 +32,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import torch_dtype
-from repro_torch.models import hybrid, ssm, transformer
+from repro_torch.models import hybrid, moe, ssm, transformer
 from repro_torch.models import layers as nn
 from repro_torch.training.losses import softmax_xent
 from repro_torch.tree import tree_map
@@ -106,7 +107,12 @@ def update_with_ref(params: ParamTree, ref: tuple, new_val) -> ParamTree:
 # ---------------------------------------------------------------------------
 
 def _xent_loss(cfg, act, batch):
-    return softmax_xent(act["logits"], batch["labels"])
+    loss = softmax_xent(act["logits"], batch["labels"])
+    if "aux" in act:
+        # act carries per-layer sums; the reference loss uses layer means
+        loss = loss + (0.01 * act["aux"]["lb"]
+                       + 1e-3 * act["aux"]["z"]) / cfg.n_layers
+    return loss
 
 
 def _dense_plan(cfg) -> ShardPlan:
@@ -120,6 +126,29 @@ def _dense_plan(cfg) -> ShardPlan:
     def head_apply(cfg, own, shared, act, batch):
         x = transformer._norm(cfg, own, act["x"])
         return {"logits": nn.unembed(shared["embed"], x)}
+
+    segs = [Segment("embed", None, ("embed",), embed_apply, 0.1)]
+    for i in range(cfg.n_layers):
+        segs.append(Segment(f"layer{i}", ("stack_slice", "layers", i, i + 1),
+                            (), layer_apply))
+    segs.append(Segment("head", ("final_norm",), ("embed",), head_apply, 0.5))
+    return ShardPlan(cfg, segs, {"embed": ("embed",)}, _xent_loss)
+
+
+def _moe_plan(cfg) -> ShardPlan:
+    def embed_apply(cfg, own, shared, act, batch):
+        x = transformer.embed_inputs(cfg, {"embed": shared["embed"]}, batch)
+        zero = torch.zeros((), dtype=torch.float32, device=x.device)
+        return {"x": x, "aux": {"lb": zero, "z": zero}}
+
+    def layer_apply(cfg, own, shared, act, batch):
+        x, aux = moe.apply_layer_range(cfg, own, act["x"])
+        return {"x": x, "aux": {"lb": act["aux"]["lb"] + aux["lb_loss"],
+                                "z": act["aux"]["z"] + aux["z_loss"]}}
+
+    def head_apply(cfg, own, shared, act, batch):
+        x = nn.rms_norm(own, act["x"])
+        return {"logits": nn.unembed(shared["embed"], x), "aux": act["aux"]}
 
     segs = [Segment("embed", None, ("embed",), embed_apply, 0.1)]
     for i in range(cfg.n_layers):
@@ -202,6 +231,8 @@ def restore_model_params(cfg, host_params) -> ParamTree:
 def build_plan(cfg) -> ShardPlan:
     if cfg.family in ("dense", "vlm"):
         return _dense_plan(cfg)
+    if cfg.family == "moe":
+        return _moe_plan(cfg)
     if cfg.family == "ssm":
         return _ssm_plan(cfg)
     if cfg.family == "hybrid":

@@ -15,6 +15,10 @@ Layout of the host store per model:
     params:      family host tree (prepare_host_params applied)
     opt:         {shard_index: opt-state tree}  (own params)
     shared_opt:  {name: opt-state tree}         (shared params)
+A forward-only store (``train=False``: eval, spilled inference, cold
+serving) holds params only: no unit of its model steps an optimizer, so
+it keeps no optimizer state (the JAX package's holds AdamW moments, two
+more copies of the params, that nothing reads).
 
 ``DeviceMemory`` is the byte ledger of one virtual device: promoted
 shards, the double-buffer loading zone, serving KV pages and serve-weight
@@ -73,7 +77,8 @@ class HostModelStore:
     promoted to ``device`` shard by shard."""
 
     def __init__(self, cfg, plan: sg.ShardPlan, params, opt_cfg,
-                 partition: PartitionResult, device="cuda"):
+                 partition: PartitionResult, device="cuda", *,
+                 train: bool = True):
         from repro_torch.optim import optimizers as opt
         self.device = resolve_device(device)
         pin = self.device.type == "cuda"
@@ -82,7 +87,11 @@ class HostModelStore:
         self.partition = partition
         self.params = sg.prepare_host_params(cfg, to_host(params, pin))
         self.opt_cfg = opt_cfg
+        self.train = train
         self.opt: dict[int, Any] = {}
+        self.shared_opt: dict[str, Any] = {}
+        if not train:
+            return
         for shard in partition.shards:
             own = self._own_params(shard)
             self.opt[shard.index] = to_host(opt.init_state(opt_cfg, own), pin)
@@ -107,6 +116,9 @@ class HostModelStore:
 
     def promote_shard(self, shard: Shard):
         """Host -> device: (own_params, shared_params, opt_state)."""
+        if not self.train:
+            raise ValueError("a forward-only host store holds no optimizer "
+                             "state: promote_shard_params")
         own = to_device(self._own_params(shard), self.device)
         opt_state = to_device(self.opt[shard.index], self.device)
         return own, self._shared_params(shard), opt_state

@@ -18,10 +18,11 @@
 // What bounds it on an H100: the bytes.  A call reads each lane's
 // attended K/V rows once (2 * nkv * hd * itemsize bytes a row, plus two
 // f32 scales a row and KV head for int8) and does ~4 * groups flops per
-// element read — 8 at qwen3-0.6b's 2 query heads per KV head, far under
-// the f32 CUDA-core ridge (~20 flops a byte), so the floor is those bytes
-// over 3.35 TB/s.  The products stay f32 on the CUDA cores: at <= 8 query
-// rows a key, tensor cores would not help.
+// element read — 8 at qwen3-0.6b's 2 query heads per KV head, 48 at
+// command-r-plus-104b's 12: per byte of bf16 pages that is 4 and 24, at
+// or under the f32 CUDA-core ridge (~20 flops a byte at 67 TFLOP/s), so
+// the floor is those bytes over 3.35 TB/s.  The products stay f32 on the
+// CUDA cores: at <= 16 query rows a key, tensor cores would not help.
 //
 // What held the earlier one-block-per-(KV head, lane) design back: 8 x 8
 // = 64 blocks at
@@ -112,7 +113,7 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kSplit = 128;                  // logical rows per split
 constexpr int kTile = kWarps * kKeys;        // rows per tile (64)
 constexpr int kTiles = kSplit / kTile;       // tiles per split
-constexpr int kMaxGroups = 8;                // query heads per KV head
+constexpr int kMaxGroups = 16;               // query heads per KV head
 constexpr size_t kSmemMax = 227 * 1024;
 constexpr size_t kSmemTwoStages = 113 * 1024;  // two blocks an SM at least
 
@@ -136,7 +137,8 @@ __host__ __device__ constexpr size_t decode_smem(int groups, int hd,
 }
 
 // DPL: head dims per lane in p.v (hd <= 32 * DPL); GB: query heads per KV
-// head the registers hold (groups <= GB); S: ring stages.  q is read once,
+// head the registers hold (groups <= GB: 2, 8 or 16, see by_groups); S:
+// ring stages.  q is read once,
 // into shared memory, so its dtype is a flag, not a template parameter.
 // TKV = int8_t reads k/v_scales; other types ignore them.
 template <typename TKV, int DPL, int GB, int S>
@@ -462,6 +464,15 @@ cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
   return cudaErrorInvalidValue;
 }
 
+// The register width GB by group count: 2 (qwen3-0.6b's 2 query heads a
+// KV head), 8 (3 to 8: yi-34b's 7, qwen2.5-32b's 5), 16 (9 to 16:
+// command-r-plus-104b's 12).  Rows past `groups` idle behind a branch
+// that is uniform across the block.  Every query head of a KV head is
+// scored against the same staged K/V tile, so the K/V rows are still read
+// once per split whatever the group count.  At GB 16 and DPL 4 a thread
+// holds 64 acc floats and 48 softmax and score floats; the shared
+// accumulator term of decode_smem (kWarps * groups * hd * 4 bytes, 24 KB
+// at 12 groups and head_dim 128) stays under the ring at that head_dim.
 template <typename TQ, typename TO, typename TKV, int DPL>
 cudaError_t by_groups(const void* q, const void* k_pages,
                       const void* v_pages, const float* k_scales,
@@ -471,6 +482,10 @@ cudaError_t by_groups(const void* q, const void* k_pages,
                       cudaStream_t stream) {
   if (a.groups <= 2)
     return launch<TQ, TO, TKV, DPL, 2>(q, k_pages, v_pages, k_scales, v_scales,
+                                   tables, lengths, out, part_ml, part_acc,
+                                   n, a, stream);
+  if (a.groups <= 8)
+    return launch<TQ, TO, TKV, DPL, 8>(q, k_pages, v_pages, k_scales, v_scales,
                                    tables, lengths, out, part_ml, part_acc,
                                    n, a, stream);
   return launch<TQ, TO, TKV, DPL, kMaxGroups>(q, k_pages, v_pages, k_scales,

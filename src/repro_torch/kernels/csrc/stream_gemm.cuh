@@ -56,10 +56,16 @@ constexpr int kSliceK = 64;         // depth granule of a slice
 constexpr int kStages = 4;          // weight tiles in flight per block
 constexpr int kTargetBlocks = 264;  // ~2 blocks on each of the 132 SMs
 constexpr int kMaxRows = 32;        // activation rows per block
+// deepest slice: a block stages its rows of its slice in shared memory
+// (32 rows of 1536 + pad: 197 KB in f32, beside the 32 KB ring; bf16
+// the same at 4 n-tiles), so a wide product such as command-r-plus-104b's
+// (d 12288, f 33792) takes more slices instead of a refused launch
+constexpr int kMaxSliceK = 1536;
 constexpr bool kSplitActivation = true;  // x = hi + lo: two bf16 products
 
 // How a product of depth K is split across blocks: enough slices that the
-// grid has ~kTargetBlocks blocks, each slice a whole number of granules.
+// grid has ~kTargetBlocks blocks, each slice a whole number of granules
+// and at most kMaxSliceK deep.
 struct Split {
   int splits;
   int k_per_split;
@@ -72,6 +78,7 @@ inline Split plan(int K, int N, int n_mats, int row_tiles) {
   s = s < 1 ? 1 : (s > granules ? granules : s);
   Split out;
   out.k_per_split = ((granules + s - 1) / s) * kSliceK;
+  if (out.k_per_split > kMaxSliceK) out.k_per_split = kMaxSliceK;
   out.splits = (K + out.k_per_split - 1) / out.k_per_split;
   return out;
 }

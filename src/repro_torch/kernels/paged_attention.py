@@ -39,7 +39,7 @@ from repro_torch.kernels.ref import (paged_attention_quant_ref,
                                      paged_attention_ref)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_GROUPS = 8             # kMaxGroups in csrc/paged_decode.cuh
+_MAX_GROUPS = 16            # kMaxGroups in csrc/paged_decode.cuh
 SPLIT_ROWS = 128            # kSplit
 
 
@@ -108,7 +108,7 @@ def check_cuda_operands(kernel: str, named: dict) -> None:
 
 
 def _check_split_shape(kernel, nh, nkv, hd, k_pages, v_pages) -> None:
-    """Raise unless the split-KV kernel takes this shape: groups <= 8,
+    """Raise unless the split-KV kernel takes this shape: groups <= 16,
     head_dim <= 256, each page row a whole number of 16-byte copies, the
     lanes' head dims in p.v whole vectors, pages 16-byte aligned."""
     groups = nh // nkv

@@ -1,6 +1,6 @@
 """Model families of the port: dense (with the paper's bert-large-1b),
-ssm (xLSTM) and hybrid (Mamba2 + shared attention), behind the
-family-agnostic ``api``."""
+moe (Mixtral / DBRX class), ssm (xLSTM) and hybrid (Mamba2 + shared
+attention), behind the family-agnostic ``api``."""
 
 from repro_torch.models.api import (decode_step, forward, init_decode_state,
                                     init_params, input_specs,

@@ -2,9 +2,9 @@
 (port of ``repro.models.registry``).
 
 Execution layers ask ``spec(cfg)`` what a family can do instead of
-testing family names.  The ``dense``, ``ssm`` and ``hybrid`` families are
-ported so far; other families raise ``KeyError`` naming what is
-available.
+testing family names.  The ``dense``, ``moe``, ``ssm`` and ``hybrid``
+families are ported so far; other families raise ``KeyError`` naming
+what is available.
 """
 
 from __future__ import annotations
@@ -82,6 +82,12 @@ class FamilySpec:
                     ("the family has not declared a quantized page "
                      "layout + cost model" if self.paging
                      else self.why_not("paging")))
+        if capability == "preemptible" and "preemptible" not in self.notes:
+            # derived from paging: explain through the underlying flag
+            return ("preemption snapshots paged block tables; " +
+                    ("the slot/spec backends keep contiguous or lockstep "
+                     "decode state — serve with backend='paged'"
+                     if self.paging else self.why_not("paging")))
         return self.notes.get(capability, "not declared by the family spec")
 
 
@@ -89,6 +95,7 @@ _REGISTRY: dict[str, FamilySpec] = {}
 
 # family -> module that registers it (lazy import on first lookup)
 _FAMILY_MODULES = {"dense": "repro_torch.models.transformer",
+                   "moe": "repro_torch.models.moe",
                    "ssm": "repro_torch.models.ssm",
                    "hybrid": "repro_torch.models.hybrid"}
 

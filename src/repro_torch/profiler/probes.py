@@ -14,8 +14,8 @@ CPU) and has a ``quick`` mode sized for CI smoke:
   a warm-up; later steps are timed through the engine's own
   ``decode_s``/``decode_steps`` counters, and prefill on a second
   admission wave.  The recurrent families (ssm, hybrid) prefill token by
-  token, as they serve.  A family the port has not ported (moe) fails,
-  and lands in ``_errors``.
+  token, as they serve; moe serves on the slot backend, as it does
+  everywhere.  A family whose probe fails lands in ``_errors``.
 * ``probe_kernels``  — every ``kernels/ops.py`` entry point against its
   plain version at the JAX probe's shapes (f32): on the card the CUDA
   kernel, on the CPU the plain version itself (``default_impl`` says
@@ -38,8 +38,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.profiler.facts import MachineFacts, current_fingerprint
 
-# one servable smoke arch per probe family (the JAX probe's map; dense,
-# ssm and hybrid are ported — moe fails into ``_errors``)
+# one servable smoke arch per probe family (the JAX probe's map)
 PROBE_FAMILY_ARCHS = {"dense": "qwen3-0.6b", "ssm": "xlstm-350m",
                       "hybrid": "zamba2-1.2b", "moe": "mixtral-8x22b"}
 
@@ -275,10 +274,9 @@ def probe_accept_rates(*, quick: bool = False, device="cuda") -> dict:
     family: a tiny spec workload with the canonical shrunk draft (the
     family's smoke arch at half depth, same vocab) through the real
     ``SpecDecodeBackend``.  ``CostModel.draft_plan`` prefers these over
-    its fixed 0.8 prior.  Families that are not spec-draftable (ssm,
-    hybrid) are skipped, as in the JAX probe; a family whose probe fails
-    (here: moe, not ported yet) is simply absent, recorded in
-    ``_errors``.
+    its fixed 0.8 prior.  Families that are not spec-draftable (moe,
+    ssm, hybrid) are skipped, as in the JAX probe; a family whose probe
+    fails is simply absent, recorded in ``_errors``.
     """
     from repro_torch.configs import get_config
     from repro_torch.models import api as mapi

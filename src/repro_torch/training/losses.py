@@ -44,3 +44,9 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     nll = logz - gold
     return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def moe_total_loss(xent: torch.Tensor, aux: dict, *, lb_coef: float = 0.01,
+                   z_coef: float = 1e-3) -> torch.Tensor:
+    """Cross-entropy plus the MoE load-balance and router z-loss terms."""
+    return xent + lb_coef * aux["lb_loss"] + z_coef * aux["z_loss"]

@@ -15,8 +15,9 @@ from typing import Optional
 import torch
 
 from repro_torch.models import api, registry
+from repro_torch.models import moe as moe_mod
 from repro_torch.optim import optimizers as opt
-from repro_torch.training.losses import softmax_xent
+from repro_torch.training.losses import moe_total_loss, softmax_xent
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten_like
 
 
@@ -24,6 +25,13 @@ def make_loss_fn(cfg, *, window: Optional[int] = None):
     """``loss_fn(params, batch) -> (loss, metrics)``."""
 
     def loss_fn(params, batch):
+        if cfg.family == "moe":
+            logits, aux = moe_mod.forward(cfg, params, batch, window=window,
+                                          return_aux=True)
+            xent = softmax_xent(logits, batch["labels"])
+            loss = moe_total_loss(xent, aux)
+            return loss, {"loss": loss, "xent": xent,
+                          "lb_loss": aux["lb_loss"], "z_loss": aux["z_loss"]}
         logits = api.forward(cfg, params, batch, window=window)
         loss = softmax_xent(logits, batch["labels"])
         return loss, {"loss": loss, "xent": loss}

@@ -1,0 +1,94 @@
+"""The port's config registry against the JAX package's: the five configs
+ported with the MoE family and the three widest dense models, field for
+field (dtypes as strings), the parameter counts every ported config
+reports, and ``ASSIGNED_ARCHS``.
+
+The JAX ``ArchConfig`` has five fields the port does not: the
+encoder-decoder (``is_encoder_decoder``, ``n_encoder_layers``,
+``encoder_len``) and VLM (``takes_embeddings``) fields of ROADMAP Queue 1
+item 8's second half, and ``long_context_window`` (the ``long_500k``
+decode window of item 9).  Every config compared here leaves them at
+their defaults.
+"""
+
+import _torch_threads  # noqa: F401  (one torch thread per xdist worker)
+import dataclasses
+
+import numpy as np
+import pytest
+
+from repro import configs as jconfigs
+from repro.configs import ArchConfig as JArchConfig
+from repro.configs import get_config as jget_config
+from repro_torch import configs
+from repro_torch.configs import ARCH_REGISTRY, ArchConfig, get_config
+
+NEW = ["qwen2.5-32b", "yi-34b", "command-r-plus-104b", "mixtral-8x22b",
+       "dbrx-132b"]
+JAX_ONLY = {"long_context_window", "is_encoder_decoder", "n_encoder_layers",
+            "encoder_len", "takes_embeddings"}
+UNPORTED_ARCHS = ["llava-next-mistral-7b", "whisper-medium"]
+
+
+def _as_port(v):
+    """A JAX field value as the port writes it (dtypes as strings)."""
+    if isinstance(v, (type, np.dtype)) or hasattr(v, "dtype"):
+        return np.dtype(v).name
+    return v
+
+
+@pytest.mark.parametrize("smoke", [False, True])
+@pytest.mark.parametrize("arch", NEW)
+def test_new_configs_equal_jax_field_for_field(arch, smoke):
+    cfg, jcfg = get_config(arch, smoke=smoke), jget_config(arch, smoke=smoke)
+    fields = {f.name for f in dataclasses.fields(ArchConfig)}
+    jfields = {f.name for f in dataclasses.fields(JArchConfig)}
+    assert jfields - fields == JAX_ONLY and fields <= jfields
+    for name in sorted(fields):
+        assert getattr(cfg, name) == _as_port(getattr(jcfg, name)), name
+    jdefaults = JArchConfig(name="x", family="dense", n_layers=1, d_model=8,
+                            n_heads=1, n_kv_heads=1, d_ff=8, vocab_size=8)
+    for name in JAX_ONLY:
+        assert getattr(jcfg, name) == getattr(jdefaults, name), name
+
+
+@pytest.mark.parametrize("smoke", [False, True])
+@pytest.mark.parametrize("arch", sorted(ARCH_REGISTRY))
+def test_param_counts_equal_jax(arch, smoke):
+    """``n_params``, ``layer_params`` and ``n_active_params`` (MoE: the
+    top-k experts only) of every ported config, full and smoke."""
+    cfg, jcfg = get_config(arch, smoke=smoke), jget_config(arch, smoke=smoke)
+    for prop in ("n_params", "layer_params", "n_active_params",
+                 "attn_params", "mlp_params"):
+        assert getattr(cfg, prop) == getattr(jcfg, prop), prop
+
+
+def test_dims_and_moe_extras_of_the_new_configs():
+    """JAX ``tests/test_double_buffer.py``'s numbers for these five."""
+    expected = {"qwen2.5-32b": (64, 5120, 40, 8, 27648, 152064),
+                "mixtral-8x22b": (56, 6144, 48, 8, 16384, 32768),
+                "dbrx-132b": (40, 6144, 48, 8, 10752, 100352),
+                "yi-34b": (60, 7168, 56, 8, 20480, 64000),
+                "command-r-plus-104b": (64, 12288, 96, 8, 33792, 256000)}
+    for arch, dims in expected.items():
+        cfg = get_config(arch)
+        assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                cfg.d_ff, cfg.vocab_size) == dims
+        assert cfg.source
+        smoke = get_config(arch, smoke=True)
+        assert smoke.n_layers <= 4 and smoke.d_model <= 512
+        assert smoke.family != "moe" or smoke.n_experts <= 4
+    mix, dbrx = get_config("mixtral-8x22b"), get_config("dbrx-132b")
+    assert (mix.n_experts, mix.top_k, mix.window) == (8, 2, 4096)
+    assert (dbrx.n_experts, dbrx.top_k) == (16, 4)
+    assert get_config("qwen2.5-32b").qkv_bias
+
+
+def test_assigned_archs_are_jax_less_the_unported():
+    assert configs.ASSIGNED_ARCHS == [
+        a for a in jconfigs.ASSIGNED_ARCHS if a not in UNPORTED_ARCHS]
+    for arch in configs.ASSIGNED_ARCHS:
+        assert get_config(arch) and get_config(arch, smoke=True)
+    for arch in UNPORTED_ARCHS:
+        with pytest.raises(KeyError, match="not ported"):
+            get_config(arch)

@@ -52,11 +52,12 @@ def _setup(arch):
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_probe(arch):
-    """JAX's probe partitions of ``arch`` at its budgets (and at one too
-    small for a segment), with the peak of every candidate JAX compiled:
-    ``(results, peaks)``.  Each candidate compiles once per arch (the
-    compiled module is reused across budgets)."""
+def _jax_probe(arch, budgets=None):
+    """JAX's probe partitions of ``arch`` at ``budgets`` (default its
+    ``BUDGETS``: and at one too small for a segment), with the peak of
+    every candidate JAX compiled: ``(results, peaks)``.  Each candidate
+    compiles once per arch (the compiled module is reused across
+    budgets)."""
     jcfg, jhost, _, _ = _setup(arch)
     plan = jsg.build_plan(jcfg)
     peaks, compiled, cur = {}, {}, {}
@@ -86,7 +87,7 @@ def _jax_probe(arch):
     mp.setattr(jax.stages.Compiled, "memory_analysis", memory_analysis)
     results = {}
     try:
-        for budget in BUDGETS[arch]:
+        for budget in budgets or BUDGETS[arch]:
             try:
                 results[budget] = jpt.partition(
                     jcfg, jhost, plan, budget_bytes=budget, batch=2,

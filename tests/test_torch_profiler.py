@@ -440,11 +440,10 @@ def test_quick_profile_on_cpu_has_every_row(quick_profile):
     assert [r["bytes"] for r in facts.transfer["h2d"]] == \
         [1 << 16, 1 << 20, 1 << 22]
     assert facts.accept_rates["dense"]["draft_k"] == 3
-    # ssm and hybrid are registered and not spec-draftable: skipped, as
-    # the JAX probe skips them; the family not ported yet (moe) fails
-    # into the errors, as the JAX probe's contract has it
-    assert set(facts.notes["accept_errors"]) == {"moe"}
-    assert not {"ssm", "hybrid"} & set(facts.accept_rates)
+    # moe, ssm and hybrid are registered and not spec-draftable: skipped,
+    # as the JAX probe skips them, so no family fails into the errors
+    assert set(facts.notes["accept_errors"]) == set()
+    assert not {"moe", "ssm", "hybrid"} & set(facts.accept_rates)
 
 
 def test_quick_profile_prices_a_session(quick_profile, capsys):
