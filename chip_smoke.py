@@ -228,7 +228,8 @@ Phases (any failure exits non-zero before the result line):
    grad norm equal to ``make_train_step``'s at 2e-4 at full width;
 22. ROADMAP item 8 up to MoE at full width (each model freed before the
    next; every depth cut printed, widths as published) — (a) the paged
-   kernel (bf16 2e-2, f32 2e-5), the int8 kernel and verify (k 1, 4, 5)
+   kernel (bf16 2e-2, f32 2e-5), the int8 kernel and verify (k 1, 4, 5;
+   and 8 at 12 groups: 96 rows, run as query chunks)
    at 5, 6, 7 and 12 query heads per KV head (8 KV heads of 128, phase
    3's ragged lengths, garbage lane and window case), the fused layer at
    qwen2.5-32b's, yi-34b's and command-r-plus-104b's d and f, flash at
@@ -256,6 +257,33 @@ Phases (any failure exits non-zero before the result line):
    12 query heads per KV head gives identical tokens through the paged
    kernel and the plain paged engine.  Alone: ``python3
    tools/item8_phase.py``.
+23. ROADMAP item 8's second half at full width (cut nothing; every model
+   freed before the next): (a) the paged, int8 and verify kernels at
+   llava-next-mistral-7b's 32/8 heads of 128 (phase 3's ragged lengths,
+   garbage lane and window case; verify at k 1, 4, 8, and at 12 query
+   heads per KV head and k 8 — 96 rows, run as query chunks of the
+   kernel's 64), the fused layer at d 4096 / f 14336, flash at llava's
+   eval shape (b 1, s 4096) and whisper's decoder self-attention (b 2, s
+   448, 16/16 heads of 64); (b) llava at 32 layers (f32 params, one bf16
+   copy of the layer weights shared by its engines) serves phase 4's
+   requests on the paged, fused, spec (self-draft) and int8 backends:
+   launches = steps (rounds) x 32, each kernel step gated against its
+   plain version on the mean (LOGIT_REL, phase 22's rule), each kernel
+   at its serve inputs, one profiled paged step; (c) llava's spilled
+   eval of a random ``embeds`` batch (1 x 4096) with flash and without:
+   32 launches, one full forward both ways; (d) whisper-medium (24 + 24
+   layers): two TrainJobs under SHARP (2 AdamW steps of 2 x 448) at the
+   largest budget whose analytic plan cuts >= 3 shards with a boundary
+   past the bridge, unit peaks beside charges, losses equal plain
+   training at 3e-4; the probe's plan beside the analytic one; a
+   spilled eval with flash (24 launches) and without; encode ->
+   precompute_cross_kv -> 16 decode steps against the forward (mean abs
+   within 2e-2); (e) two vit-300m models under SHARP on random patch
+   embeddings, losses equal plain training; (f) llava smoke f32 slot,
+   paged, spec and int8 engines give each prompt its tokens alone, and
+   the engine refuses whisper smoke with the JAX package's reason.
+   ``MemAvailable`` is printed before (c)'s stores, (d) and (e).  Alone:
+   ``python3 tools/encdec_vlm_phase.py``.
 
 Each kernel's launch count is zeroed just before the run of its own path
 (a serve run, the spilled eval, the profiler's ``build_facts`` for
@@ -270,7 +298,9 @@ inputs, the paged and int8 kernels' launches on the tiered path (phase
 the async session path (phase 21 (c)) as ``async_launches``; the paged
 kernel's summed over phase 22 (b)'s three wide dense serves as
 ``wide_gqa_launches`` and flash's on phase 22 (d)'s MoE eval as
-``moe_eval_launches``.
+``moe_eval_launches``; the paged, verify, int8 and fused kernels' on
+phase 23 (b)'s llava serves as ``vlm_launches`` and flash's on phase 23
+(d)'s whisper eval as ``audio_launches`` (each zeroed before its run).
 
 The second-to-last lines are a JSON object of per-kernel numbers and the
 card's ``nvidia-smi`` name/power line; the last line is
@@ -1404,7 +1434,7 @@ def logit_gate(label, logits, names=("kernel", "plain"), stat="max"):
     return res
 
 
-def phase_verify_both_ways(cfg, snap, params, bf16_params):
+def phase_verify_both_ways(cfg, snap, params, bf16_params, stat="max"):
     """One verify round of the spec run's snapshot through the kernel and
     through the plain path (both bf16), each against the same round in
     f32 compute; only the lanes in the round are compared (the others
@@ -1428,13 +1458,13 @@ def phase_verify_both_ways(cfg, snap, params, bf16_params):
                 snap["tokens"].long(), impl=impl)[lanes].float()
             del pages
     torch.cuda.synchronize()
-    res = logit_gate(f"one verify round ({int(lanes.sum())} lanes x "
-                     f"{DRAFT_K} positions)", logits)
+    res = logit_gate(f"{cfg.name} one verify round ({int(lanes.sum())} "
+                     f"lanes x {DRAFT_K} positions)", logits, stat=stat)
     res["lanes_in_round"] = int(lanes.sum())
     return res
 
 
-def phase_int8_both_ways(cfg, snap, params, bf16_params):
+def phase_int8_both_ways(cfg, snap, params, bf16_params, stat="max"):
     """One decode step of the int8 run's snapshot through the int8 kernel
     and through the plain int8 path (both bf16), each against the same
     step in f32 compute over the same int8 pages."""
@@ -1458,7 +1488,8 @@ def phase_int8_both_ways(cfg, snap, params, bf16_params):
                 c, p, pages, tables, lengths, tokens, impl=impl).float()
             del pages
     torch.cuda.synchronize()
-    return logit_gate("one int8 decode step", logits)
+    return logit_gate(f"{cfg.name} one int8 decode step", logits,
+                      stat=stat)
 
 
 def step_turns(cfg, params, snap, tables, lengths, tokens, impls, rounds=3):
@@ -1863,14 +1894,19 @@ def track_ledger_peaks(session) -> dict:
     return peak_used
 
 
-def phase_sharp_train(cfg, budget=TRAIN_BUDGET, steps=TRAIN_STEPS):
+def phase_sharp_train(cfg, budget=TRAIN_BUDGET, steps=TRAIN_STEPS, *,
+                      loader=train_loader, batch=TRAIN_BATCH,
+                      seq=TRAIN_SEQ, min_shards=3, unit_peaks=False):
     """Two full-width TrainJobs of ``cfg`` (seeds 0 and 1, lr 1e-4 and
     3e-4, AdamW) through the port's Session on two virtual devices of
     ``budget`` bytes each (qwen3-0.6b: 5 GB, 3 steps), ``steps`` steps of
-    batch 2 x 1024 tokens; then each model's plain full-model training on
-    the card.  Gates: >= 3 shards a model, units =
-    models x steps x 2 x shards, the ledger never over its budget, SHARP
-    losses equal to the sequential reference at 3e-4."""
+    ``loader(cfg, seed)``'s batches (default 2 x 1024 tokens); then each
+    model's plain full-model training on the card.  Gates: >=
+    ``min_shards`` shards a model, units = models x steps x 2 x shards,
+    the ledger never over its budget, SHARP losses equal to the
+    sequential reference at 3e-4.  ``unit_peaks`` records each unit's
+    allocated peak over the baseline beside its shard's analytic
+    charge."""
     import numpy as np
     import torch
 
@@ -1885,13 +1921,30 @@ def phase_sharp_train(cfg, budget=TRAIN_BUDGET, steps=TRAIN_STEPS):
                                   device_budget_bytes=budget),
                       device="cuda", profile=None)
     for seed, lr in enumerate(lrs):
-        session.submit(TrainJob(cfg, train_loader(cfg, seed), lr=lr,
+        session.submit(TrainJob(cfg, loader(cfg, seed), lr=lr,
                                 optimizer="adamw", epochs=1,
                                 steps_per_epoch=steps, seed=seed,
-                                batch=TRAIN_BATCH, seq=TRAIN_SEQ))
+                                batch=batch, seq=seq))
     plan = session.plan()
     setup_s = time.perf_counter() - t0
     peak_used = track_ledger_peaks(session)
+    units = []
+    if unit_peaks:
+        tick = session.serve_tick
+
+        def unit_peak():
+            if len(session.unit_trace) > len(units):
+                torch.cuda.synchronize()
+                units.append((session.unit_trace[-1],
+                              torch.cuda.max_memory_allocated() - base))
+                torch.cuda.reset_peak_memory_stats()
+            return tick()
+        session.serve_tick = unit_peak
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     report = session.run(plan)
     torch.cuda.synchronize()
@@ -1912,8 +1965,7 @@ def phase_sharp_train(cfg, budget=TRAIN_BUDGET, steps=TRAIN_STEPS):
            "setup_s": setup_s, "wall_s": wall,
            "bytes_promoted": promoted,
            "effective_h2d_gb_per_s": promoted / wall / 1e9,
-           "trained_tok_per_s": (len(execs) * steps * TRAIN_BATCH
-                                 * TRAIN_SEQ / wall),
+           "trained_tok_per_s": len(execs) * steps * batch * seq / wall,
            "ledger_peak_bytes": peak_used,
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
            "plan_provenance": plan.provenance,
@@ -1921,8 +1973,18 @@ def phase_sharp_train(cfg, budget=TRAIN_BUDGET, steps=TRAIN_STEPS):
            "plan_shard_bounds": [[(sh["seg_lo"], sh["seg_hi"])
                                   for sh in j.partition["shards"]]
                                  for j in plan.jobs]}
+    if unit_peaks:
+        m = execs[0]
+        charge = {s.index: s.param_bytes + s.act_bytes
+                  + m.partition.shared_bytes for s in m.partition.shards}
+        res["unit_peaks"] = [{"unit": list(k), "peak": p,
+                              "charge": charge[k[1]]} for k, p in units]
+        for r in res["unit_peaks"]:
+            log(f"[sharp] {cfg.name} unit {r['unit']}: allocated peak "
+                f"{r['peak']} B over the baseline; its shard's analytic "
+                f"charge {r['charge']} B")
     log(f"[sharp] 2 x {cfg.name} full width, {steps} steps of "
-        f"{TRAIN_BATCH}x{TRAIN_SEQ} tokens: shards {shards} "
+        f"{batch}x{seq} tokens: shards {shards} "
         f"{res['shard_layers'][0]}, units {train.units_executed}, virtual "
         f"makespan {train.makespan:.4f} s, avg utilization "
         f"{train.avg_utilization:.4f}, wall {wall:.2f} s (setup "
@@ -1931,9 +1993,9 @@ def phase_sharp_train(cfg, budget=TRAIN_BUDGET, steps=TRAIN_STEPS):
         f"trained {res['trained_tok_per_s']:.1f} tok/s, ledger peak "
         f"{peak_used} of {budget}, max_memory_allocated "
         f"{res['max_memory_allocated']}")
-    if min(shards) < 3:
+    if min(shards) < min_shards:
         fail(f"SHARP partitioned {cfg.name} into {shards} shards at a "
-             f"{budget} B budget; expected at least 3 a model")
+             f"{budget} B budget; expected at least {min_shards} a model")
     expect = len(execs) * steps * 2 * shards[0]
     if len(set(shards)) != 1 or train.units_executed != expect:
         fail(f"SHARP ran {train.units_executed} units; expected models x "
@@ -1944,9 +2006,9 @@ def phase_sharp_train(cfg, budget=TRAIN_BUDGET, steps=TRAIN_STEPS):
     refs = {}
     for seed, lr in enumerate(lrs):
         _, refs[seed] = train_sequential_reference(
-            ModelTask(cfg, train_loader(cfg, seed), lr=lr, epochs=1,
+            ModelTask(cfg, loader(cfg, seed), lr=lr, epochs=1,
                       steps_per_epoch=steps, seed=seed,
-                      batch=TRAIN_BATCH, seq=TRAIN_SEQ), device="cuda")
+                      batch=batch, seq=seq), device="cuda")
         torch.cuda.empty_cache()
     res["sequential_losses"] = refs
     res["max_abs_loss_diff"] = max(
@@ -2633,7 +2695,6 @@ def small_slot_f32(arch, seed):
 
     from repro_torch.configs import get_config
     from repro_torch.models import api
-    from repro_torch.serving.engine import InferenceEngine
 
     cfg = get_config(arch, smoke=True).replace(
         dtype="float32", kv_cache_dtype="float32")
@@ -2642,31 +2703,37 @@ def small_slot_f32(arch, seed):
     rng = np.random.default_rng(seed)
     prompts = [rng.integers(0, cfg.vocab_size, n, dtype=np.int32)
                for n in (5, 17, 9, 12)]
+    same = pooled_vs_alone(cfg, params, prompts, f"{arch} smoke engine")
+    return {"requests": len(prompts), "identical": same}
 
-    def serve(ps, capacity, stagger):
+
+def pooled_vs_alone(cfg, params, prompts, label, **engine_kw):
+    """An f32 engine of ``cfg`` (``engine_kw`` picks its backend), 3 lanes
+    joining one tick apart: how many requests get the tokens they get
+    decoded alone; fails unless all do."""
+    from repro_torch.serving.engine import InferenceEngine
+
+    def serve(ps, capacity):
         eng = InferenceEngine(cfg, params, capacity=capacity, max_seq=40,
-                              device="cuda")
+                              device="cuda", **engine_kw)
         pending = list(enumerate(ps))
         while pending or eng.has_work():
-            for i, p in pending[:stagger]:
+            for i, p in pending[:1]:
                 eng.submit(p, 10, request_id=f"h{i}")
-            pending = pending[stagger:]
+            pending = pending[1:]
             eng.step()
         eng.run()
         return {r.request_id: r.generated for r in eng.completed}
 
-    pooled = serve(prompts, 3, 1)
-    alone = {}
-    for i, p in enumerate(prompts):
-        alone.update({f"h{i}": serve([p], 1, 1)["h0"]})
-    same = sum(pooled[k] == alone[k] for k in alone)
-    log(f"[small f32] {arch} smoke engine, 3 lanes joining one tick apart:"
-        f" {same} of {len(alone)} requests token-identical to decoding "
-        f"alone")
+    pooled = serve(prompts, 3)
+    alone = {f"h{i}": serve([p], 1)["h0"] for i, p in enumerate(prompts)}
+    same = sum(pooled.get(k) == alone[k] for k in alone)
+    log(f"[small f32] {label}, 3 lanes joining one tick apart: {same} of "
+        f"{len(alone)} requests token-identical to decoding alone")
     if same != len(alone):
-        fail(f"{arch} smoke f32: pooled lanes at different positions did "
-             "not give the tokens each request gets alone")
-    return {"requests": len(alone), "identical": same}
+        fail(f"{label} (f32): pooled lanes at different positions did not "
+             "give the tokens each request gets alone")
+    return same
 
 
 # ---------------------------------------------------------------------------
@@ -4571,8 +4638,9 @@ def wide_gate(kind, label, r, tol, rows):
 def phase_wide_kernels(flush):
     """22 (a): each split-KV kernel at 5, 6, 7 and 12 query heads per KV
     head (8 KV heads of 128, block 16, phase 3's ragged lengths, garbage
-    lane and window case), the fused layer at each wide dense config's
-    d and f, and flash at mixtral's 48/8 heads, s 8192, window 4096."""
+    lane and window case; verify at k 1, 4, 5, and 8 at 12 groups), the
+    fused layer at each wide dense config's d and f, and flash at
+    mixtral's 48/8 heads, s 8192, window 4096."""
     import torch
 
     from repro_torch.configs import get_config
@@ -4609,9 +4677,11 @@ def phase_wide_kernels(flush):
                       f"lanes={n} window={window}", r, TOL["bfloat16"],
                       out["int8"])
             del q, kq8, vq8, ks, vs
+        # at 12 groups also k 8: 96 rows, the kernel over query chunks
         for i, (dt, n, kq, window) in enumerate(
                 [("bfloat16", 8, 1, None), ("bfloat16", 8, 4, None),
-                 ("float32", 8, 5, None), ("bfloat16", 32, 5, 512)]):
+                 ("float32", 8, 5, None), ("bfloat16", 32, 5, 512)]
+                + ([("bfloat16", 8, 8, None)] if g == 12 else [])):
             seed = 600 + 10 * g + i
             torch.manual_seed(seed)
             args = verify_sweep_inputs(n, kq, getattr(torch, dt), seed,
@@ -4866,6 +4936,58 @@ def phase_moe_serve(cfg, params, prompts):
     return res
 
 
+def eval_both_impls(cfg, params, loader, budget, batch, seq, label):
+    """One ``EvalJob`` of ``loader``'s first batch over ``params``, spilled
+    at ``budget`` through a Session of its own, with the flash kernel
+    (attn_impl 'cuda') and without ('xla'); flash's count is zeroed just
+    before each run and read just after.  ``MemAvailable`` is read before
+    the first host store is built; the second store reuses the pinned
+    blocks the first one freed.  Gates: flash launches = the config's
+    (causal) layers with the kernel and none without, >= 2 shards."""
+    import torch
+
+    from repro_torch.api import EvalJob, HydraConfig, Session
+    from repro_torch.kernels.flash_attention import flash_attention_bhsd
+
+    res = {}
+    empty_host_cache()
+    avail = settled_mem_available()
+    for impl in ("cuda", "xla"):
+        session = Session(HydraConfig(n_devices=1,
+                                      device_budget_bytes=budget),
+                          device="cuda", profile=None)
+        session.submit(EvalJob(cfg.replace(attn_impl=impl), loader,
+                               n_batches=1, params=params, batch=batch,
+                               seq=seq))
+        t0 = time.perf_counter()
+        session.plan()                          # the pinned host store
+        plan_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        flash_attention_bhsd.launches = 0
+        t0 = time.perf_counter()
+        ev = session.run().evals["eval-0"]
+        torch.cuda.synchronize()
+        ev.update(wall_s=time.perf_counter() - t0, plan_s=plan_s,
+                  launches=flash_attention_bhsd.launches,
+                  mem_available=avail)
+        res[impl] = ev
+        log(f"{label} eval attn_impl={impl}: {batch} x {seq} tokens, "
+            f"{ev['n_shards']} shards at {budget} B, loss {ev['losses']}, "
+            f"bytes moved {ev['bytes_moved']}, run {ev['wall_s']:.2f} s "
+            f"(plan with the host store {plan_s:.2f} s; MemAvailable "
+            f"before {avail} B), flash launches {ev['launches']}")
+        del session
+        gc.collect()
+    empty_host_cache()
+    if res["cuda"]["launches"] != cfg.n_layers:
+        fail(f"{cfg.name} eval: flash launched {res['cuda']['launches']} "
+             f"times; expected batches x layers = {cfg.n_layers}")
+    if res["xla"]["launches"] != 0 or res["cuda"]["n_shards"] < 2:
+        fail(f"{cfg.name} eval: the plain run launched flash, or the eval "
+             f"ran in {res['cuda']['n_shards']} shard")
+    return res
+
+
 def moe_eval_loader(cfg):
     from repro_torch.data.pipeline import DataConfig, SyntheticTokens
     return SyntheticTokens(DataConfig(batch_size=1, seq_len=MOE_EVAL_SEQ,
@@ -4882,46 +5004,12 @@ def phase_moe_eval(cfg, params):
     Returns the result and layer 0's q/k/v of the batch."""
     import torch
 
-    from repro_torch.api import EvalJob, HydraConfig, Session
     from repro_torch.data.pipeline import as_tensors
-    from repro_torch.kernels.flash_attention import flash_attention_bhsd
     from repro_torch.models import api, moe
 
-    res = {}
-    for impl in ("cuda", "xla"):
-        session = Session(HydraConfig(n_devices=1,
-                                      device_budget_bytes=MOE_EVAL_BUDGET),
-                          device="cuda", profile=None)
-        session.submit(EvalJob(cfg.replace(attn_impl=impl),
-                               moe_eval_loader(cfg), n_batches=1,
-                               params=params, batch=1, seq=MOE_EVAL_SEQ))
-        t0 = time.perf_counter()
-        session.plan()                          # the pinned host store
-        plan_s = time.perf_counter() - t0
-        torch.cuda.synchronize()
-        flash_attention_bhsd.launches = 0
-        t0 = time.perf_counter()
-        ev = session.run().evals["eval-0"]
-        torch.cuda.synchronize()
-        ev["wall_s"] = time.perf_counter() - t0
-        ev["plan_s"] = plan_s
-        ev["launches"] = flash_attention_bhsd.launches
-        res[impl] = ev
-        log(f"[item8] {cfg.name} eval attn_impl={impl}: 1 x "
-            f"{MOE_EVAL_SEQ} tokens, {ev['n_shards']} shards at "
-            f"{MOE_EVAL_BUDGET} B, loss {ev['losses']}, bytes moved "
-            f"{ev['bytes_moved']}, run {ev['wall_s']:.2f} s (plan with the "
-            f"host store {plan_s:.2f} s), flash launches {ev['launches']}")
-        del session
-        gc.collect()
-        empty_host_cache()
-    if res["cuda"]["launches"] != cfg.n_layers:
-        fail(f"{cfg.name} eval: flash launched {res['cuda']['launches']} "
-             f"times; expected batches x layers = {cfg.n_layers}")
-    if res["xla"]["launches"] != 0 or res["cuda"]["n_shards"] < 2:
-        fail(f"{cfg.name} eval: the plain run launched flash, or the eval "
-             f"ran in {res['cuda']['n_shards']} shard")
-
+    res = eval_both_impls(cfg, params, moe_eval_loader(cfg),
+                          MOE_EVAL_BUDGET, 1, MOE_EVAL_SEQ,
+                          f"[item8] {cfg.name}")
     batch = as_tensors(next(iter(moe_eval_loader(cfg))), "cuda")
     routes = {}
     routing = moe._routing
@@ -5267,6 +5355,596 @@ def phase_item8(flush, smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 23: ROADMAP Queue 1 item 8's second half at full width — the
+# kernels at llava's and whisper's shapes, llava-next-mistral-7b served
+# and evaluated from embeddings, whisper-medium and the paper's vit-300m
+# under SHARP
+# ---------------------------------------------------------------------------
+
+VLM_ARCH, AUDIO_ARCH, VIT_ARCH = ("llava-next-mistral-7b", "whisper-medium",
+                                  "vit-300m")
+VLM_EVAL_SEQ = 4096
+VLM_EVAL_BUDGET = 15 * 10**9    # forward-only: llava's 28.4 GB in >= 2
+AUDIO_SEQ = 448                 # whisper's decoder length
+AUDIO_STEPS = 2
+AUDIO_EVAL_BUDGET = 2 * 10**9   # forward-only: whisper's 3.1 GB in >= 2
+AUDIO_DECODE_STEPS = 16
+VIT_SEQ = 256                   # 197 patch tokens of a 224 px image, padded
+VIT_STEPS = 2
+ENC_TOL = 2e-2                  # JAX test_decode_matches_forward's bound
+
+
+def item8b_arch_line(cfg):
+    """Log a phase-23 model's size: widths as published, no depth cut."""
+    enc = (f", {cfg.n_encoder_layers} encoder layers, encoder_len "
+           f"{cfg.encoder_len}" if cfg.is_encoder_decoder else "")
+    log(f"[item8b] {cfg.name} ({cfg.family}) full width and depth: "
+        f"{cfg.n_layers} layers{enc}, d {cfg.d_model}, {cfg.n_heads}/"
+        f"{cfg.n_kv_heads} heads of {cfg.head_dim}, f {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}, {cfg.n_params} params by the JAX package's "
+        f"count ({4 * cfg.n_params} B in f32)")
+
+
+def phase_item8b_kernels(flush):
+    """23 (a): the split-KV kernels at llava's 32/8 heads of 128 (phase
+    3's ragged lengths, garbage lane and window case), verify at k 1, 4
+    and 8, then at 12 query heads per KV head and k 8 (96 rows: the
+    kernel over query chunks), the fused layer at d 4096 / f 14336, flash
+    at llava's eval shape (b 1, s 4096, 32/8) and whisper's decoder
+    self-attention (b 2, s 448, 16/16 heads of 64, causal)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref
+
+    cfg = get_config(VLM_ARCH)
+    nh, nkv = cfg.n_heads, cfg.n_kv_heads
+    out = {"paged": [], "int8": [], "verify": [], "fused": [], "flash": []}
+    for i, (dt, n, window) in enumerate(
+            [("bfloat16", 8, None), ("bfloat16", 32, None),
+             ("float32", 8, None), ("float32", 32, None),
+             ("bfloat16", 32, 512)]):
+        torch.manual_seed(900 + i)
+        args = sweep_inputs(n, getattr(torch, dt), 900 + i, nh=nh, nkv=nkv)
+        r = measure_paged(*args, window, dt, flush)
+        r.update(dtype=dt, lanes=n, window=window)
+        wide_gate("paged_attention", f"llava 32/8 {dt} lanes={n} "
+                  f"window={window}", r, TOL[dt], out["paged"])
+        del args
+    for i, (n, window) in enumerate([(8, None), (32, 512)]):
+        torch.manual_seed(910 + i)
+        q, kp, vp, tables, lengths = sweep_inputs(n, torch.float32, 910 + i,
+                                                  nh=nh, nkv=nkv)
+        kq8, ks = ref.quantize_kv(kp)
+        vq8, vs = ref.quantize_kv(vp)
+        del kp, vp
+        r = measure_quant(q.to(torch.bfloat16), kq8, vq8, ks, vs, tables,
+                          lengths, window, flush)
+        r.update(dtype="bfloat16 q, int8 pages", lanes=n, window=window)
+        wide_gate("paged_attention_quant", f"llava 32/8 bf16/int8 lanes={n}"
+                  f" window={window}", r, TOL["bfloat16"], out["int8"])
+        del q, kq8, vq8, ks, vs
+    for i, (dt, n, kq, window, heads) in enumerate(
+            [("bfloat16", 8, 1, None, (nh, nkv)),
+             ("bfloat16", 8, 4, None, (nh, nkv)),
+             ("bfloat16", 8, 8, None, (nh, nkv)),
+             ("float32", 8, 8, None, (nh, nkv)),
+             ("bfloat16", 32, 4, 512, (nh, nkv)),
+             ("bfloat16", 8, 8, None, (96, 8)),
+             ("float32", 8, 8, None, (96, 8)),
+             ("bfloat16", 32, 8, 512, (96, 8))]):
+        torch.manual_seed(920 + i)
+        args = verify_sweep_inputs(n, kq, getattr(torch, dt), 920 + i,
+                                   nh=heads[0], nkv=heads[1])
+        r = measure_verify(*args, window, dt, flush)
+        g = heads[0] // heads[1]
+        r.update(dtype=dt, lanes=n, k=kq, groups=g, window=window,
+                 rows=kq * g)
+        wide_gate("paged_verify", f"{heads[0]}/{heads[1]} heads {dt} "
+                  f"lanes={n} k={kq} ({kq * g} rows) window={window}", r,
+                  TOL[dt], out["verify"])
+        del args
+    for i, (dt, n, window) in enumerate(
+            [("bfloat16", 8, None), ("float32", 8, None),
+             ("bfloat16", 32, 512)]):
+        seed = 940 + i
+        torch.manual_seed(seed)
+        dtype = getattr(torch, dt)
+        q, kp, vp, tables, lengths = sweep_inputs(n, dtype, seed, nh=nh,
+                                                  nkv=nkv)
+        h = torch.randn(n, cfg.d_model, device="cuda").to(dtype)
+        weights = fused_weights(dtype, seed, cfg.d_model, cfg.d_ff, nh)
+        r = measure_fused(h, q, kp, vp, tables, lengths, weights, window,
+                          dt, flush)
+        r.update(d=cfg.d_model, f=cfg.d_ff, dtype=dt, lanes=n,
+                 window=window)
+        wide_gate("fused_decode_layer", f"llava d={cfg.d_model} "
+                  f"f={cfg.d_ff} {dt} lanes={n} window={window}", r,
+                  MM_TOL[dt], out["fused"])
+        del q, kp, vp, h, weights
+        torch.cuda.empty_cache()
+    acfg = get_config(AUDIO_ARCH)
+    for i, (b, s, heads, hd, dt) in enumerate(
+            [(1, VLM_EVAL_SEQ, (nh, nkv), cfg.head_dim, "bfloat16"),
+             (1, VLM_EVAL_SEQ, (nh, nkv), cfg.head_dim, "float32"),
+             (2, AUDIO_SEQ, (acfg.n_heads, acfg.n_kv_heads), acfg.head_dim,
+              "bfloat16"),
+             (2, AUDIO_SEQ, (acfg.n_heads, acfg.n_kv_heads), acfg.head_dim,
+              "float32")]):
+        gen = torch.Generator("cuda").manual_seed(950 + i)
+        dtype = getattr(torch, dt)
+
+        def draw(n_heads):
+            return torch.randn(b, s, n_heads, hd, device="cuda",
+                               generator=gen).to(dtype)
+        q, k, v = draw(heads[0]), draw(heads[1]), draw(heads[1])
+        r = measure_flash(q, k, v, True, None, dt, flush)
+        r.update(dtype=dt, b=b, sq=s, heads=list(heads), head_dim=hd)
+        wide_gate("flash_attention", f"{dt} b={b} s={s} heads "
+                  f"{heads[0]}/{heads[1]} of {hd} causal", r, TOL[dt],
+                  out["flash"])
+        del q, k, v
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_llava_serve(cfg, params, flush):
+    """23 (b): full-width, full-depth llava-next-mistral-7b (f32 params
+    seeded on the card, one bf16 copy of the layer weights shared by every
+    engine) serves phase 4's 8 requests, 32 new tokens each, on four
+    backends — paged, fused paged, spec over paged with the model as its
+    own draft, int8 pages: each request gets its tokens, each kernel
+    launches decode steps (spec: rounds) x 32 times, each kernel step is
+    gated against its plain version on the mean abs logit difference from
+    the f32 step (LOGIT_REL, phase 22's rule), each kernel at its serve
+    path's inputs, one paged decode step profiled."""
+    import torch
+
+    from repro_torch.kernels.fused_decode import fused_decode_layer
+    from repro_torch.kernels.paged_attention import (n_splits,
+                                                     paged_attention_lanes)
+    from repro_torch.models import api, transformer
+    from repro_torch.serving.engine import InferenceEngine
+
+    bf16 = api.prepare_params(cfg, params, "cuda")
+    prompts = serve_prompts(cfg.vocab_size)
+    max_seq = max(len(p) for p in prompts) + GEN
+    L = cfg.n_layers
+    nh = cfg.n_heads
+    out = {}
+
+    eng = InferenceEngine(cfg, bf16, capacity=CAPACITY, max_seq=max_seq,
+                          backend="paged", block_size=BS, device="cuda")
+    snap, res, summary = drive_serve(cfg, eng, prompts,
+                                     paged_attention_lanes, "llava paged",
+                                     snap_step=8)
+    if res["launches"] != summary["decode_steps"] * L:
+        fail(f"llava paged: paged_attention launched {res['launches']} "
+             f"times; expected decode_steps x layers = "
+             f"{summary['decode_steps'] * L}")
+    log(f"[vlm] llava paged serve: {res['requests']} requests x {GEN} "
+        f"tokens, prefill {res['prefill_tok_per_s']} tok/s, decode "
+        f"{res['decode_tok_per_s']} tok/s, decode_steps "
+        f"{res['decode_steps']}, paged launches {res['launches']}, "
+        f"kv_page_peak_bytes {res['kv_page_peak_bytes']}, shared_block_hits "
+        f"{res['shared_block_hits']}, max_memory_allocated "
+        f"{res['max_memory_allocated']}")
+    tb = torch.from_numpy(snap["tables"]).cuda()
+    le = torch.from_numpy(snap["lengths"] + 1).cuda()
+    q = torch.randn(CAPACITY, nh, HD, device="cuda").to(torch.bfloat16)
+    m = measure_paged(q, snap["pages"]["k"][0], snap["pages"]["v"][0], tb,
+                      le, None, "bfloat16", flush)
+    m.update(lengths=le.tolist(), splits=n_splits(tb.shape[1], BS))
+    wide_gate("paged_attention", f"at llava's paged serve inputs (lengths "
+              f"{m['lengths']}, splits {m['splits']})", m, TOL["bfloat16"],
+              [])
+    res["main_path_kernel"] = m
+    res["both_ways"] = phase_both_ways(cfg, eng, snap, params, stat="mean")
+    res["profile"] = phase_profile(
+        cfg, eng, snap, "llava-next-mistral-7b one paged decode step "
+        f"({CAPACITY} lanes, {L} layers)")
+    out["paged"] = res
+    del eng, snap, q
+    torch.cuda.empty_cache()
+
+    eng = InferenceEngine(cfg, bf16, capacity=CAPACITY, max_seq=max_seq,
+                          backend="paged", paged_impl="fused",
+                          block_size=BS, device="cuda")
+    snap, res, summary = drive_serve(cfg, eng, prompts, fused_decode_layer,
+                                     "llava fused", snap_step=8)
+    if res["launches"] != summary["decode_steps"] * L:
+        fail(f"llava fused: fused_decode_layer launched {res['launches']} "
+             f"times; expected decode_steps x layers = "
+             f"{summary['decode_steps'] * L}")
+    log(f"[vlm] llava fused paged serve: {res['requests']} requests x "
+        f"{GEN} tokens, decode {res['decode_tok_per_s']} tok/s (paged "
+        f"{out['paged']['decode_tok_per_s']}), decode_steps "
+        f"{res['decode_steps']}, fused launches {res['launches']}")
+    res["both_ways"] = fused_both_ways(
+        cfg, eng, snap, params, label="llava one fused decode step",
+        yardstick="fused_ref", stat="mean")
+    lp = transformer.layer_slices(eng.params["layers"], 1)[0]
+    bf = torch.bfloat16
+    weights = (lp["attn"]["wo"].to(bf).contiguous(),
+               lp["mlp_norm"]["scale"].to(bf).contiguous(),
+               lp["mlp"]["w_gate"].to(bf).contiguous(),
+               lp["mlp"]["w_up"].to(bf).contiguous(),
+               lp["mlp"]["w_down"].to(bf).contiguous())
+    tb = torch.from_numpy(snap["tables"]).cuda()
+    le = torch.from_numpy(snap["lengths"] + 1).cuda()
+    h = torch.randn(CAPACITY, cfg.d_model, device="cuda").to(bf)
+    q = torch.randn(CAPACITY, nh, HD, device="cuda").to(bf)
+    m = measure_fused(h, q, snap["pages"]["k"][0], snap["pages"]["v"][0],
+                      tb, le, weights, None, "bfloat16", flush)
+    m["lengths"] = le.tolist()
+    wide_gate("fused_decode_layer", f"at llava's fused serve inputs "
+              f"(lengths {m['lengths']})", m, MM_TOL["bfloat16"], [])
+    res["main_path_kernel"] = m
+    res.pop("tokens")
+    out["fused"] = res
+    del eng, snap, weights, h, q, lp
+    torch.cuda.empty_cache()
+
+    vsnap, res = phase_spec_serve(cfg, bf16, prompts, cfg, bf16,
+                                  "llava spec self-draft")
+    lanes = (vsnap["tables"] != 0).any(dim=1)
+    qv = torch.randn(CAPACITY, DRAFT_K, nh, HD,
+                     device="cuda").to(torch.bfloat16)
+    m = measure_verify(qv, vsnap["pages"]["k"][0], vsnap["pages"]["v"][0],
+                       vsnap["tables"], vsnap["lengths"], None, "bfloat16",
+                       flush, lanes=lanes)
+    m.update(lengths=vsnap["lengths"].tolist(),
+             lanes_in_round=int(lanes.sum()))
+    wide_gate("paged_verify", f"at llava's spec serve inputs (k {DRAFT_K},"
+              f" lengths {m['lengths']})", m, TOL["bfloat16"], [])
+    res["main_path_kernel"] = m
+    res["both_ways"] = phase_verify_both_ways(cfg, vsnap, params, bf16,
+                                              stat="mean")
+    res["requests_token_identical_to_paged"] = sum(
+        res["tokens"][k] == out["paged"]["tokens"][k] for k in res["tokens"])
+    res.pop("tokens")
+    log(f"[vlm] llava spec self-draft: verify launches {res['launches']}, "
+        f"spec_rounds {res['spec_rounds']}, draft_accept_rate "
+        f"{res['draft_accept_rate']}, requests token-identical to paged "
+        f"{res['requests_token_identical_to_paged']} of {len(prompts)}")
+    out["spec"] = res
+    del vsnap, qv
+    torch.cuda.empty_cache()
+
+    ieng, isnap, res = phase_int8_serve(cfg, bf16, prompts, out["paged"])
+    del ieng
+    pg = isnap["pages"]
+    qq = torch.randn(CAPACITY, nh, HD, device="cuda").to(torch.bfloat16)
+    itb = torch.from_numpy(isnap["tables"]).cuda()
+    ile = torch.from_numpy(isnap["lengths"] + 1).cuda()
+    m = measure_quant(qq, pg["k"][0], pg["v"][0], pg["k_scale"][0],
+                      pg["v_scale"][0], itb, ile, None, flush)
+    m.update(lengths=ile.tolist(), splits=n_splits(itb.shape[1], BS))
+    wide_gate("paged_attention_quant", f"at llava's int8 serve inputs "
+              f"(lengths {m['lengths']})", m, TOL["bfloat16"], [])
+    res["main_path_kernel"] = m
+    res["both_ways"] = phase_int8_both_ways(cfg, isnap, params, bf16,
+                                            stat="mean")
+    res.pop("tokens")
+    log(f"[vlm] llava int8 serve: int8 launches {res['launches']} = "
+        f"decode_steps {res['decode_steps']} x {L}")
+    out["int8"] = res
+    out["paged"].pop("tokens")
+    del isnap, qq, bf16
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def embeds_loader(cfg, batch, seq, seed, n=None):
+    """``models.api.make_dummy_batch`` batches from ``seed``, made on the
+    host (the pipeline moves them to the card): bf16 ``embeds`` (vlm) or
+    ``enc_embeds`` (audio) beside int64 tokens and labels; ``n`` batches,
+    or without end."""
+    import itertools
+
+    import torch
+
+    from repro_torch.models import api
+
+    class Loader:
+        def __iter__(self):
+            g = torch.Generator().manual_seed(seed)
+            for _ in (range(n) if n else itertools.count()):
+                yield api.make_dummy_batch(cfg, batch, seq, g, device="cpu")
+    return Loader()
+
+
+def phase_llava_eval(cfg, params):
+    """23 (c): an ``EvalJob`` of one random ``embeds`` batch (1 x 4096)
+    over llava's 28.4 GB of f32 params, spilled through the dense shard
+    plan at VLM_EVAL_BUDGET, with the flash kernel and without: launches
+    = layers, none without; one full forward from the same embeds through
+    the kernel gated against an f32 forward (LOGIT_REL on the mean)."""
+    import torch
+
+    from repro_torch.data.pipeline import as_tensors
+    from repro_torch.models import api
+
+    res = eval_both_impls(cfg, params,
+                          embeds_loader(cfg, 1, VLM_EVAL_SEQ, 23, 1),
+                          VLM_EVAL_BUDGET, 1, VLM_EVAL_SEQ,
+                          "[vlm] llava from embeds")
+    batch = as_tensors(next(iter(embeds_loader(cfg, 1, VLM_EVAL_SEQ, 23,
+                                               1))), "cuda")
+    with torch.no_grad():
+        logits = {"cuda": api.forward(cfg.replace(attn_impl="cuda"), params,
+                                      batch),
+                  "ref": api.forward(cfg, params, batch),
+                  "f32": api.forward(cfg.replace(dtype="float32"), params,
+                                     batch)}
+    res["both_ways"] = logit_gate(
+        f"llava one full forward from embeds (1 x {VLM_EVAL_SEQ})", logits,
+        stat="mean")
+    del logits
+    torch.cuda.empty_cache()
+    return res
+
+
+def largest_budget(cfg, host, batch, seq, ok, train=True):
+    """The largest budget (to 1 MB) whose analytic partition ``ok``
+    accepts, searched down from 1 TB in steps of 10 %, then bisected;
+    ``ok`` takes the partition (None where a segment does not fit)."""
+    from repro_torch.core import partitioner as pt
+    from repro_torch.core import shard_graph as sg
+    plan = sg.build_plan(cfg)
+
+    def part(budget):
+        try:
+            return pt.partition(cfg, host, plan, budget_bytes=budget,
+                                batch=batch, seq=seq, train=train)
+        except MemoryError:
+            return None
+    hi = 10**12
+    lo = hi
+    while not ok(part(lo)):
+        hi, lo = lo, lo * 9 // 10
+        if lo < 10**6:
+            fail(f"{cfg.name}: no budget gives the partition asked for")
+    while hi - lo > 10**6:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if ok(part(mid)) else (lo, mid)
+    return lo
+
+
+def phase_whisper(smi):
+    """23 (d): full-width, full-depth whisper-medium.  SHARP: two
+    TrainJobs (2 AdamW steps of 2 x 448 decoder tokens over 1500 encoder
+    frames) at the largest budget whose analytic plan cuts >= 3 shards
+    with a boundary past the bridge (the encoder output crosses a shard
+    boundary), each unit's peak beside its charge, losses equal plain
+    training at 3e-4; the probe oracle's plan beside the analytic one;
+    a spilled ``EvalJob`` with flash (24 launches a batch) and without;
+    encode, precompute_cross_kv and 16 decode steps against the
+    forward's logits (mean abs within 2e-2, the max printed)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import partitioner as pt
+    from repro_torch.core import shard_graph as sg
+    from repro_torch.data.pipeline import as_tensors
+    from repro_torch.models import api, encdec
+
+    cfg = get_config(AUDIO_ARCH)
+    item8b_arch_line(cfg)
+    params = api.init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                             "cuda")
+    tree = api.param_count(params)
+    host = sg.prepare_host_params(cfg, params)
+    plan = sg.build_plan(cfg)
+    bridge = [s.name for s in plan.segments].index("bridge")
+
+    def cut(p):
+        return p is not None and len(p.shards) >= 3 and any(
+            s.seg_lo > bridge for s in p.shards)
+    budget = largest_budget(cfg, host, 2, AUDIO_SEQ, cut)
+    store = 2 * 12 * tree                 # two models: params + 2 moments
+    empty_host_cache()
+    avail = settled_mem_available()
+    log(f"[item8b] whisper: {tree} params in the tree (cross-attention and "
+        f"dec_pos included); SHARP pinned stores {store} B against half of "
+        f"MemAvailable {avail} B; budget {budget} B")
+    if store > avail // 2:
+        fail(f"whisper SHARP: the pinned stores ({store} B) do not fit in "
+             f"half of MemAvailable ({avail} B)")
+    res = {"params_in_tree": tree, "mem_available": avail}
+    session, res["sharp"] = phase_sharp_train(
+        cfg, budget, AUDIO_STEPS, unit_peaks=True, batch=2, seq=AUDIO_SEQ,
+        loader=lambda c, seed: embeds_loader(c, 2, AUDIO_SEQ, seed))
+    sh = session.train_execs[0]
+    pilots = []
+    shost = sh.store.params
+
+    def pilot(lo, hi):
+        try:
+            peak, _ = pt.pilot_peak(cfg, shost, plan, lo, hi, 2, AUDIO_SEQ,
+                                    "cuda")
+        except torch.OutOfMemoryError:
+            peak = None
+        torch.cuda.empty_cache()
+        pilots.append({"lo": lo, "hi": hi, "peak": peak})
+        return float("inf") if peak is None else peak
+
+    t0 = time.perf_counter()
+    try:
+        probe = pt.partition(cfg, shost, plan, budget_bytes=budget, batch=2,
+                             seq=AUDIO_SEQ, oracle="probe", _peaks=pilot)
+        res["probe_shards"] = [(s.seg_lo, s.seg_hi) for s in probe.shards]
+    except MemoryError as e:
+        res["probe_shards"] = str(e)
+    res["probe_pilots"] = pilots
+    log(f"[item8b] whisper probe plan at {budget} B: shards "
+        f"{res['probe_shards']} beside analytic "
+        f"{res['sharp']['shard_layers'][0]}; "
+        f"{len(pilots)} pilots, the largest peak "
+        f"{max((p['peak'] or 0) for p in pilots)} B "
+        f"({time.perf_counter() - t0:.2f} s)")
+    if isinstance(res["probe_shards"], list) and [
+            i for lo, hi in res["probe_shards"] for i in range(lo, hi)] != \
+            list(range(len(plan.segments))):
+        fail(f"whisper probe: {res['probe_shards']} is no ordered cover")
+    del session, sh, shost
+    gc.collect()
+    torch.cuda.empty_cache()
+    empty_host_cache()
+
+    res["eval"] = eval_both_impls(
+        cfg, params, embeds_loader(cfg, 2, AUDIO_SEQ, 24, 1),
+        AUDIO_EVAL_BUDGET, 2, AUDIO_SEQ,
+        f"[item8b] whisper (over 2 x {cfg.encoder_len} frames)")
+
+    batch = as_tensors(next(iter(embeds_loader(cfg, 2, AUDIO_DECODE_STEPS,
+                                               25, 1))), "cuda")
+    with torch.no_grad():
+        full = api.forward(cfg, params, batch)
+        enc = encdec.encode(cfg, params, batch["enc_embeds"])
+        state = api.init_decode_state(cfg, 2, AUDIO_DECODE_STEPS + 4,
+                                      "cuda")
+        state["cross"] = encdec.precompute_cross_kv(cfg, params, enc)
+        outs = []
+        for i in range(AUDIO_DECODE_STEPS):
+            logits, state = api.decode_step(cfg, params, state,
+                                            batch["tokens"][:, i:i + 1])
+            outs.append(logits[:, 0])
+        diff = (torch.stack(outs, 1) - full).abs()
+    res["decode_vs_forward"] = {"mean_abs": float(diff.mean()),
+                                "max_abs": float(diff.max()),
+                                "max_abs_logit": float(full.abs().max())}
+    log(f"[item8b] whisper encode -> precompute_cross_kv -> "
+        f"{AUDIO_DECODE_STEPS} decode steps vs the forward's logits: mean "
+        f"abs {res['decode_vs_forward']['mean_abs']:.4g} (tol {ENC_TOL}), "
+        f"max abs {res['decode_vs_forward']['max_abs']:.4g}, max |logit| "
+        f"{res['decode_vs_forward']['max_abs_logit']:.3g} ({smi})")
+    if not res["decode_vs_forward"]["mean_abs"] <= ENC_TOL:
+        fail(f"whisper decode: mean abs logit difference to the forward "
+             f"{res['decode_vs_forward']['mean_abs']} over {ENC_TOL}")
+    del params, host, enc, state, full, outs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_vit_sharp():
+    """23 (e): the paper's ViT* workload at full width: two vit-300m
+    TrainJobs over random patch embeddings (2 AdamW steps of 2 x 256) at
+    the largest budget whose analytic plan cuts >= 2 shards; losses equal
+    plain training at 3e-4."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import shard_graph as sg
+    from repro_torch.models import api
+
+    cfg = get_config(VIT_ARCH)
+    item8b_arch_line(cfg)
+    params = api.init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                             "cuda")
+    budget = largest_budget(cfg, sg.prepare_host_params(cfg, params), 2,
+                            VIT_SEQ,
+                            lambda p: p is not None and len(p.shards) >= 2)
+    del params
+    torch.cuda.empty_cache()
+    empty_host_cache()
+    avail = settled_mem_available()
+    log(f"[item8b] vit-300m: SHARP pinned stores {2 * 12 * cfg.n_params} B "
+        f"against MemAvailable {avail} B")
+    session, res = phase_sharp_train(
+        cfg, budget, VIT_STEPS, min_shards=2, batch=2, seq=VIT_SEQ,
+        loader=lambda c, seed: embeds_loader(c, 2, VIT_SEQ, seed))
+    res["mem_available"] = avail
+    del session
+    gc.collect()
+    torch.cuda.empty_cache()
+    empty_host_cache()
+    return res
+
+
+def phase_small_item8b_f32():
+    """23 (f): llava smoke in f32 on the slot, paged (kernel), spec over
+    paged (verify kernel, a random draft) and int8-paged backends: 3 lanes
+    joining one tick apart give each request the tokens it gets decoded
+    alone; whisper smoke: the engine refuses it with the JAX package's
+    "encoder-decoder" reason."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.serving.engine import InferenceEngine
+
+    cfg = get_config(VLM_ARCH, smoke=True).replace(
+        dtype="float32", kv_cache_dtype="float32")
+    params = api.init_params(cfg, torch.Generator("cuda").manual_seed(9),
+                             "cuda")
+    draft = api.init_params(cfg, torch.Generator("cuda").manual_seed(10),
+                            "cuda")
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(0, cfg.vocab_size, n, dtype=np.int32)
+               for n in (5, 17, 9, 12)]
+    backends = {"slot": {}, "paged": dict(backend="paged", block_size=8),
+                # a ledger that also admits one lane's draft state
+                "spec": dict(backend="spec", spec_inner="paged", draft_k=3,
+                             block_size=8, draft_cfg=cfg,
+                             draft_params=draft, kv_budget_bytes=2**24),
+                "int8": dict(backend="paged", kv_dtype="int8",
+                             block_size=8)}
+
+    res = {name: pooled_vs_alone(cfg, params, prompts,
+                                 f"llava smoke {name}", **kw)
+           for name, kw in backends.items()}
+    wcfg = get_config(AUDIO_ARCH, smoke=True)
+    try:
+        InferenceEngine(wcfg, params=None, capacity=1, max_seq=16,
+                        device="cuda")
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    log(f"[small f32] whisper smoke through InferenceEngine: {refused}")
+    if refused is None or "encoder-decoder" not in refused:
+        fail("whisper smoke: InferenceEngine did not refuse the "
+             "encoder-decoder family with the JAX package's reason")
+    res["whisper_refused"] = refused
+    return res
+
+
+def phase_item8b(flush, smi):
+    """Phase 23: (a) the kernels at llava's and whisper's shapes, (b)
+    llava served on four backends, (c) llava's eval from embeddings, (d)
+    whisper-medium under SHARP, probed, evaluated and decoded, (e)
+    vit-300m under SHARP, (f) small f32 engines."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    t0 = time.perf_counter()
+    out = {"a": phase_item8b_kernels(flush)}
+    cfg = get_config(VLM_ARCH)
+    item8b_arch_line(cfg)
+    params = api.init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                             "cuda")
+    out["b"] = phase_llava_serve(cfg, params, flush)
+    out["c"] = phase_llava_eval(cfg, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["d"] = phase_whisper(smi)
+    out["e"] = phase_vit_sharp()
+    out["f"] = phase_small_item8b_f32()
+    torch.cuda.empty_cache()
+    out["vlm_launches"] = {k: out["b"][k]["launches"]
+                           for k in ("paged", "fused", "spec", "int8")}
+    out["audio_launches"] = out["d"]["eval"]["cuda"]["launches"]
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"[item8b] phase wall {out['phase_s']:.2f} s ({smi})")
+    return out
+
+
 def kernel_entry(name, source, replaces, launches, m, **paths):
     """One kernel's entry of the kernels line; ``paths``: its launches on
     other paths of this run, by name (each counted from 0 over that
@@ -5555,7 +6233,15 @@ def main() -> None:
     #     engines
     report["item8"] = phase_item8(flush, smi)
     torch.cuda.empty_cache()
+
+    # 23. ROADMAP item 8's second half: the kernels at llava's and
+    #     whisper's shapes, llava-next-mistral-7b served on four backends
+    #     and evaluated from embeddings, whisper-medium and vit-300m under
+    #     SHARP, small f32 engines
+    report["item8b"] = phase_item8b(flush, smi)
+    torch.cuda.empty_cache()
     report["total_s"] = time.perf_counter() - t_start
+    vlm = report["item8b"]["vlm_launches"]
 
     src = "src/repro_torch/kernels/csrc/"
     kernel_line = {"kernels": [
@@ -5566,25 +6252,30 @@ def main() -> None:
                          "launches"],
                      async_launches=report["probe_async"]["c"]["launches"],
                      wide_gqa_launches=report["item8"][
-                         "wide_gqa_launches"]),
+                         "wide_gqa_launches"],
+                     vlm_launches=vlm["paged"]),
         kernel_entry("paged_verify_lanes", src + "paged_verify.cu",
                      "src/repro/kernels/paged_verify.py:81",
-                     report["spec_random"]["launches"], verify_path),
+                     report["spec_random"]["launches"], verify_path,
+                     vlm_launches=vlm["spec"]),
         kernel_entry("paged_attention_quant_lanes",
                      src + "paged_attention.cu",
                      "src/repro/kernels/paged_attention.py:164",
                      report["int8_serve"]["launches"], quant_path,
-                     tiered_launches=report["tiering"]["c"]["launches"]),
+                     tiered_launches=report["tiering"]["c"]["launches"],
+                     vlm_launches=vlm["int8"]),
         kernel_entry("flash_attention_bhsd", src + "flash_attention.cu",
                      "src/repro/kernels/flash_attention.py:74",
                      report["spilled_eval"]["cuda"]["launches"],
                      flash_path,
                      moe_eval_launches=report["item8"][
-                         "moe_eval_launches"]),
+                         "moe_eval_launches"],
+                     audio_launches=report["item8b"]["audio_launches"]),
         kernel_entry("fused_decode_layer", src + "fused_decode.cu",
                      "src/repro/kernels/fused_decode.py:92",
                      report["fused_serve"]["launches"],
-                     report["fused_serve"]["main_path_kernel"]),
+                     report["fused_serve"]["main_path_kernel"],
+                     vlm_launches=vlm["fused"]),
         kernel_entry("rms_norm_2d", src + "rmsnorm.cu",
                      "src/repro/kernels/rmsnorm.py:22",
                      report["profiler"]["launches"]["rms_norm_2d"],

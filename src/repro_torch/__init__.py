@@ -15,12 +15,14 @@ import torch
 def resolve_device(device) -> torch.device:
     """The ``torch.device`` an entry point runs on.  Raises when a CUDA
     device is asked for and none is available: nothing in the port falls
-    back to the CPU on its own."""
+    back to the CPU on its own.  ``"meta"`` builds shapes without memory
+    (the registry prices a decode state that way)."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"device={str(device)!r} requested but torch.cuda.is_available() "
             "is False; pass device='cpu' to run on the CPU")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"device={str(device)!r}: expected 'cuda' or 'cpu'")
+    if dev.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"device={str(device)!r}: expected 'cuda', 'cpu' "
+                         "or 'meta'")
     return dev

@@ -2,9 +2,11 @@
 
 Parameters keep the JAX package's layout (nested dicts, stacked layers on
 axis 0, weights ``(in, out)``), so crossing over is a leaf-by-leaf
-conversion for every ported family: the dense layers, the xLSTM groups
-(the sLSTM recurrent ``r`` of ``(G, h, p, 4p)`` included) and the
-zamba2 Mamba2 stack with its unstacked ``shared_attn`` subtree.  A caller holding JAX parameters passes
+conversion for every family: the dense, vlm and MoE layers, the xLSTM
+groups (the sLSTM recurrent ``r`` of ``(G, h, p, 4p)`` included), the
+zamba2 Mamba2 stack with its unstacked ``shared_attn`` subtree, and the
+encoder-decoder's stacked ``encoder`` / ``decoder`` trees with the
+learned ``dec_pos`` table.  A caller holding JAX parameters passes
 ``jax.tree.map(np.asarray, params)``: the port itself never sees JAX.
 """
 

@@ -1,6 +1,6 @@
 """Architecture config dataclass + registry (port of ``repro.configs.base``,
-with the fields the ported families read: dense, moe, ssm and hybrid;
-the encoder-decoder and VLM fields come with those families).
+with the fields every family reads: dense, vlm, moe, ssm, hybrid and
+audio).
 
 ``attn_impl`` follows the port's kernel vocabulary: ``"xla"`` (the
 default, as in the JAX package: plain attention, no kernel) or ``"cuda"``
@@ -72,6 +72,14 @@ class ArchConfig:
     # hybrid (zamba2-style)
     attn_every: int = 0               # shared attention block every k core layers
 
+    # encoder-decoder (whisper)
+    is_encoder_decoder: bool = False
+    n_encoder_layers: int = 0
+    encoder_len: int = 1500           # 30 s of audio at 50 Hz after conv stub
+
+    # modality frontends (stubs per spec)
+    takes_embeddings: bool = False    # VLM: input_specs feeds patch+text embeds
+
     # norms / mlp family / misc
     norm: str = "rms"                 # rms | layer
     mlp: str = "swiglu"               # swiglu | gelu
@@ -122,9 +130,16 @@ class ArchConfig:
 
     @property
     def n_params(self) -> int:
+        """The JAX package's count, term for term: an encoder-decoder adds
+        one ``layer_params`` per encoder layer and prices each decoder
+        layer as one ``layer_params`` too, so the decoder's
+        cross-attention and the learned ``dec_pos`` table are left out.
+        Plans are priced from this number, so it must equal JAX's."""
         emb = self.vocab_size * self.d_model
-        return emb * (1 if self.tie_embeddings else 2) \
-            + self.n_layers * self.layer_params
+        body = self.n_layers * self.layer_params
+        if self.is_encoder_decoder:
+            body += self.n_encoder_layers * self.layer_params
+        return emb * (1 if self.tie_embeddings else 2) + body
 
     @property
     def n_active_params(self) -> int:
@@ -168,6 +183,5 @@ def get_config(name: str, smoke: bool = False) -> ArchConfig:
     import repro_torch.configs  # noqa: F401  (triggers registration)
     reg = SMOKE_REGISTRY if smoke else ARCH_REGISTRY
     if name not in reg:
-        raise KeyError(f"arch {name!r} is not ported to repro_torch yet; "
-                       f"have {sorted(reg)}")
+        raise KeyError(f"unknown arch {name!r}; have {sorted(reg)}")
     return reg[name]

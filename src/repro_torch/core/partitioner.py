@@ -107,7 +107,10 @@ def tree_bytes(tree) -> int:
 
 def _act_width(cfg) -> int:
     """Bytes per (batch·seq) element of the inter-segment activation."""
-    return cfg.d_model * torch_dtype(cfg.dtype).itemsize
+    w = cfg.d_model * torch_dtype(cfg.dtype).itemsize
+    if cfg.family == "audio":
+        w *= 2     # decoder segments also carry the enc pass-through
+    return w
 
 
 def segment_cost(cfg, params, seg: sg.Segment, batch: int, seq: int,
@@ -200,27 +203,48 @@ def _shard_param_specs(cfg, params, plan, lo, hi):
     return tree_map(_spec, own), tree_map(_spec, shared)
 
 
+def _meta(*shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
 def _batch_spec(cfg, batch, seq):
     """The batch a SHARP unit reads: int64 tokens and labels, as the
-    port's loaders give them (``data.pipeline.as_tensors``)."""
-    return {"labels": torch.empty((batch, seq), dtype=torch.int64,
-                                  device="meta"),
-            "tokens": torch.empty((batch, seq), dtype=torch.int64,
-                                  device="meta")}
+    port's loaders give them (``data.pipeline.as_tensors``); the audio
+    family's bf16 ``enc_embeds`` (batch, encoder_len, d) beside them, and
+    a family that takes embeddings bf16 ``embeds`` (batch, seq, d) in
+    place of the tokens (``models.api.input_specs``)."""
+    out = {"labels": _meta(batch, seq, dtype=torch.int64)}
+    if cfg.family == "audio":
+        out["enc_embeds"] = _meta(batch, cfg.encoder_len, cfg.d_model,
+                                  dtype=torch.bfloat16)
+    elif cfg.takes_embeddings:
+        out["embeds"] = _meta(batch, seq, cfg.d_model, dtype=torch.bfloat16)
+        return out
+    out["tokens"] = _meta(batch, seq, dtype=torch.int64)
+    return out
 
 
 def _entry_act_spec(cfg, plan, lo, batch, seq):
     """The entry activation of a shard starting at segment ``lo``: the
     previous shard's exit, ``{"x": (batch, seq, d_model)}`` in the
     compute dtype, and for the moe family the f32 scalar aux sums
-    ``{"aux": {"lb", "z"}}`` (none for the first shard)."""
+    ``{"aux": {"lb", "z"}}`` (none for the first shard).  An audio shard
+    that starts at or before the bridge reads the encoder stream
+    ``{"enc_x": (batch, encoder_len, d_model)}``; one that starts past it
+    reads ``{"x", "enc"}``, the decoder stream and the encoder output.
+    (The JAX package gives every audio shard the encoder's entry, so its
+    probe finds no fit for a shard past the bridge.)"""
     if lo == 0:
         return {}
-    spec = {"x": torch.empty((batch, seq, cfg.d_model),
-                             dtype=torch_dtype(cfg.dtype), device="meta")}
+    dt = torch_dtype(cfg.dtype)
+    x = _meta(batch, seq, cfg.d_model, dtype=dt)
+    if cfg.family == "audio":
+        enc = _meta(batch, cfg.encoder_len, cfg.d_model, dtype=dt)
+        bridge = [seg.name for seg in plan.segments].index("bridge")
+        return {"enc_x": enc} if lo <= bridge else {"x": x, "enc": enc}
+    spec = {"x": x}
     if cfg.family == "moe":
-        spec["aux"] = {k: torch.empty((), dtype=torch.float32, device="meta")
-                       for k in ("lb", "z")}
+        spec["aux"] = {k: _meta(dtype=torch.float32) for k in ("lb", "z")}
     return spec
 
 

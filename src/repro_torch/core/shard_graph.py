@@ -1,9 +1,11 @@
 """Model-as-a-queue-of-segments: the structural substrate for Hydra (port
 of ``repro.core.shard_graph``: the dense and vlm plans, the MoE plan
 (the dense plan's segments, with the layers' aux sums carried in the
-activation), the ssm plan (one segment per xLSTM group) and the hybrid
+activation), the ssm plan (one segment per xLSTM group), the hybrid
 plan (one segment per Mamba2 layer, the shared attention block a shared
-group); the audio plan comes with its model code).
+group) and the audio plan (frontend, one segment per encoder layer, the
+bridge, one per decoder layer, head; the encoder output rides through
+the decoder segments)).
 
 A *segment* is the finest cut-point granularity (one layer, or the embed /
 head ends).  The partitioner groups contiguous segments into *shards*;
@@ -32,7 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import torch_dtype
-from repro_torch.models import hybrid, moe, ssm, transformer
+from repro_torch.models import encdec, hybrid, moe, ssm, transformer
 from repro_torch.models import layers as nn
 from repro_torch.training.losses import softmax_xent
 from repro_torch.tree import tree_map
@@ -217,14 +219,66 @@ def _hybrid_plan(cfg) -> ShardPlan:
                      _xent_loss)
 
 
+def _audio_plan(cfg) -> ShardPlan:
+    def front_apply(cfg, own, shared, act, batch):
+        return {"enc_x": encdec.encoder_inputs(cfg, batch["enc_embeds"])}
+
+    def enc_layer_apply(cfg, own, shared, act, batch):
+        return {"enc_x": encdec.apply_enc_layer(cfg, _slice1(own),
+                                                act["enc_x"])}
+
+    def bridge_apply(cfg, own, shared, act, batch):
+        dt = torch_dtype(cfg.dtype)
+        enc = nn.layer_norm(own["enc_final_norm"], act["enc_x"])
+        tokens = batch["tokens"]
+        x = nn.embed(shared["embed"], tokens, dt)
+        x = x + own["dec_pos"][:tokens.shape[1]].to(dt)[None]
+        return {"x": x, "enc": enc}
+
+    def dec_layer_apply(cfg, own, shared, act, batch):
+        x = encdec.apply_dec_layer(cfg, _slice1(own), act["x"], act["enc"])
+        # the pass-through makes autograd sum every decoder layer's
+        # cross-attention gradient into the encoder output
+        return {"x": x, "enc": act["enc"]}
+
+    def head_apply(cfg, own, shared, act, batch):
+        x = nn.layer_norm(own, act["x"])
+        return {"logits": nn.unembed(shared["embed"], x)}
+
+    segs = [Segment("frontend", None, (), front_apply, 0.1)]
+    for i in range(cfg.n_encoder_layers):
+        segs.append(Segment(f"enc{i}", ("stack_slice", "encoder", i, i + 1),
+                            (), enc_layer_apply))
+    segs.append(Segment("bridge", ("bridge_group",), ("embed",),
+                        bridge_apply, 0.1))
+    for i in range(cfg.n_layers):
+        segs.append(Segment(f"dec{i}", ("stack_slice", "decoder", i, i + 1),
+                            (), dec_layer_apply, 1.5))
+    segs.append(Segment("head", ("final_norm",), ("embed",), head_apply, 0.5))
+    return ShardPlan(cfg, segs, {"embed": ("embed",)}, _xent_loss)
+
+
 def prepare_host_params(cfg, params) -> ParamTree:
-    """Family-specific host-tree tweaks (none for the ported families)."""
-    return dict(params)
+    """Family-specific host-tree tweaks: the audio family's bridge
+    segment owns ``enc_final_norm`` and ``dec_pos`` as one
+    ``bridge_group``."""
+    params = dict(params)
+    if cfg.family == "audio" and "bridge_group" not in params:
+        params["bridge_group"] = {
+            "enc_final_norm": params.pop("enc_final_norm"),
+            "dec_pos": params.pop("dec_pos"),
+        }
+    return params
 
 
 def restore_model_params(cfg, host_params) -> ParamTree:
     """Inverse of prepare_host_params (for checkpoint / reference compare)."""
-    return dict(host_params)
+    params = dict(host_params)
+    if cfg.family == "audio" and "bridge_group" in params:
+        grp = params.pop("bridge_group")
+        params["enc_final_norm"] = grp["enc_final_norm"]
+        params["dec_pos"] = grp["dec_pos"]
+    return params
 
 
 @functools.lru_cache(maxsize=None)
@@ -237,6 +291,6 @@ def build_plan(cfg) -> ShardPlan:
         return _ssm_plan(cfg)
     if cfg.family == "hybrid":
         return _hybrid_plan(cfg)
-    raise NotImplementedError(
-        f"{cfg.name} ({cfg.family}): the shard plan of this family comes "
-        "with its model code in a later slice of the port")
+    if cfg.family == "audio":
+        return _audio_plan(cfg)
+    raise ValueError(cfg.family)

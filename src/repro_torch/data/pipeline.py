@@ -75,11 +75,22 @@ def make_dataset(cfg: DataConfig):
 
 
 def as_tensors(batch: dict, device) -> dict:
-    """A numpy (or tensor) batch as int64 tensors on ``device``."""
-    return {k: torch.as_tensor(np.ascontiguousarray(v)
-                               if isinstance(v, np.ndarray) else v)
-            .to(device=device, dtype=torch.int64)
-            for k, v in batch.items()}
+    """A numpy (or tensor) batch as tensors on ``device``: integer leaves
+    (tokens, labels) as int64, floating leaves (the ``embeds`` /
+    ``enc_embeds`` of the vlm and audio families) in their own dtype — a
+    numpy bfloat16 array (``ml_dtypes``) becomes a bf16 tensor."""
+    def conv(v):
+        if isinstance(v, np.ndarray):
+            if v.dtype.name == "bfloat16":
+                return torch.from_numpy(v.astype(np.float32)).to(
+                    device=device, dtype=torch.bfloat16)
+            v = torch.from_numpy(np.ascontiguousarray(v))
+        t = torch.as_tensor(v)
+        if t.is_floating_point():
+            return t.to(device=device)
+        return t.to(device=device, dtype=torch.int64)
+
+    return {k: conv(v) for k, v in batch.items()}
 
 
 class Prefetcher:

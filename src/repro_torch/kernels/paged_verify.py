@@ -11,6 +11,12 @@ rows (grid ``(kv_head, lane, split)``) and merges the splits' partial
 softmax states in a second launch, in a fixed order; the wrapper allocates
 the f32 scratch between them.  The design notes are in the CUDA source.
 
+One launch holds at most ``kMaxRows`` = 64 query rows (k * groups) per
+(lane, KV head).  A call with more is launched over consecutive chunks of
+``64 // groups`` queries, each with ``lengths`` advanced by the chunk's
+offset: query i attends ``[0, lengths + i]``, so the chunks together are
+the whole call (``query_chunk``).
+
 For a CUDA tensor the wrapper launches the kernel or raises; it never
 falls back.  For a tensor on the CPU, where no kernel exists, it runs the
 plain version ``ref.paged_verify_ref``.
@@ -51,7 +57,8 @@ def paged_verify_lanes(q, k_pages, v_pages, tables, lengths, *,
     int32 rows committed BEFORE the round (query ``i`` attends through row
     ``lengths + i``).  Returns (n, k, nh, hd) in q's dtype.  On CUDA
     tensors each call is counted once in ``paged_verify_lanes.launches``;
-    it is two CUDA launches (the split kernel and the merge).  The number
+    it is two CUDA launches (the split kernel and the merge) for each
+    query chunk (``query_chunk``).  The number
     of splits follows from the table's width, never from ``lengths``, so
     the call does not sync the device."""
     if q.dim() != 4 or k_pages.dim() != 4 or tables.dim() != 2 \
@@ -82,15 +89,15 @@ def paged_verify_lanes(q, k_pages, v_pages, tables, lengths, *,
         raise TypeError(f"paged_verify_lanes: q {q.dtype}, pages "
                         f"{k_pages.dtype}/{v_pages.dtype}; the kernel takes "
                         "float32 or bfloat16")
-    rows = kk * (nh // nkv)
+    groups = nh // nkv
     item = k_pages.element_size()
     vec = 16 // item                          # elements per 16-B load
     dpl = next(d for d in (1, 2, 4, 8, 16) if hd <= 32 * d)  # dims per lane
-    if rows > _MAX_ROWS or hd > 256 or hd % vec or hd % dpl:
-        raise ValueError(f"paged_verify_lanes: {kk} queries x {nh // nkv} "
-                         f"heads per KV head at head_dim {hd} is not what "
-                         f"the kernel takes (k * groups <= {_MAX_ROWS}, "
-                         f"head_dim <= 256 and a multiple of {max(vec, dpl)})")
+    if groups > _MAX_ROWS or hd > 256 or hd % vec or hd % dpl:
+        raise ValueError(f"paged_verify_lanes: {groups} heads per KV head "
+                         f"at head_dim {hd} is not what the kernel takes "
+                         f"(groups <= {_MAX_ROWS}, head_dim <= 256 and a "
+                         f"multiple of {max(vec, dpl)})")
     for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
         if t.data_ptr() % 16:
             raise ValueError(f"paged_verify_lanes: {name} is not aligned to "
@@ -98,6 +105,37 @@ def paged_verify_lanes(q, k_pages, v_pages, tables, lengths, *,
     out = torch.empty_like(q)
     if n == 0:
         return out
+    chunk = query_chunk(kk, groups)
+    if chunk == kk:
+        _launch(q, k_pages, v_pages, tables, lengths, out, window)
+    else:
+        # query i of the chunk at c0 is query c0 + i of the call: it
+        # attends [0, lengths + c0 + i], so lengths advance by c0
+        for c0 in range(0, kk, chunk):
+            qc = q[:, c0:c0 + chunk].contiguous()
+            oc = torch.empty_like(qc)
+            _launch(qc, k_pages, v_pages, tables, lengths + c0, oc, window)
+            out[:, c0:c0 + chunk] = oc
+    paged_verify_lanes.launches += 1
+    return out
+
+
+paged_verify_lanes.launches = 0
+
+
+def query_chunk(k: int, groups: int) -> int:
+    """Queries per kernel launch: all k when k * groups rows fit the
+    kernel's ``kMaxRows``, else the most that do (a call of k queries is
+    then ``ceil(k / chunk)`` launches over consecutive query chunks)."""
+    return k if k * groups <= _MAX_ROWS else max(_MAX_ROWS // groups, 1)
+
+
+def _launch(q, k_pages, v_pages, tables, lengths, out, window):
+    """One launch of the split kernel and its merge over all of q's
+    queries (k * groups <= kMaxRows)."""
+    n, kk, nh, hd = q.shape
+    _, bs, nkv, _ = k_pages.shape
+    rows = kk * (nh // nkv)
     lib = _lib()
     splits = lib.paged_verify_splits(tables.shape[1], bs)
     # per (lane, KV head, split, query row): (m, l), and acc over head_dim
@@ -117,8 +155,3 @@ def paged_verify_lanes(q, k_pages, v_pages, tables, lengths, *,
     if err != 0:
         raise RuntimeError(f"paged_verify kernel launch failed: CUDA error "
                            f"{err}")
-    paged_verify_lanes.launches += 1
-    return out
-
-
-paged_verify_lanes.launches = 0

@@ -40,15 +40,31 @@ def param_count(params) -> int:
 
 def make_dummy_batch(cfg, batch_size: int, seq_len: int, generator=None,
                      device="cuda"):
-    """Random ``{"tokens", "labels"}`` int64 batch on ``device`` (smoke
-    runs).  Its numbers differ from the JAX package's for the same seed;
-    parity tests feed both sides ``data.pipeline.SyntheticTokens``."""
+    """Random batch on ``device`` with the keys of ``input_specs`` (smoke
+    runs): int64 ``tokens``/``labels``, plus bf16 ``enc_embeds`` (b,
+    encoder_len, d) for the audio family; a family that takes embeddings
+    gets bf16 ``embeds`` (b, s, d) in place of ``tokens``.  Its numbers
+    differ from the JAX package's for the same seed; parity tests feed
+    both sides the same arrays."""
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device).manual_seed(0)
+
     def draw():
         return torch.randint(0, cfg.vocab_size, (batch_size, seq_len),
                              generator=generator, device=device)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=generator, device=device,
+                           dtype=torch.float32).to(torch.bfloat16)
+
+    if cfg.family == "audio":
+        return {"enc_embeds": normal(batch_size, cfg.encoder_len,
+                                     cfg.d_model),
+                "tokens": draw(), "labels": draw()}
+    if cfg.takes_embeddings:
+        return {"embeds": normal(batch_size, seq_len, cfg.d_model),
+                "labels": draw()}
     return {"tokens": draw(), "labels": draw()}
 
 
@@ -60,14 +76,15 @@ _F32_AT_USE = ("conv_w", "r")
 
 def prepare_params(cfg, params, device="cuda"):
     """Params ready to serve on ``device``: every tensor moved there, and
-    the weight matrices — >= 3-D ``layers`` leaves (stacked) and >= 2-D
-    ``shared_attn`` leaves — held in ``cfg.dtype``.  The layer code casts
+    the weight matrices — >= 3-D ``layers``, ``encoder`` and ``decoder``
+    leaves (stacked) and >= 2-D ``shared_attn`` leaves — held in
+    ``cfg.dtype``.  The layer code casts
     each such weight to the compute dtype at use, as the JAX package's
     per-use ``astype`` does; holding the cast copy makes that cast a no-op
     with the same numbers instead of a full weight copy every step.  The
-    embedding table, 1-D norm scales and the weights read in f32
-    (``_F32_AT_USE``) stay as they are (embed gathers then casts; unembed
-    runs in f32)."""
+    embedding table, the learned ``dec_pos`` table (gathered, then
+    cast), 1-D norm scales and the weights read in f32 (``_F32_AT_USE``)
+    stay as they are (embed gathers then casts; unembed runs in f32)."""
     device = resolve_device(device)
     dt = torch_dtype(cfg.dtype)
 
@@ -75,7 +92,8 @@ def prepare_params(cfg, params, device="cuda"):
         out = {}
         for k, v in tree.items():
             if isinstance(v, dict):
-                sub = {"layers": 3, "shared_attn": 2}.get(k, min_dim)
+                sub = {"layers": 3, "encoder": 3, "decoder": 3,
+                       "shared_attn": 2}.get(k, min_dim)
                 out[k] = conv(v, sub)
             else:
                 v = v.to(device)
@@ -88,7 +106,8 @@ def prepare_params(cfg, params, device="cuda"):
 
 
 def init_decode_state(cfg, batch: int, max_seq: int, device="cuda"):
-    return family_module(cfg).init_decode_state(cfg, batch, max_seq, device)
+    return family_module(cfg).init_decode_state(cfg, batch, max_seq,
+                                                device=device)
 
 
 def decode_step(cfg, params, state, tokens, *, window: Optional[int] = None):
@@ -211,11 +230,16 @@ def input_specs(cfg, shape, *, kind: Optional[str] = None) -> dict:
     """
     kind = kind or shape.kind
     b, s = shape.global_batch, shape.seq_len
-    if cfg.family in ("audio", "vlm"):
-        raise NotImplementedError(
-            f"input_specs for the {cfg.family} family ({cfg.name}): the "
-            "family comes with ROADMAP Queue 1 item 8 of the port")
     if kind == "decode":
         return {"tokens": _meta((b, 1), torch.int64)}
+    if cfg.family == "audio":
+        return {"enc_embeds": _meta((b, cfg.encoder_len, cfg.d_model),
+                                    torch.bfloat16),
+                "tokens": _meta((b, s), torch.int64),
+                "labels": _meta((b, s), torch.int64)}
+    if cfg.takes_embeddings:
+        # VLM: the frontend stub emits fused patch+text embeddings
+        return {"embeds": _meta((b, s, cfg.d_model), torch.bfloat16),
+                "labels": _meta((b, s), torch.int64)}
     return {"tokens": _meta((b, s), torch.int64),
             "labels": _meta((b, s), torch.int64)}

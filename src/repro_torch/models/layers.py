@@ -1,6 +1,6 @@
-"""Core layers, dense subset (port of ``repro.models.layers``): RMSNorm
-and layer norm, RoPE, GQA attention (cache-free, contiguous-cache and
-paged), SwiGLU and GELU MLPs, embedding and tied LM head.
+"""Core layers (port of ``repro.models.layers``): RMSNorm and layer
+norm, RoPE, GQA self- and cross-attention (cache-free, contiguous-cache
+and paged), SwiGLU and GELU MLPs, embedding and tied LM head.
 
 Plain functions over tensors: every layer is an ``init_*`` returning a
 param dict plus an apply function taking ``(params, inputs, cfg)``.  The
@@ -130,19 +130,23 @@ def init_attention(generator, cfg, device, lead=()) -> Params:
     return p
 
 
-def _project_qkv(params: Params, x: torch.Tensor, cfg):
+def _project_qkv(params: Params, x: torch.Tensor, cfg,
+                 src: Optional[torch.Tensor] = None):
+    """q from ``x``; k and v from ``src`` (the encoder output under
+    cross-attention; ``x`` itself when None)."""
     nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    src = x if src is None else src
     dt = x.dtype
     q = x @ params["wq"].to(dt)
-    k = x @ params["wk"].to(dt)
-    v = x @ params["wv"].to(dt)
+    k = src @ params["wk"].to(dt)
+    v = src @ params["wv"].to(dt)
     if cfg.qkv_bias:
         q = q + params["bq"].to(dt)
         k = k + params["bk"].to(dt)
         v = v + params["bv"].to(dt)
     q = q.reshape(*x.shape[:-1], nh, hd)
-    k = k.reshape(*x.shape[:-1], nkv, hd)
-    v = v.reshape(*x.shape[:-1], nkv, hd)
+    k = k.reshape(*src.shape[:-1], nkv, hd)
+    v = v.reshape(*src.shape[:-1], nkv, hd)
     if cfg.qk_norm:                 # per head, after the reshape
         q = rms_norm(params["q_norm"], q)
         k = rms_norm(params["k_norm"], k)
@@ -209,12 +213,20 @@ def sdpa(q, k, v, *, causal: bool, window: Optional[int] = None,
 def attention(params: Params, x: torch.Tensor, cfg,
               kv_cache: Optional[dict] = None, *,
               positions: Optional[torch.Tensor] = None, causal: bool = True,
-              window: Optional[int] = None, impl: str = "xla"):
-    """Self-attention layer.  Returns (out, kv_cache).
+              window: Optional[int] = None,
+              xkv: Optional[torch.Tensor] = None, rope: bool = True,
+              impl: str = "xla"):
+    """Self- or cross-attention layer.  Returns (out, kv_cache).
 
     Without a cache (forward, training, eval): positions default to
     arange, attention is ``causal`` or not, and ``impl`` routes ``sdpa``
     (the returned cache is None).
+
+    ``xkv`` makes it cross-attention: k and v are projected from ``xkv``
+    and, with ``rope``, only q is rotated.  ``rope=False`` rotates
+    nothing.  A cross-attention ``kv_cache`` holds the encoder's
+    precomputed K/V: it is read, never written, and attended to
+    non-causally with plain products (the returned cache is the same).
 
     kv_cache: {"k": (b, max_s, nkv, hd), "v": ..., "index": int or (b,)
     int64 tensor} — this chunk's rows are written at ``index`` IN PLACE
@@ -224,11 +236,18 @@ def attention(params: Params, x: torch.Tensor, cfg,
     JAX package's per-slot ``vmap``); like its ``dynamic_update_slice``,
     the write start is clamped so the chunk fits the cache."""
     b, sq, _ = x.shape
-    q, k, v = _project_qkv(params, x, cfg)
+    cross = xkv is not None
+    q, k, v = _project_qkv(params, x, cfg, xkv)
     if positions is None:
         positions = torch.arange(sq, device=x.device)[None, :].expand(b, sq)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        if not cross:
+            k = apply_rope(k, positions, cfg.rope_theta)
+    if kv_cache is not None and cross:
+        out = sdpa(q, kv_cache["k"], kv_cache["v"], causal=False)
+        out = out.reshape(b, sq, cfg.n_heads * cfg.head_dim)
+        return out @ params["wo"].to(x.dtype), kv_cache
     if kv_cache is None:
         out = sdpa(q, k, v, causal=causal, window=window, impl=impl)
         out = out.reshape(b, sq, cfg.n_heads * cfg.head_dim)

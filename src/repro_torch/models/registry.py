@@ -2,13 +2,15 @@
 (port of ``repro.models.registry``).
 
 Execution layers ask ``spec(cfg)`` what a family can do instead of
-testing family names.  The ``dense``, ``moe``, ``ssm`` and ``hybrid``
-families are ported so far; other families raise ``KeyError`` naming
-what is available.
+testing family names.  Every family of the JAX package is registered:
+``dense`` and ``vlm`` (``models.transformer``), ``moe``, ``ssm``,
+``hybrid`` and ``audio`` (``models.encdec``); an unknown name raises
+``KeyError`` naming what is available.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, field
 from importlib import import_module
 from types import ModuleType
@@ -18,6 +20,22 @@ from typing import Any, Callable, Optional
 class CapabilityFallbackWarning(UserWarning):
     """A requested serving feature is not in the family's declared
     capabilities; execution fell back to the closest supported mode."""
+
+
+def _tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    if hasattr(tree, "dtype") and hasattr(tree, "shape"):
+        return math.prod(tree.shape) * tree.dtype.itemsize
+    return 4          # a Python int write index: JAX's int32 scalar
+
+
+def _default_decode_state_bytes(mod: ModuleType, cfg, batch: int,
+                                max_seq: int) -> int:
+    """The bytes of ``mod.init_decode_state`` built on the meta device:
+    the shapes and dtypes of a real state, nothing allocated."""
+    return _tree_bytes(mod.init_decode_state(cfg, batch, max_seq,
+                                             device="meta"))
 
 
 @dataclass(frozen=True)
@@ -32,6 +50,7 @@ class FamilySpec:
     paging: bool = False            # decode state can live in paged KV blocks
     pure_kv_state: bool = False     # decode state is a pure KV cache
     servable: bool = True           # InferenceEngine can serve this family
+    token_stream_data: bool = True  # train/eval batches are {tokens, labels}
     spec_draftable: bool = False    # multi-token verify + KV rollback work:
     #   the family can be the target (or draft) of speculative decoding
     kv_quant: bool = False          # paged KV pool can be int8-quantized
@@ -43,8 +62,11 @@ class FamilySpec:
     kv_block_cost: Optional[Callable[..., int]] = None
 
     def decode_state_bytes(self, cfg, batch: int, max_seq: int) -> int:
-        """Residency bytes of one decode state."""
-        return self.decode_state_cost(cfg, batch, max_seq)
+        """Residency bytes of one decode state: the family's cost fn, or
+        the bytes of its decode state's shapes when it declares none."""
+        if self.decode_state_cost is not None:
+            return self.decode_state_cost(cfg, batch, max_seq)
+        return _default_decode_state_bytes(self.module, cfg, batch, max_seq)
 
     def kv_block_bytes(self, cfg, block_size: int, kv_dtype=None) -> int:
         """Residency bytes of ONE physical KV block across all layers.
@@ -95,9 +117,11 @@ _REGISTRY: dict[str, FamilySpec] = {}
 
 # family -> module that registers it (lazy import on first lookup)
 _FAMILY_MODULES = {"dense": "repro_torch.models.transformer",
+                   "vlm": "repro_torch.models.transformer",
                    "moe": "repro_torch.models.moe",
                    "ssm": "repro_torch.models.ssm",
-                   "hybrid": "repro_torch.models.hybrid"}
+                   "hybrid": "repro_torch.models.hybrid",
+                   "audio": "repro_torch.models.encdec"}
 
 
 def register(spec: FamilySpec) -> FamilySpec:
@@ -113,13 +137,13 @@ def spec(family_or_cfg) -> FamilySpec:
     if family not in _REGISTRY and family in _FAMILY_MODULES:
         import_module(_FAMILY_MODULES[family])      # registration side effect
     if family not in _REGISTRY:
-        raise KeyError(f"model family {family!r} is not ported to "
-                       f"repro_torch yet (have {sorted(_FAMILY_MODULES)})")
+        raise KeyError(f"no registered model family {family!r} "
+                       f"(have {sorted(_FAMILY_MODULES)})")
     return _REGISTRY[family]
 
 
 def registered_families() -> tuple[str, ...]:
-    """Every ported family name, importing lazily as needed."""
+    """Every registerable family name, importing lazily as needed."""
     for fam in _FAMILY_MODULES:
         spec(fam)
     return tuple(sorted(_REGISTRY))

@@ -1,5 +1,6 @@
-"""Dense transformer: RMSNorm/SwiGLU decoders (qwen-class) and layer-norm
-/GELU encoders (BERT*-class), port of ``repro.models.transformer``.
+"""Dense transformer: RMSNorm/SwiGLU decoders (qwen-class), their VLM
+variant (the LLaVA backbone, fed patch+text embeddings) and layer-norm
+/GELU encoders (BERT*/ViT*-class), port of ``repro.models.transformer``.
 
 Param tree layout, the same as the JAX package's (Hydra shards over the
 leading ``layers`` axis):
@@ -79,6 +80,10 @@ def apply_layer(cfg, lp, x, *, window=None, positions=None, impl=None):
 
 
 def embed_inputs(cfg, params, batch):
+    """A VLM batch's ``embeds`` (the frontend stub's fused patch+text
+    embeddings) cast to the compute dtype, else the token embedding."""
+    if cfg.takes_embeddings and "embeds" in batch:
+        return batch["embeds"].to(torch_dtype(cfg.dtype))
     return nn.embed(params["embed"], batch["tokens"], torch_dtype(cfg.dtype))
 
 
@@ -276,13 +281,19 @@ def _register():
     import sys
 
     from repro_torch.models import registry
-    registry.register(registry.FamilySpec(
-        family="dense", module=sys.modules[__name__],
-        batched_prefill=True, padded_prefill=True, paging=True,
-        pure_kv_state=True, servable=True, spec_draftable=True,
-        kv_quant=True,
-        decode_state_cost=_kv_state_bytes,
-        kv_block_cost=_kv_block_bytes))
+    mod = sys.modules[__name__]
+    for family, tokens_only in (("dense", True), ("vlm", False)):
+        registry.register(registry.FamilySpec(
+            family=family, module=mod,
+            batched_prefill=True, padded_prefill=True, paging=True,
+            pure_kv_state=True, servable=True, spec_draftable=True,
+            kv_quant=True,
+            token_stream_data=tokens_only,
+            notes={} if tokens_only else {
+                "token_stream_data": "VLM batches carry fused patch+text "
+                                     "embeddings, not raw token streams"},
+            decode_state_cost=_kv_state_bytes,
+            kv_block_cost=_kv_block_bytes))
 
 
 _register()

@@ -69,7 +69,7 @@ def make_train_step(cfg, opt_cfg: opt.OptimizerConfig, *,
         if accum_steps == 1:
             (_, metrics), grads = _value_and_grad(loss_fn, params, batch)
         else:
-            b = batch["tokens"].shape[0]
+            b = batch["labels"].shape[0]
             if b % accum_steps:
                 raise ValueError(f"batch {b} not divisible by accum_steps "
                                  f"{accum_steps}")

@@ -1,14 +1,12 @@
-"""The port's config registry against the JAX package's: the five configs
-ported with the MoE family and the three widest dense models, field for
-field (dtypes as strings), the parameter counts every ported config
-reports, and ``ASSIGNED_ARCHS``.
+"""The port's config registry against the JAX package's: the configs
+ported with the MoE family, the three widest dense models and the
+encoder-decoder and VLM families (whisper-medium, llava-next-mistral-7b,
+the paper's vit-300m), field for field (dtypes as strings), the
+parameter counts every config reports, and ``ASSIGNED_ARCHS``.
 
-The JAX ``ArchConfig`` has five fields the port does not: the
-encoder-decoder (``is_encoder_decoder``, ``n_encoder_layers``,
-``encoder_len``) and VLM (``takes_embeddings``) fields of ROADMAP Queue 1
-item 8's second half, and ``long_context_window`` (the ``long_500k``
-decode window of item 9).  Every config compared here leaves them at
-their defaults.
+The JAX ``ArchConfig`` has one field the port does not:
+``long_context_window`` (the ``long_500k`` decode window of ROADMAP
+Queue 1 item 9).  Every config compared here leaves it at its default.
 """
 
 import _torch_threads  # noqa: F401  (one torch thread per xdist worker)
@@ -24,10 +22,9 @@ from repro_torch import configs
 from repro_torch.configs import ARCH_REGISTRY, ArchConfig, get_config
 
 NEW = ["qwen2.5-32b", "yi-34b", "command-r-plus-104b", "mixtral-8x22b",
-       "dbrx-132b"]
-JAX_ONLY = {"long_context_window", "is_encoder_decoder", "n_encoder_layers",
-            "encoder_len", "takes_embeddings"}
-UNPORTED_ARCHS = ["llava-next-mistral-7b", "whisper-medium"]
+       "dbrx-132b", "whisper-medium", "llava-next-mistral-7b", "vit-300m"]
+JAX_ONLY = {"long_context_window"}
+UNPORTED_ARCHS = []
 
 
 def _as_port(v):
@@ -85,10 +82,33 @@ def test_dims_and_moe_extras_of_the_new_configs():
 
 
 def test_assigned_archs_are_jax_less_the_unported():
+    """Nothing of JAX's list is unported: the lists are equal, in order,
+    and the registries hold the same names."""
     assert configs.ASSIGNED_ARCHS == [
         a for a in jconfigs.ASSIGNED_ARCHS if a not in UNPORTED_ARCHS]
+    assert configs.ASSIGNED_ARCHS == jconfigs.ASSIGNED_ARCHS
+    assert sorted(ARCH_REGISTRY) == sorted(jconfigs.ARCH_REGISTRY)
     for arch in configs.ASSIGNED_ARCHS:
         assert get_config(arch) and get_config(arch, smoke=True)
-    for arch in UNPORTED_ARCHS:
-        with pytest.raises(KeyError, match="not ported"):
-            get_config(arch)
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("llama-3-8b")
+
+
+def test_encdec_and_vlm_dims():
+    """whisper-medium's and llava's published widths, the ViT* table's
+    300M row, and the smoke cuts (JAX ``tests/test_double_buffer.py``'s
+    numbers for the first two)."""
+    w, ll = get_config("whisper-medium"), get_config("llava-next-mistral-7b")
+    assert (w.n_layers, w.d_model, w.n_heads, w.n_kv_heads, w.d_ff,
+            w.vocab_size) == (24, 1024, 16, 16, 4096, 51865)
+    assert (w.is_encoder_decoder, w.n_encoder_layers, w.encoder_len) == \
+        (True, 24, 1500)
+    assert (ll.n_layers, ll.d_model, ll.n_heads, ll.n_kv_heads, ll.d_ff,
+            ll.vocab_size) == (32, 4096, 32, 8, 14336, 32000)
+    assert ll.takes_embeddings and ll.family == "vlm"
+    assert w.n_params == 657_089_536 and ll.n_params == 7_110_393_856
+    vit = get_config("vit-300m")
+    assert (vit.n_layers, vit.d_model, vit.n_heads, vit.d_ff,
+            vit.vocab_size, vit.causal) == (24, 1024, 16, 4096, 10, False)
+    assert get_config("vit-300m", smoke=True).name == "vit-300m"
+    assert get_config("whisper-medium", smoke=True).encoder_len == 64

@@ -236,3 +236,21 @@ def test_cuda_kernel_repeats_bitwise(nh, nkv, hd, dtype):
     second = ops.flash_attention(q, k, v, impl="cuda")
     torch.cuda.synchronize()
     assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_cuda_kernel_at_whisper_decoder_shape(dtype):
+    """whisper-medium's decoder self-attention (b 2, s 448, 16/16 heads of
+    64, causal: a partial last query and key tile) against the plain
+    version; one launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the flash kernel runs only on a card")
+    q, k, v = (_torch(a, dtype, "cuda")
+               for a in _inputs(2, 16, 16, 448, 448, 64, dtype, seed=6))
+    before = flash_attention_bhsd.launches
+    out = ops.flash_attention(q, k, v, causal=True, impl="cuda")
+    exp = ops.flash_attention(q, k, v, causal=True, impl="ref")
+    torch.cuda.synchronize()
+    assert flash_attention_bhsd.launches == before + 1
+    _close(out.float().cpu().numpy(), exp.float().cpu().numpy(), dtype)

@@ -91,17 +91,40 @@ def test_input_specs_have_jax_shapes_and_port_dtypes(arch):
                                       kind=kind)
                 assert {k: tuple(v.shape) for k, v in specs.items()} == \
                     {k: tuple(v.shape) for k, v in jspecs.items()}
-                assert all(v.device.type == "meta"
-                           and v.dtype == torch.int64
-                           for v in specs.values())
+                assert all(v.device.type == "meta" and v.dtype == (
+                    torch.bfloat16 if k.endswith("embeds") else torch.int64)
+                    for k, v in specs.items())
 
 
 def test_input_specs_of_unported_families_name_their_item():
-    cfg = get_config("qwen3-0.6b", smoke=True)
-    for family in ("vlm", "audio"):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            input_specs(dataclasses.replace(cfg, family=family),
-                        INPUT_SHAPES["train_4k"])
+    """The vlm and audio families are ported: their ``input_specs`` have
+    the JAX package's keys and shapes in every kind (bf16 ``embeds`` /
+    ``enc_embeds`` beside int64 tokens and labels), and
+    ``make_dummy_batch`` gives real tensors of the same keys, shapes and
+    dtypes."""
+    from repro.models.api import input_specs as jinput_specs
+    from repro.models.api import make_dummy_batch as jmake_dummy_batch
+    from repro_torch.models.api import make_dummy_batch
+    for arch in ("llava-next-mistral-7b", "whisper-medium", "vit-300m"):
+        cfg, jcfg = get_config(arch), jget_config(arch)
+        for name, shape in INPUT_SHAPES.items():
+            for kind in ("train", "prefill", "decode"):
+                specs = input_specs(cfg, shape, kind=kind)
+                jspecs = jinput_specs(jcfg, JINPUT_SHAPES[name], kind=kind)
+                assert {k: tuple(v.shape) for k, v in specs.items()} == \
+                    {k: tuple(v.shape) for k, v in jspecs.items()}
+        scfg, sjcfg = get_config(arch, smoke=True), jget_config(
+            arch, smoke=True)
+        batch = make_dummy_batch(scfg, 2, 16, torch.Generator().manual_seed(0),
+                                 device="cpu")
+        jbatch = jmake_dummy_batch(sjcfg, 2, 16)
+        assert {k: tuple(v.shape) for k, v in batch.items()} == \
+            {k: tuple(v.shape) for k, v in jbatch.items()}
+        for k, v in batch.items():
+            assert v.dtype == (torch.bfloat16 if k.endswith("embeds")
+                               else torch.int64)
+            assert str(jbatch[k].dtype) == (
+                "bfloat16" if k.endswith("embeds") else "int32")
 
 
 def _literal_all(path):

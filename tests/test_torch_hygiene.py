@@ -278,9 +278,12 @@ def test_unported_serving_options_raise(kw, check):
 
 
 def test_unported_config_raises_key_error():
+    """Every config of the JAX package is ported: an unknown name raises
+    the JAX package's KeyError, naming what there is."""
     from repro_torch.configs import get_config
-    with pytest.raises(KeyError, match="not ported"):
-        get_config("whisper-medium")
+    with pytest.raises(KeyError, match="unknown arch 'llama-3-8b'"):
+        get_config("llama-3-8b")
+    assert get_config("whisper-medium").family == "audio"
 
 
 @pytest.mark.parametrize("profile", ["auto", None, "facts", "path"])

@@ -152,7 +152,10 @@ def test_family_spec_matches_jax():
     with pytest.raises(ValueError):
         api.paged_decode_step(cfg, None, None, None, None, None)
     assert "moe" in registry.registered_families()
-    assert set(registry.families_with("batched_prefill")) == {"dense", "moe"}
+    assert set(registry.families_with("batched_prefill")) == \
+        set(jregistry.families_with("batched_prefill"))
+    assert set(registry.families_with("batched_prefill")) == \
+        {"dense", "vlm", "moe"}
 
 
 def _norm(x):

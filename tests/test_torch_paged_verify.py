@@ -18,6 +18,11 @@ that split-and-merge (empty splits as m = -1e30, l = 0) equals the plain
 version and the JAX oracle in f32, with splits cut at row 0, at block
 edges and inside a window, and a lane on the garbage block.
 
+Past the kernel's 64 query rows (k x groups) the wrapper launches it over
+query chunks with ``lengths`` advanced by each chunk's offset: the plain
+version over the chunks equals the plain version of the whole call and
+the JAX oracle (f32, 12 and 16 groups).
+
 The CUDA kernels run only on a card: their cases compare each kernel with
 its plain version there and skip elsewhere.  JAX is imported by a fixture,
 so on a machine with a card but no JAX the CUDA cases still run
@@ -401,3 +406,69 @@ def test_cuda_quant_kernel_matches_plain_version(n, nh, nkv, hd, bs, B,
     assert paged_attention_quant_lanes.launches == before + 1
     tol = F32_TOL if dtype == "float32" else BF16_TOL
     _close(_np(out), _np(exp), tol)
+
+
+# ---------------------------------------------------------------------------
+# k x groups past the kernel's 64 rows: query chunks
+# ---------------------------------------------------------------------------
+
+CHUNKED = [  # lengths, k, nh, nkv, hd, bs, B, window
+    # command-r-plus-104b's 12 groups at k 8: 96 rows, chunks of 5 + 3
+    ((700, 0, 257, 40), 8, 12, 1, 32, 16, 48, None),
+    ((700, 0, 257, 40), 8, 12, 1, 32, 16, 48, 37),
+    # 16 groups at k 5: 80 rows, chunks of 4 + 1
+    ((300, 15, 16), 5, 32, 2, 32, 8, 40, None),
+]
+
+
+@pytest.mark.parametrize("lengths,kk,nh,nkv,hd,bs,B,window", CHUNKED)
+def test_query_chunks_add_up_to_the_whole_verify(lengths, kk, nh, nkv, hd,
+                                                 bs, B, window, jx):
+    """The wrapper's route for k x groups > 64: the plain version over
+    each chunk of ``query_chunk(k, groups)`` queries, with ``lengths``
+    advanced by the chunk's offset, is the plain version of the whole call
+    and the JAX oracle (f32), with a window inside the chunks and a lane
+    of length 0."""
+    from repro_torch.kernels.paged_verify import query_chunk
+    args = _long_verify_inputs(len(lengths) + kk, lengths, kk, nh, nkv, hd,
+                               bs, B, "float32", "float32", device="cpu")
+    q, kp, vp, tables, le = args
+    chunk = query_chunk(kk, nh // nkv)
+    assert chunk * (nh // nkv) <= 64 < kk * (nh // nkv)
+    parts = [ref.paged_verify_ref(q[:, c0:c0 + chunk].contiguous(), kp, vp,
+                                  tables, le + c0, window=window)
+             for c0 in range(0, kk, chunk)]
+    whole = ref.paged_verify_ref(q, kp, vp, tables, le, window=window)
+    _close(_np(torch.cat(parts, dim=1)), _np(whole), F32_TOL)
+    jargs = [jx.jnp.asarray(a.numpy()) for a in args]
+    _close(_np(torch.cat(parts, dim=1)),
+           jx.ref.paged_verify_ref(*jargs, window=window), F32_TOL)
+
+
+def test_query_chunk_sizes():
+    from repro_torch.kernels.paged_verify import query_chunk
+    assert query_chunk(4, 16) == 4 and query_chunk(8, 8) == 8
+    assert query_chunk(8, 12) == 5 and query_chunk(5, 16) == 4
+    assert query_chunk(3, 64) == 1 and query_chunk(1, 64) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lengths,kk,nh,nkv,hd,bs,B,window",
+                         CHUNKED + [((1500, 3, 800), 8, 96, 8, 128, 16, 100,
+                                     None)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_verify_past_64_rows_matches_plain_version(
+        lengths, kk, nh, nkv, hd, bs, B, window, dtype):
+    """The kernel over query chunks equals its plain version (the last
+    case: command-r-plus-104b's 96/8 heads of 128 at k 8); one call counts
+    once."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    args = _long_verify_inputs(len(lengths) + kk, lengths, kk, nh, nkv, hd,
+                               bs, B, dtype, dtype)
+    before = paged_verify_lanes.launches
+    out = ops.paged_verify(*args, window=window, impl="cuda")
+    exp = ref.paged_verify_ref(*args, window=window)
+    torch.cuda.synchronize()
+    assert paged_verify_lanes.launches == before + 1
+    _close(_np(out), _np(exp), F32_TOL if dtype == "float32" else BF16_TOL)
