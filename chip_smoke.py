@@ -238,8 +238,7 @@ Phases (any failure exits non-zero before the result line):
    on the card, bf16 compute) serving phase 4's requests, 16 new tokens
    each, on the paged backend: launches = decode_steps x 2, one decode
    step both ways and the fused kernel against its plain version
-   (LOGIT_REL on the mean abs logit difference: bf16 steps at these
-   widths do not repeat in the max); (c) mixtral-8x22b and
+   (LOGIT_REL on the mean abs logit difference); (c) mixtral-8x22b and
    dbrx-132b at 2 layers through ``InferenceEngine``: a paged, bucketed
    engine falls back to slot without buckets, the requests get exactly
    16 tokens each on the slot backend, tok/s, each prefill's
@@ -284,6 +283,34 @@ Phases (any failure exits non-zero before the result line):
    the engine refuses whisper smoke with the JAX package's reason.
    ``MemAvailable`` is printed before (c)'s stores, (d) and (e).  Alone:
    ``python3 tools/encdec_vlm_phase.py``.
+24. the fp8 KV cache, the HTTP front end and checkpoints (full-width
+   qwen3-0.6b, seed 0, phase 4's requests) — (b) served on the paged
+   backend over bf16 pages, then over e4m3 pages
+   (``kv_cache_dtype="float8_e4m3fn"``): every request gets its tokens,
+   the paged kernel launches decode_steps x 28 both times, the e4m3
+   pool's page peak and block bytes are half the bf16 pool's, one decode
+   step of the fp8 snapshot both ways (phase 5's gate), one step of the
+   bf16 snapshot with its pages as they are and cast to e4m3 (mean
+   |softmax delta| < 2e-3, the JAX fp8 test's bound); the fused path
+   (``paged_impl="fused"``) and spec over a paged inner (self-draft, k 4)
+   over e4m3 pages, 16 tokens a request: fused launches = decode_steps x
+   28, verify launches = spec_rounds x 28; (a) each e4m3 route (decode,
+   fused, verify k 4) at the fp8 serve's inputs against its plain
+   version, with its times, byte bound and SDPA over K/V gathered and
+   upcast; (c) ``HydraHTTPServer`` on 127.0.0.1, port 0, over a paged
+   engine: 8 streaming and 4 non-streaming clients at once, 16 tokens
+   each — every client's ids equal the engine's record of its request,
+   the paged kernel launches decode steps x 28, client TTFT and
+   per-stream tok/s printed beside the card's name and power limit; a
+   mid-decode ``/v1/cancel`` frees the lane and the KV reservation within
+   one tick; ``/v1/metrics`` back to its baseline; a small f32 engine's
+   HTTP tokens equal its offline engine's; ``python -m
+   repro_torch.launch.serve --arch qwen3-0.6b --backend paged --http
+   --port 0`` on its default device (the card) prints its first line,
+   answers ``/health`` and streams the ids a non-streamed completion
+   returns, and exits 0 on SIGINT; (d) the params saved with
+   ``checkpoint.save`` (the JAX format) and restored bit for bit, GB/s
+   each way.  Alone: ``python3 tools/fp8_http_phase.py``.
 
 Each kernel's launch count is zeroed just before the run of its own path
 (a serve run, the spilled eval, the profiler's ``build_facts`` for
@@ -300,7 +327,10 @@ kernel's summed over phase 22 (b)'s three wide dense serves as
 ``wide_gqa_launches`` and flash's on phase 22 (d)'s MoE eval as
 ``moe_eval_launches``; the paged, verify, int8 and fused kernels' on
 phase 23 (b)'s llava serves as ``vlm_launches`` and flash's on phase 23
-(d)'s whisper eval as ``audio_launches`` (each zeroed before its run).
+(d)'s whisper eval as ``audio_launches``, the paged kernel's on phase 24
+(c)'s HTTP run as ``http_launches`` (each zeroed before its run); the
+e4m3 routes have entries of their own (``[e4m3 pages]``), with phase 24
+(b)'s fp8 paged, fused and spec launches and (a)'s numbers.
 
 The second-to-last lines are a JSON object of per-kernel numbers and the
 card's ``nvidia-smi`` name/power line; the last line is
@@ -439,8 +469,11 @@ def measure_paged(q, kp, vp, tables, lengths, window, dtype_name, flush):
     nh, nkv = q.shape[1], kp.shape[2]
     g = nh // nkv
     tl = tables.long()
-    k = kp[tl].reshape(n, S, nkv, HD).repeat_interleave(g, 2).transpose(1, 2)
-    v = vp[tl].reshape(n, S, nkv, HD).repeat_interleave(g, 2).transpose(1, 2)
+    # fp8 pages reach SDPA upcast to q's dtype (a no-op for bf16 and f32)
+    k = ref.gather_blocks(kp, tl).to(q.dtype).reshape(n, S, nkv, HD) \
+        .repeat_interleave(g, 2).transpose(1, 2)
+    v = ref.gather_blocks(vp, tl).to(q.dtype).reshape(n, S, nkv, HD) \
+        .repeat_interleave(g, 2).transpose(1, 2)
     pos = torch.arange(S, device=q.device)[None, :]
     le = lengths.long()[:, None]
     mask = pos < le
@@ -590,8 +623,10 @@ def measure_verify(q, kp, vp, tables, lengths, window, dtype_name, flush,
     S = B * BS
     g = nh // nkv
     tl = tables.long()
-    k = kp[tl].reshape(n, S, nkv, HD).repeat_interleave(g, 2).transpose(1, 2)
-    v = vp[tl].reshape(n, S, nkv, HD).repeat_interleave(g, 2).transpose(1, 2)
+    k = ref.gather_blocks(kp, tl).to(q.dtype).reshape(n, S, nkv, HD) \
+        .repeat_interleave(g, 2).transpose(1, 2)
+    v = ref.gather_blocks(vp, tl).to(q.dtype).reshape(n, S, nkv, HD) \
+        .repeat_interleave(g, 2).transpose(1, 2)
     mask = verify_mask(lengths, kq, S, window, q.device)
     qh = q.transpose(1, 2)
 
@@ -1053,9 +1088,17 @@ def serve_prompts(vocab, seed=0):
 
 
 def paged_snapshot(eng):
-    """The paged backend's state between two decode steps: pages (cloned),
-    block tables, lengths and the lanes' next input tokens."""
+    """The paged backend's state as its next decode step gets it: pages
+    (cloned), block tables, lengths and the lanes' next input tokens.
+
+    The backend's own ``_prepare_lanes`` runs first.  That step would run
+    it anyway, and then finds every block in place.  Without it, a lane
+    whose next row opens a new block still names the pool's garbage
+    block there.  Every such lane writes that row to the same garbage
+    row, and which write lands is unspecified, so the lanes read back one
+    another's K/V and two steps on the snapshot differ."""
     be = eng.backend
+    be._prepare_lanes(eng._active)
     return {"pages": {k: v.clone() for k, v in be.pool.pages.items()},
             "tables": be._tables.copy(), "lengths": be._lengths.copy(),
             "tokens": eng._tokens[:, 0, :].copy()}
@@ -1392,9 +1435,7 @@ def logit_gate(label, logits, names=("kernel", "plain"), stat="max"):
     """The both-ways gate over {"cuda", "ref", "f32"} logits: the kernel's
     logits may be at most LOGIT_REL times as far from the f32 run as the
     plain bf16 path's are, by the max abs difference (``stat="max"``) or
-    the mean (``"mean"``: phase 22, whose plain bf16 steps differ by up
-    to 1.44 in the max between two calls on the same inputs, PERF.md
-    §6).  ``names`` say in the log what the
+    the mean (``"mean"``: phase 22).  ``names`` say in the log what the
     "cuda" and "ref" runs are."""
     import torch
     kn, pn = names
@@ -4774,12 +4815,10 @@ def phase_wide_dense(flush):
     the paged backend: every request gets its tokens, paged launches =
     decode_steps x 2; one decode step both ways against the f32 step
     (LOGIT_REL, as phase 5, on the mean abs difference) and one fused
-    step, the kernel against its plain version: at 2 layers of these
-    widths the bf16 step does not repeat (two calls on the same inputs
-    differ by up to 1.44 in the max, PERF.md §6), so the max makes a
-    noisy yardstick; the plain step run twice, its two logits' max
-    difference reported; the kernel at the serve path's layer-0
-    inputs."""
+    step, the kernel against its plain version; the plain step run
+    twice, its two logits' max difference reported (0 since the snapshot
+    gives a lane opening a block its block, ``paged_snapshot``); the
+    kernel at the serve path's layer-0 inputs."""
     import torch
 
     from repro_torch.configs import get_config
@@ -5945,6 +5984,602 @@ def phase_item8b(flush, smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 24: the fp8 KV cache, the HTTP/SSE front end and checkpoints
+# ---------------------------------------------------------------------------
+
+FP8 = "float8_e4m3fn"
+FP8_GEN = 16          # new tokens a request on the fused and spec fp8 runs
+FP8_DP_TOL = 2e-3     # mean |softmax delta| vs the bf16 cache (JAX's bound)
+HTTP_STREAM, HTTP_FULL, HTTP_GEN = 8, 4, 16
+HTTP_CANCEL_GEN = 400
+
+
+def fp8_kernel_rows(snap8, params8, flush):
+    """(a) each e4m3 route at the fp8 serve path's inputs (layer 0's fp8
+    pages, the lanes' tables and lengths at the snapshot step; bf16 q):
+    decode, the fused layer (layer 0's weights) and verify (k 4), each
+    against its plain version with its times, byte bound (1 byte an
+    element of K/V) and the SDPA yardstick of ``measure_paged``."""
+    import torch
+
+    from repro_torch.models import transformer
+
+    bf = torch.bfloat16
+    kp, vp = snap8["pages"]["k"][0], snap8["pages"]["v"][0]
+    tb = torch.from_numpy(snap8["tables"]).cuda()
+    le = torch.from_numpy(snap8["lengths"] + 1).cuda()
+    rows = {}
+    q = torch.randn(CAPACITY, NH, HD, device="cuda").to(bf)
+    rows["paged"] = measure_paged(q, kp, vp, tb, le, None, "bfloat16", flush)
+    lp = transformer.layer_slices(params8["layers"], 1)[0]
+    weights = tuple(t.to(bf).contiguous() for t in (
+        lp["attn"]["wo"], lp["mlp_norm"]["scale"], lp["mlp"]["w_gate"],
+        lp["mlp"]["w_up"], lp["mlp"]["w_down"]))
+    h = torch.randn(CAPACITY, D_MODEL, device="cuda").to(bf)
+    rows["fused"] = measure_fused(h, q, kp, vp, tb, le, weights, None,
+                                  "bfloat16", flush)
+    qv = torch.randn(CAPACITY, DRAFT_K, NH, HD, device="cuda").to(bf)
+    committed = torch.from_numpy(snap8["lengths"]).cuda()
+    rows["verify"] = measure_verify(qv, kp, vp, tb, committed, None,
+                                    "bfloat16", flush)
+    for name, m in rows.items():
+        # decode and fused take rows with the current token; verify the
+        # committed rows its k queries follow
+        m["lengths"] = (committed if name == "verify" else le).tolist()
+        lib = "-" if m["library_ms"] is None else f"{m['library_ms']:.4f}"
+        log(f"[fp8 (a)] {name} e4m3 route at the fp8 serve path's inputs "
+            f"(lengths {m['lengths']}): ms={m['ms']:.4f} "
+            f"plain_ms={m['plain_ms']:.4f} library_ms={lib} "
+            f"bound_ms={m['bound_ms']:.4f} ({m['bound_by']}) "
+            f"bound_share={m['bound_share']:.3f} "
+            f"max_abs_err={m['max_abs_err']:.3g}")
+        if not m["within_tol"]:
+            fail(f"fp8 (a): the {name} kernel's e4m3 route disagrees with "
+                 "its plain version at the fp8 serve path's inputs")
+    return rows
+
+
+def fp8_vs_bf16_step(cfg, params16, snap16):
+    """One decode step of the bf16 serve's snapshot with its pages as they
+    are and cast to e4m3 (the fp8 cache's view of the same rows), both
+    through the kernels: the mean |softmax delta| (JAX's fp8 test bound)."""
+    import torch
+
+    from repro_torch.models import api
+
+    dev = "cuda"
+    args = (torch.from_numpy(snap16["tables"]).to(dev),
+            torch.from_numpy(snap16["lengths"]).to(dev),
+            torch.from_numpy(snap16["tokens"]).long().to(dev))
+    cfg8 = cfg.replace(kv_cache_dtype=FP8)
+    probs = {}
+    with torch.no_grad():
+        for key, c, dt in (("bf16", cfg, torch.bfloat16),
+                           ("fp8", cfg8, torch.float8_e4m3fn)):
+            pages = {k: v.to(dt) for k, v in snap16["pages"].items()}
+            probs[key] = torch.softmax(api.paged_decode_step(
+                c, params16, pages, *args, impl="cuda").float(), dim=-1)
+            del pages
+    delta = (probs["fp8"] - probs["bf16"]).abs()
+    # the mean runs over the whole vocabulary (151,936 entries), so the
+    # total variation (half the row's sum) is printed beside it
+    res = {"mean_abs_dp": float(delta.mean()),
+           "max_abs_dp": float(delta.max()),
+           "total_variation": float(delta.sum(-1).max() / 2),
+           "argmax_flips": int((probs["fp8"].argmax(-1)
+                                != probs["bf16"].argmax(-1)).sum())}
+    log(f"[fp8 (b)] one decode step, fp8 vs bf16 pages of the same rows: "
+        f"mean |dp| {res['mean_abs_dp']:.3g} (limit {FP8_DP_TOL}), max "
+        f"{res['max_abs_dp']:.3g}, largest total variation of a lane "
+        f"{res['total_variation']:.3g}, argmax flips {res['argmax_flips']} of "
+        f"{CAPACITY}")
+    if not (res["mean_abs_dp"] < FP8_DP_TOL
+            and bool(torch.isfinite(probs["fp8"]).all())):
+        fail(f"fp8 (b): mean |dp| {res['mean_abs_dp']} against the bf16 "
+             f"cache is not under {FP8_DP_TOL}")
+    return res
+
+
+def fp8_spec_serve(cfg8, params, prompts):
+    """Spec over a paged inner of fp8 pages, the target's own parameters
+    as the draft: the verify kernel's e4m3 route runs spec_rounds x 28."""
+    from repro_torch.kernels.paged_verify import paged_verify_lanes
+    from repro_torch.models import api
+    from repro_torch.serving.engine import InferenceEngine
+    from repro_torch.serving.paging import blocks_for_rows
+
+    max_seq = max(len(p) for p in prompts) + FP8_GEN
+    budget = (CAPACITY * blocks_for_rows(max_seq + DRAFT_K, BS)
+              * api.kv_block_bytes(cfg8, BS)
+              + CAPACITY * api.decode_state_bytes(cfg8, 1,
+                                                   max_seq + DRAFT_K))
+    eng = InferenceEngine(cfg8, params, capacity=CAPACITY, max_seq=max_seq,
+                          backend="spec", spec_inner="paged", draft_cfg=cfg8,
+                          draft_params=params, draft_k=DRAFT_K,
+                          block_size=BS, kv_budget_bytes=budget,
+                          device="cuda")
+    _, res, summary = drive_serve(cfg8, eng, prompts, paged_verify_lanes,
+                                  "fp8 spec", gen=FP8_GEN)
+    res["spec_rounds"] = summary["spec_rounds"]
+    res["accepted_tokens_per_target_step"] = \
+        summary["accepted_tokens_per_target_step"]
+    if res["launches"] != summary["spec_rounds"] * cfg8.n_layers:
+        fail(f"fp8 spec: paged_verify launched {res['launches']} times; "
+             f"expected spec_rounds x layers = "
+             f"{summary['spec_rounds'] * cfg8.n_layers}")
+    return res
+
+
+def phase_fp8_serve(cfg, params, prompts, flush):
+    """(b) full-width qwen3-0.6b on fp8 pages against bf16 pages, then the
+    fused and spec paths over fp8 pages; (a) the e4m3 kernel rows."""
+    import torch
+
+    from repro_torch.kernels.fused_decode import fused_decode_layer
+    from repro_torch.kernels.paged_attention import paged_attention_lanes
+    from repro_torch.serving.engine import InferenceEngine
+
+    cfg8 = cfg.replace(kv_cache_dtype=FP8)
+    max_seq = max(len(p) for p in prompts) + GEN
+    out = {}
+    runs = {}
+    for key, c in (("bf16", cfg), ("fp8", cfg8)):
+        eng = InferenceEngine(c, params, capacity=CAPACITY, max_seq=max_seq,
+                              backend="paged", block_size=BS, device="cuda")
+        snap, res, summary = drive_serve(c, eng, prompts,
+                                         paged_attention_lanes,
+                                         f"{key} paged", snap_step=8)
+        if res["launches"] != summary["decode_steps"] * c.n_layers:
+            fail(f"fp8 (b) {key}: paged_attention launched "
+                 f"{res['launches']} times; expected decode_steps x layers "
+                 f"= {summary['decode_steps'] * c.n_layers}")
+        runs[key] = (eng, snap, res)
+        del eng
+    (eng8, snap8, r8), (eng16, snap16, r16) = runs["fp8"], runs["bf16"]
+    if eng8.pool.pages["k"].dtype != torch.float8_e4m3fn:
+        fail(f"fp8 (b): the pool holds {eng8.pool.pages['k'].dtype} pages")
+    half = (2 * r8["kv_page_peak_bytes"] == r16["kv_page_peak_bytes"]
+            and 2 * r8["block_bytes"] == r16["block_bytes"])
+    same = sum(r8["tokens"][k] == r16["tokens"][k] for k in r8["tokens"])
+    out["serve"] = {**r8, "bf16_kv_page_peak_bytes": r16["kv_page_peak_bytes"],
+                    "bf16_block_bytes": r16["block_bytes"],
+                    "bf16_decode_tok_per_s": r16["decode_tok_per_s"],
+                    "requests_token_identical_to_bf16": same}
+    log(f"[fp8 (b)] paged over e4m3 pages: {r8['requests']} requests x "
+        f"{GEN} tokens, decode_steps {r8['decode_steps']}, kernel launches "
+        f"{r8['launches']} (= decode_steps x {cfg.n_layers}), "
+        f"kv_page_peak_bytes {r8['kv_page_peak_bytes']} vs bf16 "
+        f"{r16['kv_page_peak_bytes']}, block_bytes {r8['block_bytes']} vs "
+        f"{r16['block_bytes']}, decode {r8['decode_tok_per_s']} tok/s (bf16 "
+        f"{r16['decode_tok_per_s']}), requests token-identical to bf16 "
+        f"{same} of {r8['requests']} (not gated)")
+    if not half:
+        fail("fp8 (b): the e4m3 pool's page peak and block bytes are not "
+             "half of the bf16 pool's")
+    out["both_ways"] = phase_both_ways(cfg8, eng8, snap8, params)
+    out["vs_bf16"] = fp8_vs_bf16_step(cfg, eng16.params, snap16)
+    del runs, eng16, snap16
+    torch.cuda.empty_cache()
+
+    feng = InferenceEngine(cfg8, params, capacity=CAPACITY,
+                           max_seq=max(len(p) for p in prompts) + FP8_GEN,
+                           backend="paged", paged_impl="fused",
+                           block_size=BS, device="cuda")
+    _, fres, fsum = drive_serve(cfg8, feng, prompts, fused_decode_layer,
+                                "fp8 fused", gen=FP8_GEN)
+    del feng
+    if fres["launches"] != fsum["decode_steps"] * cfg.n_layers:
+        fail(f"fp8 fused: fused_decode_layer launched {fres['launches']} "
+             f"times; expected decode_steps x layers = "
+             f"{fsum['decode_steps'] * cfg.n_layers}")
+    out["fused"] = fres
+    out["spec"] = fp8_spec_serve(cfg8, params, prompts)
+    log(f"[fp8 (b)] fused over e4m3 pages: {FP8_GEN} tokens a request, "
+        f"decode_steps {fres['decode_steps']}, fused launches "
+        f"{fres['launches']}, decode {fres['decode_tok_per_s']} tok/s; spec "
+        f"(self-draft, k {DRAFT_K}) over e4m3 pages: spec_rounds "
+        f"{out['spec']['spec_rounds']}, verify launches "
+        f"{out['spec']['launches']}, accepted tokens a target step "
+        f"{out['spec']['accepted_tokens_per_target_step']}")
+    torch.cuda.empty_cache()
+    out["kernels"] = fp8_kernel_rows(snap8, eng8.params, flush)
+    del eng8, snap8
+    return out
+
+
+def http_client(url, body, stream):
+    """One HTTP client: POST a completion, read the SSE stream (or the
+    JSON body); returns its ids, the final event, the TTFT seen by the
+    client and the decode rate after the first token."""
+    import http.client
+    host, port = url[len("http://"):].split(":")
+    conn = http.client.HTTPConnection(host, int(port), timeout=600)
+    t0 = time.perf_counter()
+    try:
+        conn.request("POST", "/v1/completions",
+                     json.dumps(dict(body, stream=stream)),
+                     {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        if resp.status != 200:
+            return {"status": resp.status, "error": resp.read().decode()}
+        if not stream:
+            obj = json.loads(resp.read().decode())
+            return {"status": 200, "ids": obj["choices"][0]["token_ids"],
+                    "request_id": obj["id"], "e2e_s":
+                    time.perf_counter() - t0}
+        ids, times, final = [], [], None
+        while True:
+            line = resp.readline()
+            if not line:
+                break
+            line = line.strip()
+            if not line.startswith(b"data: "):
+                continue
+            data = line[len(b"data: "):]
+            if data == b"[DONE]":
+                break
+            event = json.loads(data)
+            choice = event["choices"][0]
+            if "token_id" in choice:
+                ids.append(choice["token_id"])
+                times.append(time.perf_counter())
+            else:
+                final = event
+        ttft = times[0] - t0 if times else None
+        rate = ((len(times) - 1) / (times[-1] - times[0])
+                if len(times) > 1 and times[-1] > times[0] else None)
+        return {"status": 200, "ids": ids, "final": final,
+                "request_id": final["id"] if final else None,
+                "ttft_s": ttft, "tok_per_s": rate,
+                "e2e_s": time.perf_counter() - t0}
+    finally:
+        conn.close()
+
+
+def http_json(url, method, path, body=None):
+    """One JSON request: (status, decoded body)."""
+    import http.client
+    host, port = url[len("http://"):].split(":")
+    conn = http.client.HTTPConnection(host, int(port), timeout=60)
+    try:
+        conn.request(method, path, None if body is None
+                     else json.dumps(body),
+                     {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read().decode())
+    finally:
+        conn.close()
+
+
+def recording_submit(frontend):
+    """Wrap ``frontend.submit`` to keep every Request it returns, by id:
+    the engine's own record of each request's tokens."""
+    seen = {}
+    submit = frontend.submit
+
+    def wrapped(*a, **k):
+        req = submit(*a, **k)
+        seen[req.request_id] = req
+        return req
+    frontend.submit = wrapped
+    return seen
+
+
+def phase_http(cfg, params, prompts, smi):
+    """(c) ``HydraHTTPServer`` on 127.0.0.1, port 0, over full-width
+    qwen3-0.6b on the paged backend: 8 streaming and 4 non-streaming
+    clients at once; a mid-decode ``/v1/cancel``; ``/v1/metrics`` back to
+    its baseline; then a small f32 engine's HTTP tokens against the same
+    engine type decoding offline."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.paged_attention import paged_attention_lanes
+    from repro_torch.models import api
+    from repro_torch.serving import (HydraHTTPServer, InferenceEngine,
+                                     MultiModelServer)
+
+    max_seq = max(len(p) for p in prompts) + HTTP_CANCEL_GEN
+    eng = InferenceEngine(cfg, params, capacity=CAPACITY, max_seq=max_seq,
+                          backend="paged", block_size=BS, device="cuda",
+                          model_name=cfg.name)
+    srv = HydraHTTPServer(MultiModelServer({cfg.name: eng}),
+                          host="127.0.0.1", port=0)
+    out = {}
+    with srv:
+        url = srv.url
+        seen = recording_submit(srv.frontend)
+        _, base = http_json(url, "GET", "/v1/metrics")
+        if http_json(url, "GET", "/health") != (200, {"status": "ok"}):
+            fail("http (c): /health did not answer ok")
+        bodies = [({"model": cfg.name, "prompt": p.tolist(),
+                    "max_tokens": HTTP_GEN, "request_id": f"s{i}"}, True)
+                  for i, p in enumerate(prompts[:HTTP_STREAM])]
+        bodies += [({"model": cfg.name, "prompt": p[:128].tolist(),
+                     "max_tokens": HTTP_GEN, "request_id": f"f{i}"}, False)
+                   for i, p in enumerate(prompts[:HTTP_FULL])]
+        results = [None] * len(bodies)
+        steps0 = eng.decode_steps
+        paged_attention_lanes.launches = 0     # count this path's run only
+
+        def client(i):
+            results[i] = http_client(url, *bodies[i])
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(len(bodies))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+        launches = paged_attention_lanes.launches
+        steps = eng.decode_steps - steps0
+        if any(r is None or r["status"] != 200 for r in results):
+            fail(f"http (c): a client failed: {results}")
+        for (body, stream), r in zip(bodies, results):
+            rid = body["request_id"]
+            req = seen.get(rid)
+            if req is None or list(map(int, req.generated)) != r["ids"] \
+                    or len(r["ids"]) != HTTP_GEN:
+                fail(f"http (c) {rid}: the client got {r['ids']}, the "
+                     f"engine generated "
+                     f"{None if req is None else req.generated}")
+        if launches != steps * cfg.n_layers:
+            fail(f"http (c): paged_attention launched {launches} times "
+                 f"over {steps} decode steps x {cfg.n_layers} layers")
+        streams = [r for r in results if "ttft_s" in r]
+        ttft = sorted(r["ttft_s"] for r in streams)
+        rates = sorted(r["tok_per_s"] for r in streams)
+        out["load"] = {
+            "clients_streaming": HTTP_STREAM, "clients_full": HTTP_FULL,
+            "max_tokens": HTTP_GEN, "wall_s": wall, "decode_steps": steps,
+            "launches": launches, "ttft_s": ttft, "tok_per_s": rates,
+            "ttft_median_s": statistics.median(ttft),
+            "tok_per_s_median": statistics.median(rates),
+            "e2e_full_s": sorted(r["e2e_s"] for r in results
+                                 if "ttft_s" not in r)}
+        log(f"[http (c)] {HTTP_STREAM} streaming + {HTTP_FULL} non-streaming "
+            f"clients x {HTTP_GEN} tokens over qwen3-0.6b paged: wall "
+            f"{wall:.3f} s, {steps} decode steps, paged kernel launches "
+            f"{launches} (= steps x {cfg.n_layers}); streamed ids = the "
+            f"engine's for all {len(results)}; client TTFT median "
+            f"{out['load']['ttft_median_s'] * 1e3:.1f} ms (min "
+            f"{ttft[0] * 1e3:.1f}, max {ttft[-1] * 1e3:.1f}), per-stream "
+            f"decode median {out['load']['tok_per_s_median']:.1f} tok/s "
+            f"({smi})")
+
+        # a mid-decode cancel: lane and KV freed within one tick
+        done = []
+        rid = "cancel-1"
+        body = {"model": cfg.name, "prompt": prompts[2].tolist(),
+                "max_tokens": HTTP_CANCEL_GEN, "request_id": rid}
+        t = threading.Thread(target=lambda: done.append(
+            http_client(url, body, True)))
+        t.start()
+        deadline = time.time() + 60
+        while time.time() < deadline and not (
+                rid in seen and seen[rid].generated):
+            time.sleep(0.005)
+        if not (rid in seen and seen[rid].generated):
+            fail("http (c): the request to cancel never started decoding")
+        status, ack = http_json(url, "POST", "/v1/cancel",
+                                 {"request_id": rid})
+        ticks_ack = srv.frontend.ticks
+        t_ack = time.perf_counter()
+        while time.perf_counter() - t_ack < 30:
+            if eng.n_free_lanes == CAPACITY and \
+                    eng.budget.reserved_bytes == 0:
+                break
+            time.sleep(0.001)
+        freed_s = time.perf_counter() - t_ack
+        ticks_to_free = srv.frontend.ticks - ticks_ack
+        t.join(timeout=60)
+        n_streamed = len(done[0]["ids"]) if done else None
+        finish = (done[0]["final"]["choices"][0]["finish_reason"]
+                  if done and done[0]["final"] else None)
+        out["cancel"] = {"ack": ack, "status": status, "freed_s": freed_s,
+                         "ticks_to_free": ticks_to_free,
+                         "tokens_streamed": n_streamed,
+                         "tokens_saved": HTTP_CANCEL_GEN - (n_streamed or 0),
+                         "finish_reason": finish}
+        log(f"[http (c)] /v1/cancel mid-decode after {n_streamed} tokens: "
+            f"lane and KV free {freed_s * 1e3:.2f} ms after the ack, "
+            f"{ticks_to_free} tick(s), finish_reason {finish!r}")
+        if not (status == 200 and ack["cancelled"] and ticks_to_free <= 1
+                and eng.n_free_lanes == CAPACITY
+                and eng.budget.reserved_bytes == 0 and finish == "cancelled"
+                and n_streamed < HTTP_CANCEL_GEN):
+            fail(f"http (c): the cancel did not free lane and KV within a "
+                 f"tick: {out['cancel']}")
+        _, after = http_json(url, "GET", "/v1/metrics")
+        keys = ("free_lanes", "kv_reserved_bytes")
+        b, a = base["engines"][cfg.name], after["engines"][cfg.name]
+        out["metrics"] = {"before": {k: b[k] for k in keys},
+                          "after": {k: a[k] for k in keys},
+                          "n_submitted": after["n_submitted"],
+                          "n_completed": after["n_completed"],
+                          "n_cancelled": after["n_cancelled"],
+                          "ticks": after["ticks"]}
+        if any(a[k] != b[k] for k in keys) or after["n_submitted"] != \
+                len(bodies) + 1 or after["n_cancelled"] != 1:
+            fail(f"http (c): /v1/metrics not back to its baseline: "
+                 f"{out['metrics']}")
+        log(f"[http (c)] /v1/metrics back to baseline: {out['metrics']}")
+    del eng, srv
+    torch.cuda.empty_cache()
+
+    # a small f32 model: HTTP tokens = its offline engine's
+    scfg = get_config("qwen3-0.6b", smoke=True).replace(
+        dtype="float32", kv_cache_dtype="float32")
+    sparams = api.init_params(scfg, torch.Generator("cuda").manual_seed(5),
+                              "cuda")
+    rng = np.random.default_rng(5)
+    sprompts = [rng.integers(0, scfg.vocab_size, n, dtype=np.int32)
+                for n in (5, 17, 9, 12)]
+    offline = []
+    for p in sprompts:
+        e = InferenceEngine(scfg, sparams, capacity=1, max_seq=64,
+                            backend="paged", block_size=8, device="cuda")
+        r = e.submit(p, 12)
+        e.run()
+        offline.append(list(map(int, r.generated)))
+    seng = InferenceEngine(scfg, sparams, capacity=3, max_seq=64,
+                           backend="paged", block_size=8, device="cuda")
+    with HydraHTTPServer(MultiModelServer({"small": seng})) as ssrv:
+        got = [None] * len(sprompts)
+
+        def sclient(i):
+            got[i] = http_client(ssrv.url, {
+                "model": "small", "prompt": sprompts[i].tolist(),
+                "max_tokens": 12}, i % 2 == 0)["ids"]
+        threads = [threading.Thread(target=sclient, args=(i,))
+                   for i in range(len(sprompts))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    out["small_f32"] = {"requests": len(sprompts),
+                        "identical": sum(g == o for g, o in
+                                         zip(got, offline))}
+    log(f"[http (c)] small f32 model over HTTP (2 streaming, 2 not, 3 "
+        f"lanes): tokens equal its offline engine's for "
+        f"{out['small_f32']['identical']} of {len(sprompts)}")
+    if out["small_f32"]["identical"] != len(sprompts):
+        fail("http (c): the small f32 model's HTTP tokens differ from its "
+             "offline engine's")
+    return out
+
+
+def phase_http_cli():
+    """(c) the serve CLI's HTTP mode on its default device, the card:
+    ``python -m repro_torch.launch.serve --arch qwen3-0.6b --backend paged
+    --http --port 0`` prints its first line, answers ``/health``, streams
+    a completion whose ids equal a non-streamed one's, and stops on
+    SIGINT (its Ctrl-C path)."""
+    import os
+    import select
+    import signal
+
+    err_path = ROOT / "build" / "phase24_cli.err"
+    err_path.parent.mkdir(exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    with open(err_path, "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+             "qwen3-0.6b", "--backend", "paged", "--http", "--port", "0",
+             "--max-seq", "64"], stdout=subprocess.PIPE, stderr=err,
+            env=env, cwd=str(ROOT))
+        try:
+            ready = select.select([proc.stdout], [], [], 300)[0]
+            line = proc.stdout.readline() if ready else b""
+            if not line:
+                fail("http (c) CLI: no first line; stderr: "
+                     + err_path.read_text()[-2000:])
+            first = json.loads(line)
+            up_s = time.perf_counter() - t0
+            url = first["url"]
+            body = {"model": "qwen3-0.6b", "prompt": [5, 17, 42],
+                    "max_tokens": 8}
+            health = http_json(url, "GET", "/health")
+            status, full = http_json(url, "POST", "/v1/completions", body)
+            streamed = http_client(url, body, True)
+        finally:
+            proc.send_signal(signal.SIGINT)
+            try:
+                rc = proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                rc = proc.wait()
+            proc.stdout.close()
+    ids = full["choices"][0]["token_ids"] if status == 200 else None
+    res = {"first_line": first, "up_s": up_s, "health": health[1],
+           "ids": ids, "streamed_ids": streamed.get("ids"), "rc": rc}
+    log(f"[http (c)] serve CLI --http --port 0 on the card: first line "
+        f"{json.dumps(first)} after {up_s:.1f} s, /health {health}, "
+        f"completion ids {ids}, streamed {res['streamed_ids']}, exit "
+        f"{rc} on SIGINT")
+    if not (set(first) == {"url", "models"} and first["models"] ==
+            ["qwen3-0.6b"] and health == (200, {"status": "ok"})
+            and ids is not None and len(ids) == 8
+            and res["streamed_ids"] == ids and rc == 0):
+        fail(f"http (c): the serve CLI's HTTP mode failed: {res}")
+    return res
+
+
+def phase_checkpoint(params, smi):
+    """(d) full-width qwen3-0.6b params saved (``checkpoint.save``, the JAX
+    format) from the card and restored: bit-equal leaves and dtypes, with
+    the rates (host wall, the device-to-host copies included)."""
+    import shutil
+
+    import torch
+
+    from repro_torch import checkpoint
+    from repro_torch.tree import tree_leaves
+
+    d = ROOT / "build" / "phase24_ckpt" / "step_1"
+    shutil.rmtree(d.parent, ignore_errors=True)
+    nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        checkpoint.save(str(d), params, step=1,
+                        metadata={"arch": "qwen3-0.6b"})
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got, manifest = checkpoint.restore(
+            checkpoint.latest_step(str(d.parent)), like=params)
+        restore_s = time.perf_counter() - t0
+        same = all(a.dtype == b.dtype and torch.equal(a.cpu(), b)
+                   for a, b in zip(tree_leaves(params), tree_leaves(got)))
+    finally:
+        shutil.rmtree(d.parent, ignore_errors=True)
+    res = {"bytes": nbytes, "leaves": len(manifest["leaves"]),
+           "save_s": save_s, "restore_s": restore_s,
+           "save_gb_per_s": nbytes / save_s / 1e9,
+           "restore_gb_per_s": nbytes / restore_s / 1e9,
+           "bit_equal": same}
+    log(f"[ckpt (d)] qwen3-0.6b params, {nbytes} B in {res['leaves']} "
+        f"leaves: save {save_s:.2f} s ({res['save_gb_per_s']:.3f} GB/s, "
+        f"device to npz), restore {restore_s:.2f} s "
+        f"({res['restore_gb_per_s']:.3f} GB/s, npz to host tensors); "
+        f"bit-equal {same} ({smi})")
+    if not same:
+        fail("ckpt (d): restored params differ from the saved ones")
+    return res
+
+
+def phase_fp8_http(flush, smi):
+    """Phase 24: (a) + (b) the fp8 KV cache at full width, (c) the HTTP
+    front end, (d) checkpoints."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+
+    t0 = time.perf_counter()
+    cfg = get_config("qwen3-0.6b")
+    params = api.init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                             "cuda")
+    prompts = serve_prompts(cfg.vocab_size)
+    out = {"fp8": phase_fp8_serve(cfg, params, prompts, flush)}
+    torch.cuda.empty_cache()
+    out["http"] = phase_http(cfg, params, prompts, smi)
+    out["http"]["cli"] = phase_http_cli()
+    torch.cuda.empty_cache()
+    out["checkpoint"] = phase_checkpoint(params, smi)
+    del params
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"[fp8/http] phase wall {out['phase_s']:.2f} s ({smi})")
+    return out
+
+
 def kernel_entry(name, source, replaces, launches, m, **paths):
     """One kernel's entry of the kernels line; ``paths``: its launches on
     other paths of this run, by name (each counted from 0 over that
@@ -6240,8 +6875,14 @@ def main() -> None:
     #     SHARP, small f32 engines
     report["item8b"] = phase_item8b(flush, smi)
     torch.cuda.empty_cache()
+
+    # 24. the fp8 KV cache (e4m3 pages through the decode, fused and
+    #     verify kernels), the HTTP/SSE front end, checkpoints
+    report["fp8_http"] = phase_fp8_http(flush, smi)
+    torch.cuda.empty_cache()
     report["total_s"] = time.perf_counter() - t_start
     vlm = report["item8b"]["vlm_launches"]
+    fp8 = report["fp8_http"]["fp8"]
 
     src = "src/repro_torch/kernels/csrc/"
     kernel_line = {"kernels": [
@@ -6253,7 +6894,9 @@ def main() -> None:
                      async_launches=report["probe_async"]["c"]["launches"],
                      wide_gqa_launches=report["item8"][
                          "wide_gqa_launches"],
-                     vlm_launches=vlm["paged"]),
+                     vlm_launches=vlm["paged"],
+                     http_launches=report["fp8_http"]["http"]["load"][
+                         "launches"]),
         kernel_entry("paged_verify_lanes", src + "paged_verify.cu",
                      "src/repro/kernels/paged_verify.py:81",
                      report["spec_random"]["launches"], verify_path,
@@ -6288,6 +6931,19 @@ def main() -> None:
                      "src/repro/kernels/ssd_scan.py:60",
                      report["zamba_eval"]["kernel_forward"]["launches"],
                      ssd_path),
+        # the e4m3 page routes of the three kernels that read pages
+        kernel_entry("paged_attention_lanes[e4m3 pages]",
+                     src + "paged_attention.cu",
+                     "src/repro/kernels/paged_attention.py:76",
+                     fp8["serve"]["launches"], fp8["kernels"]["paged"]),
+        kernel_entry("fused_decode_layer[e4m3 pages]",
+                     src + "fused_decode.cu",
+                     "src/repro/kernels/fused_decode.py:92",
+                     fp8["fused"]["launches"], fp8["kernels"]["fused"]),
+        kernel_entry("paged_verify_lanes[e4m3 pages]",
+                     src + "paged_verify.cu",
+                     "src/repro/kernels/paged_verify.py:81",
+                     fp8["spec"]["launches"], fp8["kernels"]["verify"]),
     ]}
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))

@@ -1,5 +1,5 @@
 """Architecture config dataclass + registry (port of ``repro.configs.base``,
-with the fields every family reads: dense, vlm, moe, ssm, hybrid and
+with every field of the JAX package's: dense, vlm, moe, ssm, hybrid and
 audio).
 
 ``attn_impl`` follows the port's kernel vocabulary: ``"xla"`` (the
@@ -26,11 +26,13 @@ import torch
 ATTN_IMPLS = ("xla", "cuda")
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
-           "float16": torch.float16}
+           "float16": torch.float16, "float8_e4m3fn": torch.float8_e4m3fn}
 
 
 def torch_dtype(name: str) -> torch.dtype:
-    """``"bfloat16"`` -> ``torch.bfloat16`` (and float32 / float16)."""
+    """``"bfloat16"`` -> ``torch.bfloat16`` (and float32 / float16, and
+    ``"float8_e4m3fn"``, which only ``kv_cache_dtype`` takes: the JAX
+    package's fp8 KV cache)."""
     if name not in _DTYPES:
         raise ValueError(f"dtype {name!r}: expected one of {sorted(_DTYPES)}")
     return _DTYPES[name]
@@ -55,6 +57,7 @@ class ArchConfig:
     qk_norm: bool = False
     rope_theta: float = 10_000.0
     window: Optional[int] = None      # native sliding window
+    long_context_window: int = 8192   # SWA fallback used only for long_500k
     attn_impl: str = "xla"            # xla | cuda (see ATTN_IMPLS)
 
     # MoE

@@ -1,10 +1,11 @@
 // Conversions, a warp reduction and programmatic dependent launch shared
-// by the port's kernels: every kernel loads bf16, f32 or int8 values,
-// computes in f32 and stores its output type.
+// by the port's kernels: every kernel loads bf16, f32, int8 or (KV pages
+// only) fp8 e4m3 values, computes in f32 and stores its output type.
 
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -15,6 +16,11 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 __device__ __forceinline__ float to_f32(int8_t x) {
+  return static_cast<float>(x);
+}
+// e4m3 -> f32 is exact (every e4m3 value is a half), as the JAX kernels'
+// .astype(f32) of an fp8 page
+__device__ __forceinline__ float to_f32(__nv_fp8_e4m3 x) {
   return static_cast<float>(x);
 }
 

@@ -156,8 +156,9 @@ extern "C" long long fused_decode_workspace_floats(int n, int nh, int nkv,
   return layout(n, nh, nkv, hd, bs, n_table, d, f).total;
 }
 
-// dtype codes: 0 = float32, 1 = bfloat16.  act_dtype is that of h, q, the
-// weights, the norm scale and out; kv_dtype that of the pages.  window <= 0
+// dtype codes: 0 = float32, 1 = bfloat16, 2 = float8_e4m3fn (kv_dtype
+// only).  act_dtype is that of h, q, the weights, the norm scale and out;
+// kv_dtype that of the pages.  window <= 0
 // means no window.  Returns the first failing launch's cudaError_t (0 on
 // success).
 extern "C" int fused_decode_layer_fwd(
@@ -184,6 +185,10 @@ extern "C" int fused_decode_layer_fwd(
     return fused_layer<float, bf16>(FUSED_ARGS);
   if (act_dtype == 1 && kv_dtype == 0)
     return fused_layer<bf16, float>(FUSED_ARGS);
+  if (act_dtype == 0 && kv_dtype == 2)
+    return fused_layer<float, __nv_fp8_e4m3>(FUSED_ARGS);
+  if (act_dtype == 1 && kv_dtype == 2)
+    return fused_layer<bf16, __nv_fp8_e4m3>(FUSED_ARGS);
 #undef FUSED_ARGS
   return (int)cudaErrorInvalidValue;
 }

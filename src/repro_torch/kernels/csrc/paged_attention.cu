@@ -1,7 +1,7 @@
-// Paged attention for one decode token per lane over fp pages and over
-// int8 pages with per-row scales, written for Hopper (sm_90a): the C entry
-// points of the split-KV decode kernel of paged_decode.cuh (its design
-// notes are there).
+// Paged attention for one decode token per lane over fp pages (f32, bf16
+// or fp8 e4m3) and over int8 pages with per-row scales, written for Hopper
+// (sm_90a): the C entry points of the split-KV decode kernel of
+// paged_decode.cuh (its design notes are there).
 //
 // Replaces the TPU kernels `paged_attention_lanes` / `_paged_kernel` and
 // `paged_attention_quant_lanes` / `_paged_quant_kernel` in
@@ -15,7 +15,9 @@ extern "C" int paged_attention_splits(int n_table, int bs) {
   return decode_splits(n_table, bs);
 }
 
-// dtype codes: 0 = float32, 1 = bfloat16.  window <= 0 means no window.
+// dtype codes: 0 = float32, 1 = bfloat16, 2 = float8_e4m3fn (kv_dtype
+// only: pages of the JAX package's fp8 KV cache, converted to f32 in
+// registers as they are read).  window <= 0 means no window.
 // part_ml: n * nkv * splits * groups float2; part_acc: that many rows of
 // hd floats (splits from paged_attention_splits).  Two launches (split,
 // merge); returns the first failing cudaError_t (0 on success).
@@ -48,6 +50,14 @@ extern "C" int paged_attention_fwd(const void* q, const void* k_pages,
     return dispatch<bf16, bf16, float>(q, k_pages, v_pages, nullptr,
                                        nullptr, t, l, out, part_ml,
                                        part_acc, n, a, s);
+  using fp8 = __nv_fp8_e4m3;
+  if (q_dtype == 0 && kv_dtype == 2)
+    return dispatch<float, float, fp8>(q, k_pages, v_pages, nullptr,
+                                       nullptr, t, l, out, part_ml,
+                                       part_acc, n, a, s);
+  if (q_dtype == 1 && kv_dtype == 2)
+    return dispatch<bf16, bf16, fp8>(q, k_pages, v_pages, nullptr, nullptr,
+                                     t, l, out, part_ml, part_acc, n, a, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -88,6 +88,12 @@
 //     dependent launch: its blocks are scheduled while the split kernel's
 //     last blocks run and wait (griddepcontrol.wait) for all their
 //     writes, which hides most of its launch.
+// fp8 pages (the JAX package's kv_cache_dtype="float8_e4m3fn", which
+// casts on write and upcasts on read): TKV = __nv_fp8_e4m3, 16 elements a
+// 16-byte copy as for int8 (stage_bytes pads a K row by 16 elements =
+// 16 bytes), each converted to f32 in registers as it is read, exactly
+// (every e4m3 value is a half); no scales.  A page row is half a bf16
+// row, so the byte floor halves.
 // The kernels allocate nothing: the caller passes the output and scratch.
 // (decode_splits gives the number of splits a table width needs.)
 
@@ -140,7 +146,8 @@ __host__ __device__ constexpr size_t decode_smem(int groups, int hd,
 // head the registers hold (groups <= GB: 2, 8 or 16, see by_groups); S:
 // ring stages.  q is read once,
 // into shared memory, so its dtype is a flag, not a template parameter.
-// TKV = int8_t reads k/v_scales; other types ignore them.
+// TKV = int8_t reads k/v_scales; other types (float, bf16, fp8 e4m3)
+// ignore them.
 template <typename TKV, int DPL, int GB, int S>
 __global__ void __launch_bounds__(kThreads)
 decode_split_kernel(const void* __restrict__ q,           // (n, nh, hd)

@@ -58,6 +58,9 @@
 //     so the result is the same from run to run; an empty split's m is
 //     -1e30, never -inf, so exp(m_s - M) cannot give NaN, and its acc,
 //     never written, is selected away, never multiplied.
+// fp8 e4m3 pages (the JAX package's fp8 KV cache) take the same kernel
+// with TKV = __nv_fp8_e4m3: 16 elements a 16-byte copy, each converted to
+// f32 in registers as it is read (exact), as paged_decode.cuh does.
 // The kernels allocate nothing: the caller passes the output and scratch.
 
 #include <cuda_bf16.h>
@@ -380,9 +383,10 @@ extern "C" int paged_verify_splits(int n_table, int bs) {
   return n_table * bs > 0 ? (n_table * bs + kSplit - 1) / kSplit : 1;
 }
 
-// dtype codes: 0 = float32, 1 = bfloat16.  window <= 0 means no window.
-// lengths: rows committed before the round (query i attends through row
-// lengths + i).  part_ml: n * nkv * splits * k * groups float2; part_acc:
+// dtype codes: 0 = float32, 1 = bfloat16, 2 = float8_e4m3fn (kv_dtype
+// only: fp8 pages, converted to f32 in registers as they are read).
+// window <= 0 means no window.  lengths: rows committed before the round
+// (query i attends through row lengths + i).  part_ml: n * nkv * splits * k * groups float2; part_acc:
 // that many rows of hd floats (splits from paged_verify_splits).  Two
 // launches (split, merge); returns the first failing cudaError_t (0 on
 // success).
@@ -420,5 +424,11 @@ extern "C" int paged_verify_fwd(const void* q, const void* k_pages,
   if (q_dtype == 1 && kv_dtype == 0)
     return dispatch<__nv_bfloat16, float>(q, k_pages, v_pages, t, l, out,
                                           part_ml, part_acc, n, a, s);
+  if (q_dtype == 0 && kv_dtype == 2)
+    return dispatch<float, __nv_fp8_e4m3>(q, k_pages, v_pages, t, l, out,
+                                          part_ml, part_acc, n, a, s);
+  if (q_dtype == 1 && kv_dtype == 2)
+    return dispatch<__nv_bfloat16, __nv_fp8_e4m3>(
+        q, k_pages, v_pages, t, l, out, part_ml, part_acc, n, a, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -7,8 +7,9 @@ lane's heads, the ``wo`` projection and residual, RMSNorm, SwiGLU and the
 second residual, in f32, cast once to h's dtype.  What bounds it on an
 H100 is the bytes: the layer's four weight matrices (23 MB in bf16 at
 qwen3-0.6b's widths), read once for all lanes, plus the K/V rows the lanes
-attend to.  One call is a fixed chain of 8 kernel launches issued by one
-C call: the split-KV decode attention and its merge (the kernels of
+attend to (f32, bf16 or fp8 e4m3 pages, read as f32 in the kernel).  One
+call is a fixed chain of 8 kernel launches issued by one C call: the
+split-KV decode attention and its merge (the kernels of
 ``paged_attention_lanes``), then the products and row passes as
 programmatic dependent launches, the products streaming their weights
 through a ring (bf16 on the tensor cores, with each activation split into
@@ -27,7 +28,8 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.paged_attention import (_check, _check_split_shape,
+from repro_torch.kernels.paged_attention import (KV_DTYPE_CODES, _check,
+                                                 _check_split_shape,
                                                  check_cuda_operands, on_cpu)
 from repro_torch.kernels.ref import fused_decode_layer_ref
 
@@ -82,14 +84,14 @@ def fused_decode_layer(h, q, k_pages, v_pages, tables, lengths, wo,
     check_cuda_operands("fused_decode_layer", named)
     act = {t.dtype for t in (h, q, wo, mlp_scale, w_gate, w_up, w_down)}
     if len(act) != 1 or h.dtype not in _DTYPE_CODES \
-            or k_pages.dtype not in _DTYPE_CODES \
+            or k_pages.dtype not in KV_DTYPE_CODES \
             or v_pages.dtype != k_pages.dtype:
         raise TypeError(f"fused_decode_layer: h/q/weights "
                         f"{sorted(map(str, act))}, pages {k_pages.dtype}/"
                         f"{v_pages.dtype}; the kernel "
                         "takes one float32 or bfloat16 dtype for h, q, the "
-                        "weights and the scale, and float32 or bfloat16 "
-                        "pages")
+                        "weights and the scale, and float32, bfloat16 or "
+                        "float8_e4m3fn pages")
     _check_split_shape("fused_decode_layer", nh, nkv, hd, k_pages, v_pages)
     if (nh * hd) % 4 or d % 8 or f % 8:
         raise ValueError(f"fused_decode_layer: nh*hd {nh * hd}, d {d}, f {f}"
@@ -114,7 +116,7 @@ def fused_decode_layer(h, q, k_pages, v_pages, tables, lengths, wo,
             w_up.data_ptr(), w_down.data_ptr(), out.data_ptr(),
             ws.data_ptr(), n, nh, nkv, hd, bs, tables.shape[1], d, f,
             0 if window is None else int(window), float(eps),
-            _DTYPE_CODES[h.dtype], _DTYPE_CODES[k_pages.dtype],
+            _DTYPE_CODES[h.dtype], KV_DTYPE_CODES[k_pages.dtype],
             torch.cuda.current_stream(h.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_decode_layer kernel launch failed: CUDA "

@@ -1,12 +1,14 @@
 """Paged attention for one decode token per lane: the wrappers around the
 hand-written Hopper kernels of ``csrc/paged_attention.cu``, over fp pages
-(``paged_attention_lanes``) and over int8 pages with per-row scales
+(``paged_attention_lanes``: f32, bf16 or fp8 e4m3, each element read as
+f32 in the kernel) and over int8 pages with per-row scales
 (``paged_attention_quant_lanes``).
 
 Replace the TPU kernels ``paged_attention_lanes`` and
 ``paged_attention_quant_lanes`` in ``src/repro/kernels/paged_attention.py``.
 What bounds them on an H100 is the bytes: a call reads each lane's
-attended K/V rows once (``hd·itemsize`` bytes a row and KV head, or
+attended K/V rows once (``hd·itemsize`` bytes a row and KV head — one
+byte an element for fp8 pages —, or
 ``hd + 4`` for an int8 row and its scale, for K and for V) and does a
 handful of flops per byte, so its floor is those bytes over 3.35 TB/s.
 
@@ -39,6 +41,8 @@ from repro_torch.kernels.ref import (paged_attention_quant_ref,
                                      paged_attention_ref)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# pages also take fp8 e4m3 (the fp8 KV cache), read as f32 in the kernel
+KV_DTYPE_CODES = {**_DTYPE_CODES, torch.float8_e4m3fn: 2}
 _MAX_GROUPS = 16            # kMaxGroups in csrc/paged_decode.cuh
 SPLIT_ROWS = 128            # kSplit
 
@@ -150,11 +154,12 @@ def paged_attention_lanes(q, k_pages, v_pages, tables, lengths, *,
         return paged_attention_ref(q, k_pages, v_pages, tables, lengths,
                                    window=window)
     check_cuda_operands("paged_attention_lanes", named)
-    if q.dtype not in _DTYPE_CODES or k_pages.dtype not in _DTYPE_CODES \
+    if q.dtype not in _DTYPE_CODES or k_pages.dtype not in KV_DTYPE_CODES \
             or v_pages.dtype != k_pages.dtype:
         raise TypeError(f"paged_attention_lanes: q {q.dtype}, pages "
                         f"{k_pages.dtype}/{v_pages.dtype}; the kernel takes "
-                        "float32 or bfloat16")
+                        "float32 or bfloat16 q over float32, bfloat16 or "
+                        "float8_e4m3fn pages")
     _check_split_shape("paged_attention_lanes", nh, nkv, hd, k_pages,
                        v_pages)
     out = torch.empty_like(q)
@@ -170,7 +175,7 @@ def paged_attention_lanes(q, k_pages, v_pages, tables, lengths, *,
             part_ml.data_ptr(), part_acc.data_ptr(),
             n, nh, nkv, hd, bs, tables.shape[1],
             0 if window is None else int(window),
-            _DTYPE_CODES[q.dtype], _DTYPE_CODES[k_pages.dtype],
+            _DTYPE_CODES[q.dtype], KV_DTYPE_CODES[k_pages.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA "

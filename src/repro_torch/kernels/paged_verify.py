@@ -4,7 +4,8 @@ around the hand-written Hopper kernel ``csrc/paged_verify.cu``.
 Replaces the TPU kernel ``paged_verify_lanes`` in
 ``src/repro/kernels/paged_verify.py``.  Each lane carries k query
 positions; query ``i`` attends the rows ``[0, lengths + i]``.  What bounds
-it on an H100 is the bytes: a call reads each lane's K/V rows once and
+it on an H100 is the bytes: a call reads each lane's K/V rows once (f32,
+bf16 or fp8 e4m3 pages, each element read as f32 in the kernel) and
 does ~4·k·groups flops per element read, so its floor is those bytes over
 3.35 TB/s.  The kernel splits each lane's rows into fixed splits of 256
 rows (grid ``(kv_head, lane, split)``) and merges the splits' partial
@@ -29,8 +30,8 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.paged_attention import (check_cuda_operands,
-                                                 on_cpu)
+from repro_torch.kernels.paged_attention import (KV_DTYPE_CODES,
+                                                 check_cuda_operands, on_cpu)
 from repro_torch.kernels.ref import paged_verify_ref
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -84,11 +85,12 @@ def paged_verify_lanes(q, k_pages, v_pages, tables, lengths, *,
         return paged_verify_ref(q, k_pages, v_pages, tables, lengths,
                                 window=window)
     check_cuda_operands("paged_verify_lanes", named)
-    if q.dtype not in _DTYPE_CODES or k_pages.dtype not in _DTYPE_CODES \
+    if q.dtype not in _DTYPE_CODES or k_pages.dtype not in KV_DTYPE_CODES \
             or v_pages.dtype != k_pages.dtype:
         raise TypeError(f"paged_verify_lanes: q {q.dtype}, pages "
                         f"{k_pages.dtype}/{v_pages.dtype}; the kernel takes "
-                        "float32 or bfloat16")
+                        "float32 or bfloat16 q over float32, bfloat16 or "
+                        "float8_e4m3fn pages")
     groups = nh // nkv
     item = k_pages.element_size()
     vec = 16 // item                          # elements per 16-B load
@@ -150,7 +152,7 @@ def _launch(q, k_pages, v_pages, tables, lengths, out, window):
             part_ml.data_ptr(), part_acc.data_ptr(),
             n, kk, nh, nkv, hd, bs, tables.shape[1],
             0 if window is None else int(window),
-            _DTYPE_CODES[q.dtype], _DTYPE_CODES[k_pages.dtype],
+            _DTYPE_CODES[q.dtype], KV_DTYPE_CODES[k_pages.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"paged_verify kernel launch failed: CUDA error "

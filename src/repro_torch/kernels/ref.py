@@ -38,13 +38,24 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window=None):
     return out.reshape(b, nh, sq, hd).to(q.dtype)
 
 
+def gather_blocks(pages, tables):
+    """``pages[tables]``: each lane's physical blocks, in table order.  fp8
+    pages (the fp8 KV cache) are gathered as their bytes through ``uint8``
+    views, which is exact and which every PyTorch build indexes."""
+    if pages.dtype == torch.float8_e4m3fn:
+        return pages.view(torch.uint8)[tables].view(pages.dtype)
+    return pages[tables]
+
+
 def paged_attention_ref(q, k_pages, v_pages, tables, lengths, *, window=None):
     """Gather-based single-token paged attention.
 
     q: (n, nh, hd); k/v_pages: (P, bs, nkv, hd); tables: (n, B) physical
     block ids; lengths: (n,) valid rows per lane including the current
-    token.  Gathers each lane's logical sequence contiguous (the copy the
-    kernel exists to avoid), masks rows past ``length`` (and outside the
+    token.  Pages may be f32, bf16 or fp8 e4m3 (upcast to f32 as they are
+    read, as the JAX kernels' ``.astype(f32)``).  Gathers each lane's
+    logical sequence contiguous (the copy the kernel exists to avoid),
+    masks rows past ``length`` (and outside the
     window) to -1e30 — masked rows get exactly zero weight, so stale page
     contents never perturb the output — and runs the grouped-GQA f32
     softmax.  Returns (n, nh, hd) in q's dtype."""
@@ -53,8 +64,8 @@ def paged_attention_ref(q, k_pages, v_pages, tables, lengths, *, window=None):
     n_blocks = tables.shape[1]
     groups = nh // nkv
     tables = tables.long()
-    k = k_pages[tables].reshape(n, n_blocks * bs, nkv, hd)
-    v = v_pages[tables].reshape(n, n_blocks * bs, nkv, hd)
+    k = gather_blocks(k_pages, tables).reshape(n, n_blocks * bs, nkv, hd)
+    v = gather_blocks(v_pages, tables).reshape(n, n_blocks * bs, nkv, hd)
     qg = q.reshape(n, nkv, groups, hd).float()
     logits = torch.einsum("nkgh,nskh->nkgs", qg, k.float()) / math.sqrt(hd)
     kv_pos = torch.arange(n_blocks * bs, device=q.device)[None, :]
@@ -108,8 +119,8 @@ def paged_verify_ref(q, k_pages, v_pages, tables, lengths, *, window=None):
     _, bs, nkv, _ = k_pages.shape
     nb = tables.shape[1]
     tables = tables.long()
-    k = k_pages[tables].reshape(n, nb * bs, nkv, hd).float()
-    v = v_pages[tables].reshape(n, nb * bs, nkv, hd).float()
+    k = gather_blocks(k_pages, tables).reshape(n, nb * bs, nkv, hd).float()
+    v = gather_blocks(v_pages, tables).reshape(n, nb * bs, nkv, hd).float()
     mask = _verify_mask(lengths, kk, nb * bs, window, q.device)
     return _verify_attend(q, k, v, mask)
 

@@ -30,15 +30,27 @@ same ``engines`` / ``schedule`` / ``requests`` / ``sample`` JSON keys as
 The recurrent families (``zamba2-1.2b``, hybrid; ``xlstm-350m``, ssm)
 serve from the slot backend and prefill token by token; ``--backend
 paged`` or ``spec`` (and ``--buckets``) falls back with a warning, as
-in the JAX CLI.  ``--http`` with ``--host``/``--port``/``--no-stream``/
-``--endpoint`` (the HTTP front end, ROADMAP Queue 1 item 9) is not in the
-port yet and raises.
+in the JAX CLI.
+
+With ``--http`` the CLI instead brings the models up behind the online
+HTTP front end (``repro_torch.serving.server``): OpenAI-compatible
+``/v1/completions`` and ``/v1/chat/completions`` with SSE token
+streaming, ``/v1/cancel`` and ``DELETE /v1/requests/<id>``,
+``/v1/models``, ``/v1/metrics`` and ``/health``.  It prints ``{"url":
+..., "models": [...]}`` as its first line once the socket is bound
+(``--port 0`` binds an ephemeral port) and serves until interrupted;
+``--no-stream`` refuses streaming requests and ``--endpoint NAME`` adds a
+route alias (``ServeJob.stream`` / ``ServeJob.endpoint``).
+
+  python -m repro_torch.launch.serve --arch qwen3-0.6b --backend paged \
+      --http --port 0
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import time
 
 import numpy as np
 
@@ -62,7 +74,9 @@ def build_serve_job(arch: str, args) -> ServeJob:
                     draft_model=get_config(draft, smoke=args.smoke)
                     if draft else None,
                     draft_seed=args.seed, draft_k=args.draft_k,
-                    spec_inner=args.spec_inner, policy=args.policy,
+                    spec_inner=args.spec_inner,
+                    stream=not args.no_stream, endpoint=args.endpoint,
+                    policy=args.policy,
                     deadline_ms=args.deadline_ms,
                     priority=args.priority or "normal",
                     max_ttft_ms=args.max_ttft_ms)
@@ -73,16 +87,7 @@ def synth_prompts(cfg, n: int, prompt_len: int, seed: int) -> np.ndarray:
     return rng.integers(0, cfg.vocab_size, (n, prompt_len), dtype=np.int32)
 
 
-def _check_ported(args) -> None:
-    if args.http or args.no_stream or args.endpoint is not None \
-            or args.host != "127.0.0.1" or args.port != 8000:
-        raise NotImplementedError(
-            "--http (and --host/--port/--no-stream/--endpoint): the HTTP "
-            "front end is ported with ROADMAP Queue 1 item 9")
-
-
 def serve(args) -> dict:
-    _check_ported(args)
     archs = [a.strip() for a in args.arch.split(",") if a.strip()]
     session = Session(HydraConfig(scheduler=args.scheduler, seed=args.seed),
                       device=args.device)
@@ -112,6 +117,33 @@ def serve(args) -> dict:
         eng = session.engine(archs[0])
         out["sample"] = eng.completed[0].generated[:8] if eng.completed else []
     return out
+
+
+def serve_http(args) -> None:
+    """Bring the models up behind the HTTP/SSE front end and block until
+    interrupted."""
+    from repro_torch.serving import HydraHTTPServer, MultiModelServer
+
+    archs = [a.strip() for a in args.arch.split(",") if a.strip()]
+    session = Session(HydraConfig(scheduler=args.scheduler, seed=args.seed),
+                      device=args.device)
+    jids = {a: session.submit(build_serve_job(a, args)) for a in archs}
+    engines = {a: session.engine(a) for a in archs}   # build + promote now
+    options = {a: session.jobs()[jids[a]].http_options() for a in archs}
+    server = MultiModelServer(engines, scheduler=args.scheduler)
+    http = HydraHTTPServer(server, host=args.host, port=args.port,
+                           model_options=options)
+    http.start()
+    # machine-readable first line: scripts parse the bound address
+    # (--port 0 binds an ephemeral port)
+    print(json.dumps({"url": http.url, "models": archs}), flush=True)
+    try:
+        while True:
+            time.sleep(3600)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        http.stop()
 
 
 def main(argv=None):
@@ -174,19 +206,24 @@ def main(argv=None):
     ap.add_argument("--max-ttft-ms", type=float, default=None,
                     help="default time-to-first-token budget (ms)")
     ap.add_argument("--http", action="store_true",
-                    help="serve over HTTP (not ported: raises)")
-    ap.add_argument("--host", default="127.0.0.1",
-                    help="HTTP host (with --http; not ported)")
+                    help="serve over HTTP (OpenAI-compatible /v1 endpoints "
+                    "with SSE streaming) instead of a synthetic batch")
+    ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8000,
-                    help="HTTP port (with --http; not ported)")
+                    help="HTTP port (0 binds an ephemeral port)")
     ap.add_argument("--no-stream", action="store_true",
-                    help="disable SSE streaming (with --http; not ported)")
+                    help="disable SSE streaming on the served models "
+                    "(ServeJob.stream=False)")
     ap.add_argument("--endpoint", default=None,
-                    help="extra route alias (with --http; not ported)")
+                    help="extra route alias clients may pass as 'model' "
+                    "(ServeJob.endpoint; single-model serving)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    print(json.dumps(serve(args)))
+    if args.http:
+        serve_http(args)
+    else:
+        print(json.dumps(serve(args)))
 
 
 if __name__ == "__main__":

@@ -258,13 +258,13 @@ def attention(params: Params, x: torch.Tensor, cfg,
     if isinstance(idx, torch.Tensor):
         rows = torch.clamp(idx, max=ck.shape[1] - sq)[:, None] + steps
         lane = torch.arange(b, device=x.device)[:, None]
-        ck[lane, rows] = k.to(ck.dtype)
-        cv[lane, rows] = v.to(cv.dtype)
+        store_rows(ck, (lane, rows), k)
+        store_rows(cv, (lane, rows), v)
         qpos = idx[:, None] + steps                          # (b, sq)
     else:
         idx = int(idx)
-        ck[:, idx:idx + sq] = k.to(ck.dtype)
-        cv[:, idx:idx + sq] = v.to(cv.dtype)
+        store_rows(ck, (slice(None), slice(idx, idx + sq)), k)
+        store_rows(cv, (slice(None), slice(idx, idx + sq)), v)
         qpos = idx + steps                                   # (sq,)
     kvpos = torch.arange(ck.shape[1], device=x.device)
     # unwritten slots are masked by the causal predicate (kvpos <= qpos)
@@ -273,6 +273,18 @@ def attention(params: Params, x: torch.Tensor, cfg,
     out = out.reshape(b, sq, cfg.n_heads * cfg.head_dim)
     return out @ params["wo"].to(x.dtype), \
         {"k": ck, "v": cv, "index": idx + sq}
+
+
+def store_rows(plane: torch.Tensor, index, rows: torch.Tensor) -> None:
+    """``plane[index] = rows`` cast to the plane's dtype, in place: a KV
+    cache or page write.  An fp8 plane (``kv_cache_dtype=
+    "float8_e4m3fn"``: cast on write, upcast on read, as in the JAX
+    package) is written as its bytes through ``uint8`` views, which is
+    exact and which every PyTorch build indexes."""
+    rows = rows.to(plane.dtype)
+    if plane.dtype == torch.float8_e4m3fn:
+        plane, rows = plane.view(torch.uint8), rows.view(torch.uint8)
+    plane[index] = rows
 
 
 def _scatter_kv_rows(pages: dict, blk, off, k, v) -> None:
@@ -291,8 +303,8 @@ def _scatter_kv_rows(pages: dict, blk, off, k, v) -> None:
             pages[name][blk, off] = q8
             pages[f"{name}_scale"][blk, off] = scale
         return
-    pages["k"][blk, off] = k.to(pages["k"].dtype)
-    pages["v"][blk, off] = v.to(pages["v"].dtype)
+    store_rows(pages["k"], (blk, off), k)
+    store_rows(pages["v"], (blk, off), v)
 
 
 # the fused layer's impls, and the attention impl each means where the
@@ -423,7 +435,11 @@ def paged_attention_verify(params: Params, x: torch.Tensor, cfg, *,
 
 def init_kv_cache(cfg, batch: int, max_seq: int, device,
                   n_layers: Optional[int] = None, dtype=None) -> dict:
-    """Stacked (layers-first) KV cache for decode."""
+    """Stacked (layers-first) KV cache for decode.
+
+    ``cfg.kv_cache_dtype="float8_e4m3fn"`` halves the cache's bytes, as in
+    the JAX package: rows are cast on write (``store_rows``) and upcast to
+    f32 where attention reads them."""
     L = n_layers if n_layers is not None else cfg.n_layers
     dtype = dtype if dtype is not None else torch_dtype(cfg.kv_cache_dtype)
     shape = (L, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)

@@ -196,8 +196,9 @@ def paged_decode_step(cfg, params, pages, tables, lengths, tokens, *,
     'ref' or None (by device).  ``impl='fused'`` (the kernel; its plain
     version on the CPU) or ``'fused_ref'`` (the plain version anywhere)
     runs each whole block through ``kernels.ops.fused_decode_layer`` when
-    the config qualifies (RMSNorm + SwiGLU, fp pool); other configs quietly
-    take the equivalent unfused path.  Returns logits (n, 1, V)."""
+    the config qualifies (RMSNorm + SwiGLU, an f32, bf16 or fp8 pool; an
+    int8 pool does not); other configs quietly take the equivalent
+    unfused path.  Returns logits (n, 1, V)."""
     win = window if window is not None else cfg.window
     if (impl in nn.FUSED_IMPLS and cfg.norm == "rms" and cfg.mlp == "swiglu"
             and "k_scale" not in pages):

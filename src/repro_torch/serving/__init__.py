@@ -1,5 +1,6 @@
-"""Serving: the continuous-batching engine, its decode backends and the
-multi-model router (port of ``repro.serving``)."""
+"""Serving: the continuous-batching engine, its decode backends, the
+multi-model router and the HTTP/SSE front end (port of
+``repro.serving``)."""
 
 from repro_torch.models.registry import CapabilityFallbackWarning
 from repro_torch.serving.backends import (BACKENDS, DecodeBackend,
@@ -11,6 +12,8 @@ from repro_torch.serving.paging import (BlockPool, blocks_for_rows,
                                         default_n_blocks)
 from repro_torch.serving.queue import KVBudget, PagedKVBudget, RequestQueue
 from repro_torch.serving.request import Request, Status
+from repro_torch.serving.server import (HydraHTTPServer, ServingFrontend,
+                                        encode_prompt)
 from repro_torch.serving.slo import (PRIORITIES, SLO, FIFOPolicy,
                                      OverloadedError, SLOPolicy, make_policy)
 from repro_torch.serving.slots import SlotPool, stack_trees, write_slots
@@ -22,4 +25,5 @@ __all__ = ["InferenceEngine", "MultiModelServer", "KVBudget", "PagedKVBudget",
            "write_slots", "pow2_buckets", "DecodeBackend", "SlotBackend",
            "PagedBackend", "SpecDecodeBackend", "BACKENDS", "make_backend",
            "CapabilityFallbackWarning", "TokenStream", "SLO", "SLOPolicy",
-           "FIFOPolicy", "OverloadedError", "PRIORITIES", "make_policy"]
+           "FIFOPolicy", "OverloadedError", "PRIORITIES", "make_policy",
+           "ServingFrontend", "HydraHTTPServer", "encode_prompt"]

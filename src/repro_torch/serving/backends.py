@@ -115,6 +115,7 @@ def _page_scatter(pages, k_new, v_new, ids) -> None:
     quantizes the rows per row on the way in and lands the scales in the
     scale planes: prefill states stay fp, only the pool is int8."""
     from repro_torch.kernels.ref import quantize_kv
+    from repro_torch.models.layers import store_rows
     L, n, W, nkv, hd = k_new.shape
     bs = pages["k"].shape[2]
     for name, new in (("k", k_new), ("v", v_new)):
@@ -124,7 +125,7 @@ def _page_scatter(pages, k_new, v_new, ids) -> None:
             pages[name][:, ids] = q8
             pages[f"{name}_scale"][:, ids] = scale
         else:
-            pages[name][:, ids] = rows.to(pages[name].dtype)
+            store_rows(pages[name], (slice(None), ids), rows)
 
 
 def _page_copy(pages, src: int, dst: int) -> None:

@@ -140,6 +140,16 @@ class _Fetch:
         self.event = event
 
 
+def _index_copy(dst: torch.Tensor, dim: int, ids: torch.Tensor,
+                src: torch.Tensor) -> None:
+    """``dst.index_copy_(dim, ids, src)``, with fp8 planes moved as their
+    bytes (``uint8`` views, exact): PyTorch's CPU build has no
+    ``index_copy_`` for ``float8_e4m3fn``."""
+    if dst.dtype == torch.float8_e4m3fn:
+        dst, src = dst.view(torch.uint8), src.view(torch.uint8)
+    dst.index_copy_(dim, ids, src)
+
+
 class HostBlockPool:
     """Host-DRAM side of the tiered KV cache.
 
@@ -288,7 +298,7 @@ class HostBlockPool:
             for name, p in pages.items():
                 rows = torch.stack([self._slabs[k][name][r]
                                     for k, r in slots])
-                p.index_copy_(1, ids, rows.transpose(0, 1))
+                _index_copy(p, 1, ids, rows.transpose(0, 1))
             return _Fetch(slots, None, None)
         users = torch.cuda.Event()
         users.record()
@@ -304,7 +314,7 @@ class HostBlockPool:
                 rows = staging[name]
                 for i, (k, r) in enumerate(slots):
                     rows[i].copy_(self._slabs[k][name][r], non_blocking=True)
-                p.index_copy_(1, ids, rows.transpose(0, 1))
+                _index_copy(p, 1, ids, rows.transpose(0, 1))
             end.record()
         self.transfers.append(("h2d", len(slots) * self.block_bytes,
                                start, end))

@@ -105,6 +105,22 @@ def make_grad_step(cfg, *, window: Optional[int] = None):
     return grad_step
 
 
+def make_prefill_step(cfg, *, window: Optional[int] = None):
+    """Prefill: full-sequence forward to the last position's logits (a
+    batch of requests): ``prefill_step(params, batch) -> (b, V)``.  Only
+    the last position is unembedded (``forward(..., last_only=True)``):
+    serving samples from it, and the ``(b, s, V)`` logits are never
+    made."""
+
+    @torch.no_grad()
+    def prefill_step(params, batch):
+        logits = api.forward(cfg, params, batch, last_only=True,
+                             window=window)
+        return logits[:, -1, :]
+
+    return prefill_step
+
+
 def make_prefill_into_cache(cfg, *, window: Optional[int] = None):
     """Fill the decode cache/state with a whole prompt, returning the
     logits the first generated token is sampled from.
@@ -243,3 +259,16 @@ def make_paged_verify_step(cfg, *, window: Optional[int] = None, impl=None):
         return torch.argmax(logits, dim=-1).to(torch.int32)
 
     return verify
+
+
+def decode_window_for(cfg, shape) -> Optional[int]:
+    """Policy: ``long_500k`` on full-attention archs uses the sliding-window
+    fallback ``cfg.long_context_window``; a native window (mixtral) is
+    kept, and recurrent families need none."""
+    if shape.name != "long_500k":
+        return None
+    if cfg.family in ("ssm", "hybrid"):
+        return None          # recurrent state: no attention window needed
+    if cfg.window is not None:
+        return cfg.window    # native sliding window
+    return cfg.long_context_window

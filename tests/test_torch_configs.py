@@ -4,9 +4,10 @@ encoder-decoder and VLM families (whisper-medium, llava-next-mistral-7b,
 the paper's vit-300m), field for field (dtypes as strings), the
 parameter counts every config reports, and ``ASSIGNED_ARCHS``.
 
-The JAX ``ArchConfig`` has one field the port does not:
-``long_context_window`` (the ``long_500k`` decode window of ROADMAP
-Queue 1 item 9).  Every config compared here leaves it at its default.
+Since ROADMAP Queue 1 item 9.3 the port's ``ArchConfig`` has every field
+of JAX's, ``long_context_window`` (the ``long_500k`` decode window)
+included: ``JAX_ONLY`` is empty, and every config compared here leaves
+that field at JAX's default.
 """
 
 import _torch_threads  # noqa: F401  (one torch thread per xdist worker)
@@ -23,7 +24,7 @@ from repro_torch.configs import ARCH_REGISTRY, ArchConfig, get_config
 
 NEW = ["qwen2.5-32b", "yi-34b", "command-r-plus-104b", "mixtral-8x22b",
        "dbrx-132b", "whisper-medium", "llava-next-mistral-7b", "vit-300m"]
-JAX_ONLY = {"long_context_window"}
+JAX_ONLY: set = set()
 UNPORTED_ARCHS = []
 
 

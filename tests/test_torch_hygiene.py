@@ -326,13 +326,8 @@ def test_fused_paged_impl_is_ported():
 
 
 # JAX exports the port does not have yet, by the ROADMAP Queue 1 item that
-# brings each
-UNPORTED_EXPORTS = {
-    "training": {"make_prefill_step": 9, "decode_window_for": 9},
-    "checkpoint": {"save": 9, "restore": 9, "latest_step": 9},
-    "serving": {"ServingFrontend": 9, "HydraHTTPServer": 9,
-                "encode_prompt": 9},
-}
+# brings each (none since item 9.3's first half)
+UNPORTED_EXPORTS: dict = {}
 
 
 def _literal_all(path):
@@ -359,3 +354,4 @@ def test_package_exports_match_jax(pkg):
     assert not any(hasattr(mod, name) for name in unported)
     if pkg == "training":
         assert "make_padded_prefill_into_cache" in mod.__all__
+        assert {"make_prefill_step", "decode_window_for"} <= set(mod.__all__)

@@ -8,15 +8,25 @@
   request with its tokens; ``--cold`` reports the promotion; the
   admission policy and SLO flags reach the engines; ``--buckets`` plans
   and serves as the JAX CLI does (plan meta, engines' buckets and prefill
-  calls; the recurrent model falls back); ``--http`` and its flags raise
-  naming their ROADMAP item.
+  calls; the recurrent model falls back).
+* ``--http`` in a subprocess (``--port 0 --device cpu``): the first stdout
+  line is the JAX CLI's ``{"url", "models"}``, ``/health`` answers, a
+  completion streams the tokens a non-streamed one returns,
+  ``--no-stream`` refuses a stream with the JAX front end's status and
+  message, and ``--endpoint`` routes its alias to the model.
 * ``python -m repro_torch.profiler --smoke --device cpu`` plans and runs
   one train + serve session without and with fresh quick facts: the
   provenance differs and survives JSON, the tokens are identical.
 """
 
 import _torch_threads  # noqa: F401  (one torch thread per xdist worker)
+import http.client
 import json
+import os
+import pathlib
+import select
+import signal
+import subprocess
 import sys
 
 import pytest
@@ -24,6 +34,7 @@ import pytest
 from repro_torch.launch import serve as pserve
 from repro_torch.profiler.__main__ import main as profiler_main
 
+REPO = pathlib.Path(__file__).resolve().parents[1]
 FLAGS = ["--arch", "qwen3-0.6b,xlstm-350m", "--smoke", "--stagger", "1",
          "--batch", "3", "--prompt-len", "12", "--gen", "5",
          "--capacity", "2"]
@@ -89,14 +100,129 @@ def test_single_model_cli_with_slo_flags(capsys):
     assert all(r["priority"] == "high" for r in out["requests"])
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--http"], "item 9"),
-    (["--port", "0"], "item 9"), (["--no-stream"], "item 9"),
-    (["--endpoint", "chat"], "item 9"),
-])
-def test_unported_cli_flags_raise_naming_their_item(flags, item, capsys):
-    with pytest.raises(NotImplementedError, match=item):
-        _run_port(["--arch", "qwen3-0.6b", "--smoke"] + flags, capsys)
+HTTP_FLAGS = ["--arch", "qwen3-0.6b", "--smoke", "--http", "--port", "0",
+              "--device", "cpu", "--max-seq", "64", "--capacity", "2"]
+
+
+def _start_cli(extra):
+    """``python -m repro_torch.launch.serve --http ...`` in a subprocess;
+    returns the process and its parsed first stdout line."""
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"),
+               OMP_NUM_THREADS="1")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve"] + HTTP_FLAGS
+        + extra, stdout=subprocess.PIPE, stderr=subprocess.PIPE, env=env,
+        cwd=str(REPO))
+    ready = select.select([proc.stdout], [], [], 120)[0]
+    line = proc.stdout.readline() if ready else b""
+    if not line:
+        proc.kill()
+        raise AssertionError("the CLI printed no first line: "
+                             + proc.stderr.read().decode()[-2000:])
+    return proc, json.loads(line)
+
+
+def _stop_cli(proc):
+    proc.send_signal(signal.SIGINT)          # the CLI's Ctrl-C path
+    try:
+        proc.wait(timeout=30)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        proc.stdout.close()
+        proc.stderr.close()
+
+
+@pytest.fixture(scope="module")
+def http_clis():
+    """Two CLIs: one streaming, one with ``--no-stream --endpoint chat``."""
+    procs = {}
+    try:
+        for name, extra in (("stream", []),
+                            ("locked", ["--no-stream", "--endpoint",
+                                        "chat"])):
+            procs[name] = _start_cli(extra)
+        yield {name: first for name, (_, first) in procs.items()}
+    finally:
+        for proc, _ in procs.values():
+            _stop_cli(proc)
+
+
+def _http(url, method, path, body=None):
+    host, port = url[len("http://"):].split(":")
+    conn = http.client.HTTPConnection(host, int(port), timeout=60)
+    try:
+        conn.request(method, path, None if body is None
+                     else json.dumps(body),
+                     {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        raw = resp.read().decode()
+        return resp.status, resp.getheader("Content-Type"), raw
+    finally:
+        conn.close()
+
+
+def _sse_ids(raw):
+    events = [line[len("data: "):] for line in raw.splitlines()
+              if line.startswith("data: ")]
+    assert events[-1] == "[DONE]"
+    return [json.loads(e)["choices"][0]["token_id"] for e in events[:-2]]
+
+
+BODY = {"model": "qwen3-0.6b", "prompt": [5, 17, 42, 7], "max_tokens": 6}
+
+
+@pytest.mark.parametrize("case", ["first_line", "health", "completion",
+                                  "no_stream", "endpoint"])
+def test_http_cli_flags_drive_the_front_end(case, http_clis):
+    first = http_clis["stream"]
+    url = first["url"]
+    if case == "first_line":
+        for line in http_clis.values():
+            assert set(line) == {"url", "models"}
+            assert line["models"] == ["qwen3-0.6b"]
+            assert line["url"].startswith("http://127.0.0.1:")
+            assert not line["url"].endswith(":0")
+        assert http_clis["locked"]["url"] != url
+    elif case == "health":
+        for line in http_clis.values():
+            assert _http(line["url"], "GET", "/health")[::2] == \
+                (200, '{"status": "ok"}')
+        status, _, raw = _http(url, "GET", "/v1/models")
+        assert status == 200
+        assert [(m["id"], m["stream"], m["endpoint"])
+                for m in json.loads(raw)["data"]] == \
+            [("qwen3-0.6b", True, None)]
+    elif case == "completion":
+        status, _, raw = _http(url, "POST", "/v1/completions", BODY)
+        assert status == 200
+        full = json.loads(raw)["choices"][0]["token_ids"]
+        status, ctype, raw = _http(url, "POST", "/v1/completions",
+                                   dict(BODY, stream=True))
+        assert (status, ctype) == (200, "text/event-stream")
+        assert _sse_ids(raw) == full and len(full) == 6
+    elif case == "no_stream":
+        locked = http_clis["locked"]["url"]
+        status, _, raw = _http(locked, "POST", "/v1/completions",
+                               dict(BODY, stream=True))
+        # the JAX front end's status and message for a ServeJob(stream=False)
+        assert status == 400
+        assert json.loads(raw)["error"]["message"] == (
+            "model 'qwen3-0.6b' is served with stream=False "
+            "(ServeJob.stream); request a non-streaming completion")
+        assert _http(locked, "POST", "/v1/completions", BODY)[0] == 200
+    else:
+        locked = http_clis["locked"]["url"]
+        by_alias = _http(locked, "POST", "/v1/completions",
+                         dict(BODY, model="chat"))
+        by_name = _http(locked, "POST", "/v1/completions", BODY)
+        assert by_alias[0] == by_name[0] == 200
+        assert json.loads(by_alias[2])["choices"][0]["token_ids"] == \
+            json.loads(by_name[2])["choices"][0]["token_ids"]
+        assert json.loads(by_alias[2])["model"] == "qwen3-0.6b"
+        assert _http(url, "POST", "/v1/completions",
+                     dict(BODY, model="chat"))[0] == 404
 
 
 def test_buckets_flag_plans_and_serves_as_the_jax_cli(capsys, monkeypatch):
