@@ -311,6 +311,24 @@ Phases (any failure exits non-zero before the result line):
    returns, and exits 0 on SIGINT; (d) the params saved with
    ``checkpoint.save`` (the JAX format) and restored bit for bit, GB/s
    each way.  Alone: ``python3 tools/fp8_http_phase.py``.
+25. training over a device mesh (full-width qwen3-0.6b, seed 0) — (a) a
+   ``Session`` + ``SpmdTrainJob`` on the card with ``mesh="auto"`` (a
+   (1, 1) NCCL mesh of one rank; DTensor params, AdamW at 3e-4), 20
+   steps of 8 x 256: every loss finite, the last below the first, the
+   first 3 equal ``make_train_step`` without a mesh from the same seed and
+   batches at 3e-4; trained tok/s and max memory allocated; (b) ``python
+   -m repro_torch.launch.train --arch qwen3-0.6b --steps 10 --ckpt-dir
+   TMP`` on its default device: exit 0, its JSON line, the checkpoint
+   restored bit for bit; (c) ``python -m repro_torch.launch.dryrun --arch
+   qwen3-0.6b --shape decode_32k`` on the 256-rank fake mesh and ``python
+   -m repro_torch.launch.roofline`` over its record: both ``ok``, the
+   peak per device and the dominant term printed as an analysis of 256
+   H100s, not a time on the card.  One card runs one rank: NCCL refuses
+   two ranks on one GPU, so the multi-rank paths ((2, 2) training, the
+   (2, 4) expert-parallel MoE) are held by the gloo tests
+   (``tests/test_torch_spmd_train.py``,
+   ``tests/test_torch_moe_expert_parallel.py``).  No kernel runs here.
+   Alone: ``python3 tools/spmd_phase.py``.
 
 Each kernel's launch count is zeroed just before the run of its own path
 (a serve run, the spilled eval, the profiler's ``build_facts`` for
@@ -344,6 +362,7 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -6580,6 +6599,220 @@ def phase_fp8_http(flush, smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 25: training over a device mesh, the training CLI, the lowering dry
+# run and the roofline
+# ---------------------------------------------------------------------------
+
+SPMD_STEPS, SPMD_BATCH, SPMD_SEQ, SPMD_LR = 20, 8, 256, 3e-4
+CLI_STEPS = 10
+
+
+def _spmd_rates(lines, batch, seq):
+    """Trained tok/s over steps 1..n from ``_run_spmd``'s log lines (each
+    prints the cumulative rate since the loop began, step 0's DTensor
+    placement search included)."""
+    rows = []
+    for line in lines:
+        parts = line.split()
+        if len(parts) >= 8 and parts[0] == "step" and parts[-1] == "tok/s":
+            step, rate = int(parts[1]), float(parts[-2])
+            rows.append((step, batch * seq * (step + 1) / rate))
+    (s0, t0), (sn, tn) = rows[0], rows[-1]
+    return {"cumulative_tok_per_s": batch * seq * (sn + 1) / tn,
+            "trained_tok_per_s": batch * seq * (sn - s0) / (tn - t0),
+            "step0_s": t0}
+
+
+def phase_spmd_session(smi):
+    """(a) a ``Session`` + ``SpmdTrainJob`` on the card (``mesh="auto"``:
+    a (1, 1) NCCL mesh of one rank), against ``make_train_step`` without
+    a mesh from the same seed and batches."""
+    import contextlib
+    import io
+
+    import torch
+
+    from repro_torch.api import Session, SpmdTrainJob
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import (DataConfig, SyntheticTokens,
+                                           as_tensors)
+    from repro_torch.models import api
+    from repro_torch.optim.optimizers import OptimizerConfig, init_state
+    from repro_torch.training import make_train_step
+
+    cfg = get_config("qwen3-0.6b")
+    torch.cuda.reset_peak_memory_stats()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    sess = Session(device="cuda")
+    jid = sess.submit(SpmdTrainJob(cfg, steps=SPMD_STEPS, batch=SPMD_BATCH,
+                                   seq=SPMD_SEQ, lr=SPMD_LR, seed=0,
+                                   log_every=1))
+    with contextlib.redirect_stdout(buf):
+        rec = sess.run().spmd[jid]
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    lines = buf.getvalue().splitlines()
+    losses = [h["loss"] for h in rec["history"]]
+    rates = _spmd_rates(lines, SPMD_BATCH, SPMD_SEQ)
+    torch.cuda.empty_cache()
+
+    # the same 3 steps without a mesh: same seed, schedule and batches
+    ocfg = OptimizerConfig(kind="adamw", lr=SPMD_LR,
+                           schedule="linear_warmup_cosine",
+                           warmup_steps=max(SPMD_STEPS // 20, 1),
+                           total_steps=SPMD_STEPS)
+    params = api.init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                             "cuda")
+    state = init_state(ocfg, params)
+    step = make_train_step(cfg, ocfg)
+    it = iter(SyntheticTokens(DataConfig(batch_size=SPMD_BATCH,
+                                         seq_len=SPMD_SEQ,
+                                         vocab_size=cfg.vocab_size, seed=0)))
+    ref = []
+    for _ in range(3):
+        params, state, m = step(params, state, as_tensors(next(it), "cuda"))
+        ref.append(float(m["loss"]))
+    del params, state
+    torch.cuda.empty_cache()
+    diff = max(abs(a - b) for a, b in zip(losses[:3], ref))
+    res = {"losses": losses, "reference_losses": ref, "max_abs_diff": diff,
+           "wall_s": wall, "max_memory_allocated": peak, **rates,
+           "params": rec["params"], "log_lines": lines[:3] + lines[-1:]}
+    log(f"[spmd (a)] Session + SpmdTrainJob, qwen3-0.6b full width on a "
+        f"(1, 1) NCCL mesh, {SPMD_STEPS} steps of {SPMD_BATCH} x "
+        f"{SPMD_SEQ}: loss {losses[0]:.4f} -> {losses[-1]:.4f}; first 3 "
+        f"vs make_train_step without a mesh: max |diff| {diff:.3g} "
+        f"(tol {SHARP_TOL}); trained {rates['trained_tok_per_s']:.0f} tok/s "
+        f"(steps 1-{SPMD_STEPS - 1}; {rates['cumulative_tok_per_s']:.0f} "
+        f"with step 0's {rates['step0_s']:.1f} s), max memory allocated "
+        f"{peak / 1e9:.2f} GB, run {wall:.1f} s ({smi})")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"spmd (a): a loss is not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"spmd (a): the last loss {losses[-1]} is not below the first "
+             f"{losses[0]}")
+    if not diff <= SHARP_TOL:
+        fail(f"spmd (a): the first 3 losses {losses[:3]} differ from "
+             f"make_train_step's {ref} by {diff} > {SHARP_TOL}")
+    return res
+
+
+def phase_spmd_cli(smi):
+    """(b) ``python -m repro_torch.launch.train`` on its default device
+    (the card) with a checkpoint: exit 0, the JSON line, and the final
+    checkpoint restored bit for bit (a restore saved again restores to
+    the same bits, every leaf in its param's shape and dtype)."""
+    import os
+    import tempfile
+
+    import torch
+
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.sharding.specs import leaves_with_path
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+             "qwen3-0.6b", "--steps", str(CLI_STEPS), "--ckpt-dir", tmp],
+            capture_output=True, text=True, env=env, cwd=str(ROOT),
+            timeout=600)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"spmd (b): the training CLI exited {proc.returncode}: "
+                 f"{proc.stderr[-2000:]}")
+        out = json.loads(proc.stdout.strip().splitlines()[-1])
+        tree, man = ckpt.restore(f"{tmp}/step_{CLI_STEPS}")
+        ckpt.save(f"{tmp}/again", tree, step=man["step"])
+        again, _ = ckpt.restore(f"{tmp}/again")
+    like = api.init_params(get_config("qwen3-0.6b"), torch.Generator(),
+                           "meta")
+    want = {"/".join(map(str, p)): v for p, v in leaves_with_path(like)}
+    same = tree.keys() == again.keys() == want.keys() and all(
+        tree[k].dtype == again[k].dtype == want[k].dtype
+        and tuple(tree[k].shape) == tuple(want[k].shape)
+        and torch.equal(tree[k].view(torch.uint8), again[k].view(torch.uint8))
+        and bool(torch.isfinite(tree[k].float()).all()) for k in tree)
+    res = {"json": out, "rc": proc.returncode, "wall_s": wall,
+           "manifest_step": man["step"], "restored_bit_for_bit": same,
+           "log_lines": proc.stdout.strip().splitlines()}
+    log(f"[spmd (b)] python -m repro_torch.launch.train --arch qwen3-0.6b "
+        f"--steps {CLI_STEPS} on the card: exit 0, {json.dumps(out)}, "
+        f"{wall:.1f} s with start-up; checkpoint step {man['step']} "
+        f"restored bit for bit: {same} ({smi})")
+    if not (set(out) == {"final_loss", "params"}
+            and math.isfinite(out["final_loss"]) and same
+            and man["step"] == CLI_STEPS):
+        fail(f"spmd (b): the training CLI's result or checkpoint is "
+             f"wrong: {res}")
+    return res
+
+
+def phase_spmd_lowering(smi):
+    """(c) the lowering dry run of qwen3-0.6b at decode_32k on the
+    256-rank fake mesh, then the roofline over its record — an analysis
+    of a 256-H100 mesh, not a time measured on the card."""
+    import os
+    import tempfile
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        t0 = time.perf_counter()
+        runs = []
+        for cmd in (["repro_torch.launch.dryrun", "--arch", "qwen3-0.6b",
+                     "--shape", "decode_32k", "--out", f"{tmp}/dry.jsonl"],
+                    ["repro_torch.launch.roofline", "--dryrun",
+                     f"{tmp}/dry.jsonl", "--out", f"{tmp}/roof.json",
+                     "--markdown", f"{tmp}/roof.md"]):
+            proc = subprocess.run([sys.executable, "-m", *cmd],
+                                  capture_output=True, text=True, env=env,
+                                  cwd=str(ROOT), timeout=600)
+            if proc.returncode != 0:
+                fail(f"spmd (c): {cmd[0]} exited {proc.returncode}: "
+                     f"{proc.stderr[-2000:]}")
+            runs.append(proc.stdout)
+        wall = time.perf_counter() - t0
+        rec = json.loads(Path(f"{tmp}/dry.jsonl").read_text().splitlines()[0])
+        (row,) = json.loads(Path(f"{tmp}/roof.json").read_text())
+    rf = row["roofline"]
+    res = {"status": rec["status"], "mesh": rec["mesh"],
+           "bytes_per_device": rec.get("bytes_per_device"),
+           "flops_per_device": rec.get("hlo_flops_per_device"),
+           "collectives": rec.get("collectives"),
+           "trace_s": rec.get("compile_s"), "roofline": rf, "wall_s": wall}
+    if rec["status"] != "ok" or row["status"] != "ok" or rf is None:
+        fail(f"spmd (c): the dry run or the roofline failed: {rec}")
+    log(f"[spmd (c)] lowering dry run, qwen3-0.6b decode_32k on the "
+        f"256-rank fake mesh {rec['mesh']} (an analysis for 256 H100s, not "
+        f"a time on this card): peak {rec['bytes_per_device']['peak'] / 1e9:.2f}"
+        f" GB per device, {rec['hlo_flops_per_device']:.3e} FLOPs and "
+        f"{rec['collectives']['total'] / 1e9:.3f} GB of collectives per "
+        f"device; roofline terms compute {rf['t_compute_s']:.3e} s, memory "
+        f"{rf['t_memory_s']:.3e} s, collective {rf['t_collective_s']:.3e} s "
+        f"-> {rf['dominant']}-bound ({wall:.1f} s for both; {smi})")
+    return res
+
+
+def phase_spmd(smi):
+    """Phase 25: training over a device mesh (a), the training CLI (b),
+    the lowering dry run and the roofline (c)."""
+    import torch
+
+    t0 = time.perf_counter()
+    out = {"a": phase_spmd_session(smi)}
+    torch.cuda.empty_cache()
+    out["b"] = phase_spmd_cli(smi)
+    out["c"] = phase_spmd_lowering(smi)
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"[spmd] phase wall {out['phase_s']:.2f} s ({smi})")
+    return out
+
+
 def kernel_entry(name, source, replaces, launches, m, **paths):
     """One kernel's entry of the kernels line; ``paths``: its launches on
     other paths of this run, by name (each counted from 0 over that
@@ -6879,6 +7112,12 @@ def main() -> None:
     # 24. the fp8 KV cache (e4m3 pages through the decode, fused and
     #     verify kernels), the HTTP/SSE front end, checkpoints
     report["fp8_http"] = phase_fp8_http(flush, smi)
+    torch.cuda.empty_cache()
+
+    # 25. training over a device mesh: Session + SpmdTrainJob on a (1, 1)
+    #     NCCL mesh, the training CLI and its checkpoint, the lowering dry
+    #     run and the roofline
+    report["spmd"] = phase_spmd(smi)
     torch.cuda.empty_cache()
     report["total_s"] = time.perf_counter() - t_start
     vlm = report["item8b"]["vlm_launches"]

@@ -9,8 +9,8 @@
 * ``EvalJob``  — fixed-batch loss/perplexity over a dataloader, executed
   forward-only through the same shard queue as training.
 
-``SpmdTrainJob`` (training over a device mesh) comes with the sharding
-slice of the port and raises.
+* ``SpmdTrainJob`` — one model trained over a device mesh (DTensor
+  params laid out by ``sharding.specs``; ``launch/train.py``'s surface).
 
 A job is inert data; ``Session.plan`` turns submitted jobs into a ``Plan``
 and ``Session.run`` executes one.
@@ -376,11 +376,25 @@ class ServeJob(JobSpec):
         return buckets
 
 
-class SpmdTrainJob:
-    """Not ported yet: single-model training over a device mesh comes
-    with the sharding slice of the port."""
-
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "SpmdTrainJob: training over a device mesh comes with the "
-            "sharding slice of the port (sharding/, launch/train.py)")
+@dataclass
+class SpmdTrainJob(JobSpec):
+    """Single-model training over a device mesh (no spilling — the model
+    fits; Hydra's multi-model layer schedules over sub-meshes of this
+    substrate).  Mirrors the ``launch/train.py`` CLI surface.  ``mesh``
+    is "auto" (every rank of the process group: (1, 1) for a world of
+    one), "production" (``launch.mesh.make_production_mesh``) or a
+    ``DeviceMesh``."""
+    steps: int = 100
+    batch: int = 8
+    seq: int = 256
+    accum: int = 1
+    lr: float = 3e-4
+    optimizer: str = "adamw"
+    seed: int = 0
+    data: Optional[str] = None                  # token .bin (else synthetic)
+    mesh: Any = "auto"                          # "auto" | "production" | mesh
+    multi_pod: bool = False
+    log_every: int = 10
+    ckpt_dir: Optional[str] = None
+    ckpt_every: int = 100
+    kind: str = field(default="spmd", init=False)

@@ -22,8 +22,9 @@ under one cross-model LRU (``residency="shard"``).  Plans are priced by a
 repro_torch.profiler`` when a fresh profile is given or found
 (``profile="auto"``), else by the analytic priors.  ``run_async`` runs
 the same thing on a background thread (``AsyncRun``); ``poll`` and
-``submit_request`` stay live while it runs.  SPMD jobs come with a later
-slice of the port.
+``submit_request`` stay live while it runs.  ``SpmdTrainJob``s train one
+model over a device mesh (``_run_spmd``), after SHARP training and before
+eval.
 
 Threads and CUDA: a session's tensors name its device explicitly, and
 every stream a run uses is the calling thread's current stream, read at
@@ -49,7 +50,8 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.api.jobs import EvalJob, JobSpec, ServeJob, TrainJob
+from repro_torch.api.jobs import (EvalJob, JobSpec, ServeJob, SpmdTrainJob,
+                                  TrainJob)
 from repro_torch.api.plan import JobPlan, Plan, cfg_to_dict, partition_to_dict
 from repro_torch.core import partitioner as pt
 from repro_torch.core import scheduler as sched
@@ -74,6 +76,7 @@ class SessionReport:
     train: Optional[RunReport] = None
     serve: dict[str, dict] = field(default_factory=dict)
     evals: dict[str, dict] = field(default_factory=dict)
+    spmd: dict[str, dict] = field(default_factory=dict)
     unit_trace: list[tuple] = field(default_factory=list)
     serve_trace: list[str] = field(default_factory=list)
     wall_time: float = 0.0
@@ -142,7 +145,7 @@ class Session:
         self._cold: dict[str, dict] = {}        # job_id -> spilled state
         self._serve_names: dict[str, str] = {}  # routing name -> job_id
         self._materialized: set[str] = set()
-        self._results: dict[str, dict] = {}     # finished eval jobs
+        self._results: dict[str, dict] = {}     # finished spmd/eval jobs
         self._async_run: Optional["AsyncRun"] = None
         # serializes engine construction / promotion against the run
         # thread: run_async advertises live submit_request, which may
@@ -167,9 +170,9 @@ class Session:
     # -- submit / poll / cancel lifecycle -----------------------------------
     def submit(self, job: JobSpec) -> str:
         """Register a job; returns its id (``train-0``, ``serve-1``, ...)."""
-        if not isinstance(job, (TrainJob, ServeJob, EvalJob)):
-            raise TypeError(f"not a TrainJob, ServeJob or EvalJob: "
-                            f"{type(job).__name__}")
+        if not isinstance(job, (TrainJob, ServeJob, EvalJob, SpmdTrainJob)):
+            raise TypeError(f"not a TrainJob, ServeJob, EvalJob or "
+                            f"SpmdTrainJob: {type(job).__name__}")
         name = None
         if isinstance(job, ServeJob):       # validate before registering
             if job.backend == "spec" and (job.draft_model == "auto"
@@ -340,6 +343,10 @@ class Session:
         elif isinstance(job, ServeJob):
             # warm: meta derives from the spec alone — no engine needed
             jp.meta = self._serve_meta(job, cold=False)
+        elif isinstance(job, SpmdTrainJob):
+            jp.meta = {"steps": job.steps, "batch": job.batch,
+                       "seq": job.seq, "accum": job.accum,
+                       "mesh": str(job.mesh), "optimizer": job.optimizer}
         if partition is not None:
             jp.partition = partition_to_dict(partition)
             jp.max_shard_bytes = max(
@@ -514,13 +521,15 @@ class Session:
                 self._train_execs[jid] = self._build_train(job, planned)
             elif isinstance(job, EvalJob):
                 self._eval_execs[jid] = self._build_eval(job, planned)
-            else:
+            elif isinstance(job, ServeJob):
                 if not job.cold and job.params_from is None and only is None:
                     # a warm engine (params + device-resident decode state)
                     # is execution state a plan does not need — engine()
                     # builds it lazily at the first request or at run()
                     continue
                 self._build_serve(jid, job, planned)
+            # SpmdTrainJob materializes nothing up front (the run lays its
+            # params out over the mesh)
             self._materialized.add(jid)
 
     def _verify_plan_config(self, plan: Plan) -> None:
@@ -925,6 +934,15 @@ class Session:
             # back to pending (its exec state persists; run() resumes)
             self._settle(jid, done=self._train_execs[jid].done)
 
+        for jid in self._active(SpmdTrainJob):
+            if self._state[jid] is JobState.DONE:    # resumed run(): done
+                report.spmd[jid] = self._results[jid]   # jobs don't re-run
+                continue
+            self._state[jid] = JobState.RUNNING
+            report.spmd[jid] = self._results[jid] = _run_spmd(
+                self._jobs[jid], self.device)
+            self._settle(jid, done=True)
+
         for jid in self._active(EvalJob):
             if jid not in self._eval_execs:
                 continue
@@ -1038,3 +1056,109 @@ class AsyncRun:
             raise self._exc
         assert self._report is not None
         return self._report
+
+
+# ---------------------------------------------------------------------------
+# SPMD execution (the mesh substrate; launch/train.py is a shell over this)
+# ---------------------------------------------------------------------------
+
+def _make_mesh(job: SpmdTrainJob, device):
+    """The job's mesh over the process group ``launch.mesh`` starts for
+    ``device`` (NCCL on the card, gloo on the CPU)."""
+    from repro_torch.launch.mesh import (ensure_process_group, make_mesh,
+                                         make_production_mesh, world_size)
+    if not isinstance(job.mesh, str):
+        return job.mesh
+    if job.mesh == "production":
+        return make_production_mesh(multi_pod=job.multi_pod, device=device)
+    ensure_process_group(device)
+    n = world_size()
+    if n == 1:
+        return make_mesh((1, 1), ("data", "model"), device)
+    nd = max(1, n // 2)
+    return make_mesh((nd, n // nd), ("data", "model"), device)
+
+
+def _run_spmd(job: SpmdTrainJob, device) -> dict:
+    """Single-model training over a mesh: params and optimizer state laid
+    out by ``sharding.specs``, every rank drawing the same batches (the
+    step keeps each rank's rows).  Rank 0 alone prints the log lines and
+    saves the checkpoints — in the JAX package's format, from the full
+    tensors, so either package restores them."""
+    import torch.distributed as dist
+
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.data.pipeline import (DataConfig, Prefetcher,
+                                           make_dataset)
+    from repro_torch.models import api
+    from repro_torch.models.registry import spec as family_spec
+    from repro_torch.optim.optimizers import OptimizerConfig, init_state
+    from repro_torch.sharding import specs as sh
+    from repro_torch.sharding.context import activation_axes
+    from repro_torch.training import make_train_step
+
+    cfg = job.cfg
+    mesh = _make_mesh(job, device)
+    if device.type == "cuda" and device.index is None:
+        # this rank's GPU by index: the prefetch thread's current device
+        # is its own
+        device = torch.device("cuda", torch.cuda.current_device())
+    lead = dist.get_rank() == 0
+    ocfg = OptimizerConfig(kind=job.optimizer, lr=job.lr,
+                           schedule="linear_warmup_cosine",
+                           warmup_steps=max(job.steps // 20, 1),
+                           total_steps=job.steps)
+
+    params = api.init_params(
+        cfg, torch.Generator(device).manual_seed(job.seed), device)
+    params = sh.distribute(mesh, params, sh.param_specs(cfg, params, mesh))
+    opt_state = init_state(ocfg, params)      # zeros in the params' layout
+
+    data_cfg = DataConfig(batch_size=job.batch, seq_len=job.seq,
+                          vocab_size=cfg.vocab_size, seed=job.seed,
+                          path=job.data)
+    if not family_spec(cfg).token_stream_data:
+        # audio/vlm batches carry embeddings the token pipeline can't make
+        def synth():
+            i = 0
+            while True:
+                yield api.make_dummy_batch(
+                    cfg, job.batch, job.seq,
+                    generator=torch.Generator(device).manual_seed(i),
+                    device=device)
+                i += 1
+        it = synth()
+    else:
+        it = iter(Prefetcher(iter(make_dataset(data_cfg)), depth=2,
+                             device=device))
+
+    step_fn = make_train_step(cfg, ocfg, accum_steps=job.accum, mesh=mesh)
+
+    def save(step):
+        full = sh.full_tensors(params)        # every rank gathers
+        if lead:
+            ckpt.save(f"{job.ckpt_dir}/step_{step}", full, step=step)
+        dist.barrier()
+
+    history = []
+    t0 = time.perf_counter()
+    with activation_axes(mesh, moe_shardmap=False):
+        for step in range(job.steps):
+            batch = next(it)
+            params, opt_state, metrics = step_fn(params, opt_state, batch)
+            if step % job.log_every == 0 or step == job.steps - 1:
+                loss = float(metrics["loss"])
+                dt = time.perf_counter() - t0
+                tok_s = job.batch * job.seq * (step + 1) / dt
+                if lead:
+                    print(f"step {step:5d}  loss {loss:8.4f}  "
+                          f"gnorm {float(metrics['grad_norm']):7.3f}  "
+                          f"{tok_s:9.0f} tok/s")
+                history.append({"step": step, "loss": loss})
+            if job.ckpt_dir and step and step % job.ckpt_every == 0:
+                save(step)
+    if job.ckpt_dir:
+        save(job.steps)
+    return {"history": history,
+            "final_loss": history[-1]["loss"] if history else None,
+            "params": api.param_count(params)}

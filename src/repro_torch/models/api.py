@@ -10,6 +10,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs import torch_dtype
 from repro_torch.models import registry
+from repro_torch.tree import tree_map
 
 
 def family_spec(cfg) -> registry.FamilySpec:
@@ -74,18 +75,16 @@ def make_dummy_batch(cfg, batch_size: int, seq_len: int, generator=None,
 _F32_AT_USE = ("conv_w", "r")
 
 
-def prepare_params(cfg, params, device="cuda"):
-    """Params ready to serve on ``device``: every tensor moved there, and
-    the weight matrices — >= 3-D ``layers``, ``encoder`` and ``decoder``
-    leaves (stacked) and >= 2-D ``shared_attn`` leaves — held in
-    ``cfg.dtype``.  The layer code casts
-    each such weight to the compute dtype at use, as the JAX package's
-    per-use ``astype`` does; holding the cast copy makes that cast a no-op
-    with the same numbers instead of a full weight copy every step.  The
-    embedding table, the learned ``dec_pos`` table (gathered, then
-    cast), 1-D norm scales and the weights read in f32 (``_F32_AT_USE``)
-    stay as they are (embed gathers then casts; unembed runs in f32)."""
-    device = resolve_device(device)
+def cast_weights(cfg, params):
+    """``params`` with the weight matrices — >= 3-D ``layers``,
+    ``encoder`` and ``decoder`` leaves (stacked) and >= 2-D
+    ``shared_attn`` leaves — in ``cfg.dtype``.  The layer code casts each
+    such weight to the compute dtype at use, as the JAX package's per-use
+    ``astype`` does, so the cast copy gives the same numbers, gradients
+    included.  The embedding table, the learned ``dec_pos`` table
+    (gathered, then cast), norm scales and the weights read in f32
+    (``_F32_AT_USE``) stay as they are (embed gathers then casts; unembed
+    runs in f32)."""
     dt = torch_dtype(cfg.dtype)
 
     def conv(tree, min_dim):
@@ -96,13 +95,21 @@ def prepare_params(cfg, params, device="cuda"):
                        "shared_attn": 2}.get(k, min_dim)
                 out[k] = conv(v, sub)
             else:
-                v = v.to(device)
                 cast = min_dim and v.dim() >= min_dim \
                     and k not in _F32_AT_USE
                 out[k] = v.to(dt) if cast else v
         return out
 
     return conv(params, 0)
+
+
+def prepare_params(cfg, params, device="cuda"):
+    """Params ready to serve on ``device``: every tensor moved there, and
+    the weight matrices held in ``cfg.dtype`` (``cast_weights``): the
+    per-use cast is then a no-op with the same numbers instead of a full
+    weight copy every step."""
+    device = resolve_device(device)
+    return cast_weights(cfg, tree_map(lambda v: v.to(device), params))
 
 
 def init_decode_state(cfg, batch: int, max_seq: int, device="cuda"):

@@ -25,6 +25,7 @@ from repro_torch import resolve_device
 from repro_torch.configs import torch_dtype
 from repro_torch.models import layers as nn
 from repro_torch.models.transformer import _n_stacked, layer_slices
+from repro_torch.sharding.context import constrain_batch, gather_fsdp
 
 # learned decoder positions: Whisper trains 448; the table is capped at 8k
 # and positions past it reuse the last row
@@ -69,33 +70,45 @@ def sinusoidal_positions(n: int, d: int, device="cpu") -> torch.Tensor:
     return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1)
 
 
+def _normed(p, x):
+    """Layer norm, re-gathered to batch-only sharding over a mesh."""
+    return constrain_batch(nn.layer_norm(p, x), seq_parallel=False)
+
+
 def apply_enc_layer(cfg, lp, x):
-    h, _ = nn.attention(lp["attn"], nn.layer_norm(lp["attn_norm"], x), cfg,
+    lp = gather_fsdp(lp)
+    x = constrain_batch(x, seq_parallel=False)
+    h, _ = nn.attention(lp["attn"], _normed(lp["attn_norm"], x), cfg,
                         causal=False, rope=False, impl=cfg.attn_impl)
     x = x + h
-    return x + nn.gelu_mlp(lp["mlp"], nn.layer_norm(lp["mlp_norm"], x))
+    return x + nn.gelu_mlp(lp["mlp"], _normed(lp["mlp_norm"], x))
 
 
 def apply_dec_layer(cfg, lp, x, enc_out, *, window=None):
-    h, _ = nn.attention(lp["self_attn"], nn.layer_norm(lp["self_norm"], x),
+    lp = gather_fsdp(lp)
+    x = constrain_batch(x, seq_parallel=False)
+    h, _ = nn.attention(lp["self_attn"], _normed(lp["self_norm"], x),
                         cfg, causal=True, rope=False, window=window,
                         impl=cfg.attn_impl)
     x = x + h
-    h, _ = nn.attention(lp["cross_attn"], nn.layer_norm(lp["cross_norm"], x),
+    h, _ = nn.attention(lp["cross_attn"], _normed(lp["cross_norm"], x),
                         cfg, xkv=enc_out, causal=False, rope=False)
     x = x + h
-    return x + nn.gelu_mlp(lp["mlp"], nn.layer_norm(lp["mlp_norm"], x))
+    return x + nn.gelu_mlp(lp["mlp"], _normed(lp["mlp_norm"], x))
 
 
 def _walk(cfg, stacked, x, layer_fn, *extra):
     """``layer_fn(lp, x, *extra)`` over a stacked tree; with ``cfg.remat``
     each layer is checkpointed when autograd records (memory, not
-    numbers, changes)."""
+    numbers, changes).  Over a mesh the residual stream is pinned
+    batch-sharded between layers (``sharding.context``)."""
+    x = constrain_batch(x)
     for lp in layer_slices(stacked, _n_stacked(stacked)):
         if cfg.remat and torch.is_grad_enabled():
             x = checkpoint(layer_fn, lp, x, *extra, use_reentrant=False)
         else:
             x = layer_fn(lp, x, *extra)
+        x = constrain_batch(x)
     return x
 
 

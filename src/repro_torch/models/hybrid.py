@@ -25,6 +25,7 @@ from repro_torch.configs import torch_dtype
 from repro_torch.models import layers as nn
 from repro_torch.models import ssm
 from repro_torch.models.transformer import _n_stacked, layer_slices
+from repro_torch.sharding.context import constrain_batch, gather_fsdp
 
 
 def init_shared_attn(generator, cfg, device):
@@ -72,7 +73,10 @@ def apply_shared_attn(cfg, sp, x, *, window=None, kv_cache=None,
 
 def apply_layer(cfg, lp, x, shared, use_attn, *, window=None):
     """One Mamba2 layer, then the shared block where ``use_attn``."""
-    x = x + ssm.mamba2_forward(lp["mamba"], nn.rms_norm(lp["norm"], x), cfg)
+    lp, shared = gather_fsdp((lp, shared))
+    x = constrain_batch(x, seq_parallel=False)
+    xn = constrain_batch(nn.rms_norm(lp["norm"], x), seq_parallel=False)
+    x = x + ssm.mamba2_forward(lp["mamba"], xn, cfg)
     if use_attn:
         x = apply_shared_attn(cfg, shared, x, window=window)[0]
     return x
@@ -93,6 +97,7 @@ def apply_layer_range(cfg, stacked_slice, x, shared, flags_slice, *,
                 use_reentrant=False)
         else:
             x = apply_layer(cfg, lp, x, shared, flag, window=window)
+        x = constrain_batch(x)
     return x
 
 

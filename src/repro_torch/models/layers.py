@@ -23,6 +23,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs import torch_dtype
+from repro_torch.sharding.context import (constrain_batch, constrain_q_seq,
+                                          gather_fsdp, is_dtensor)
 
 Params = dict  # nested dict[str, torch.Tensor]
 
@@ -130,6 +132,46 @@ def init_attention(generator, cfg, device, lead=()) -> Params:
     return p
 
 
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity on a DTensor, whose gradient's local shard leaves
+    contiguous.  The attention einsums' gradients come back permuted; a
+    plain reshape's backward copies such a gradient, but a DTensor takes
+    the global strides for its shard's and its reshape backward views
+    the shard, which fails."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import DTensor
+        return DTensor.from_local(g.to_local().contiguous(), g.device_mesh,
+                                  g.placements, run_check=False,
+                                  shape=g.shape, stride=g.stride())
+
+
+def _split_heads(t, n: int, hd: int):
+    """(..., n * hd) -> (..., n, hd).  A DTensor whose feature dim is
+    sharded over mesh dims that do not divide ``n`` (2 KV heads on an
+    8-wide 'model' axis) is gathered along it first: a shard must hold
+    whole heads."""
+    if is_dtensor(t):
+        from torch.distributed.tensor import Replicate, Shard
+        last = t.dim() - 1
+        sizes = [t.device_mesh.size(i) for i in range(t.device_mesh.ndim)]
+        ways = 1
+        for i, p in enumerate(t.placements):
+            if isinstance(p, Shard) and p.dim == last:
+                ways *= sizes[i]
+        if n % ways:
+            t = t.redistribute(t.device_mesh, [
+                Replicate() if isinstance(p, Shard) and p.dim == last else p
+                for p in t.placements])
+        return _ContiguousGrad.apply(t.reshape(*t.shape[:-1], n, hd))
+    return t.reshape(*t.shape[:-1], n, hd)
+
+
 def _project_qkv(params: Params, x: torch.Tensor, cfg,
                  src: Optional[torch.Tensor] = None):
     """q from ``x``; k and v from ``src`` (the encoder output under
@@ -144,9 +186,9 @@ def _project_qkv(params: Params, x: torch.Tensor, cfg,
         q = q + params["bq"].to(dt)
         k = k + params["bk"].to(dt)
         v = v + params["bv"].to(dt)
-    q = q.reshape(*x.shape[:-1], nh, hd)
-    k = k.reshape(*src.shape[:-1], nkv, hd)
-    v = v.reshape(*src.shape[:-1], nkv, hd)
+    q = _split_heads(q, nh, hd)
+    k = _split_heads(k, nkv, hd)
+    v = _split_heads(v, nkv, hd)
     if cfg.qk_norm:                 # per head, after the reshape
         q = rms_norm(params["q_norm"], q)
         k = rms_norm(params["k_norm"], k)
@@ -192,6 +234,10 @@ def sdpa(q, k, v, *, causal: bool, window: Optional[int] = None,
     if impl == "cuda" and causal and q.shape[1] > 1:
         from repro_torch.kernels import ops as kops
         return kops.flash_attention(q, k, v, causal=True, window=window)
+    if is_dtensor(q):
+        return _sdpa_over_mesh(q, k, v, causal=causal, window=window,
+                               q_positions=q_positions,
+                               kv_positions=kv_positions)
     b, sq, nh, hd = q.shape
     skv, nkv = k.shape[1], k.shape[2]
     groups = nh // nkv
@@ -208,6 +254,58 @@ def sdpa(q, k, v, *, causal: bool, window: Optional[int] = None,
                         qpos[..., i:i + _SDPA_Q_CHUNK], kpos, causal, window)
             for i in range(0, sq, _SDPA_Q_CHUNK)]
     return torch.cat(outs, dim=1).reshape(b, sq, nh, hd).to(q.dtype)
+
+
+def _sdpa_over_mesh(q, k, v, *, causal, window, q_positions, kv_positions):
+    """``sdpa`` of DTensors, run on each rank's shards (DTensor's
+    ``local_map`` idea, the JAX package's GSPMD partitioning of the same
+    products): batch rows over the data axes, and heads over 'model' when
+    the KV heads divide it (a rank then holds whole GQA groups); else the
+    query sequence over 'model' (``constrain_q_seq``: context
+    parallelism, K/V whole).  Each (row, head, query) still reads whole
+    K/V rows, so the result is the unsharded one.  Running the products
+    on local tensors also keeps DTensor from searching placements for the
+    grouped 5-D einsums."""
+    from torch.distributed.tensor import DTensor, Shard
+    from repro_torch.sharding import specs as sh
+
+    mesh = q.device_mesh
+    names = sh.axis_names(mesh)
+    b, sq = q.shape[:2]
+    nkv = k.shape[2]
+    B = sh.batch_axes(mesh)
+    rows = B if sh.spec_fits(mesh, sh.P(B), (b,)) else None
+    heads = "model" if "model" in names and \
+        sh.spec_fits(mesh, sh.P("model"), (nkv,)) else None
+    seq = None
+    if heads is None and "model" in names:
+        q = constrain_q_seq(q)
+        pl = q.placements[names.index("model")]
+        seq = "model" if isinstance(pl, Shard) and pl.dim == 1 else None
+    q_pl = sh.spec_placements(mesh, sh.P(rows, seq, heads, None))
+    kv_pl = sh.spec_placements(mesh, sh.P(rows, None, heads, None))
+    ql = q.redistribute(mesh, q_pl).to_local()
+    kl = k.redistribute(mesh, kv_pl).to_local()
+    vl = v.redistribute(mesh, kv_pl).to_local()
+
+    qpos = (q_positions if q_positions is not None
+            else torch.arange(sq, device=ql.device))
+    if rows is not None and qpos.dim() == 2:      # one row per lane
+        r = sh.shard_index(mesh, rows)
+        qpos = qpos[r * ql.shape[0]:(r + 1) * ql.shape[0]]
+    if seq is not None:
+        r = sh.shard_index(mesh, seq)
+        qpos = qpos[..., r * ql.shape[1]:(r + 1) * ql.shape[1]]
+    out = sdpa(ql, kl, vl, causal=causal, window=window, q_positions=qpos,
+               kv_positions=kv_positions)
+    out = DTensor.from_local(out.contiguous(), mesh, q_pl, run_check=False,
+                             shape=q.shape,
+                             stride=sh.contiguous_stride(q.shape))
+    if seq is not None:
+        # the query sequence whole again: the output projection flattens
+        # (b, s), which some DTensor versions cannot do with both sharded
+        out = out.redistribute(mesh, kv_pl)
+    return out
 
 
 def attention(params: Params, x: torch.Tensor, cfg,
@@ -504,11 +602,24 @@ def init_embedding(generator, vocab: int, d: int, dtype, device) -> Params:
 
 
 def embed(params: Params, tokens: torch.Tensor, dtype) -> torch.Tensor:
-    # gather-then-cast: the same numbers as the JAX cast-then-gather,
-    # without a compute-dtype copy of the whole table
-    return params["table"][tokens].to(dtype)
+    """Rows of the table for ``tokens``, gathered then cast: the same
+    numbers as the JAX cast-then-gather, without a compute-dtype copy of
+    the whole table.  ``F.embedding`` rather than indexing: DTensor has
+    placement rules for it (and its backward) on sharded tokens, where
+    some of its versions have none for an indexed write.  A lookup in a
+    vocab-sharded table is a masked partial sum, reduced at once: some
+    DTensor versions lose its mask across a following op."""
+    out = F.embedding(tokens, gather_fsdp(params["table"]))
+    if is_dtensor(out) and any(p.is_partial() for p in out.placements):
+        from torch.distributed.tensor import Replicate
+        out = out.redistribute(out.device_mesh, [
+            Replicate() if p.is_partial() else p for p in out.placements])
+    return out.to(dtype)
 
 
 def unembed(params: Params, x: torch.Tensor) -> torch.Tensor:
-    """Tied LM head: logits in f32."""
-    return x.float() @ params["table"].float().t()
+    """Tied LM head: logits in f32.  Over a mesh the residual stream is
+    re-gathered along the sequence first (``constrain_batch``): a product
+    flattens (b, s), which DTensor cannot do with both dims sharded."""
+    x = constrain_batch(x, seq_parallel=False)
+    return x.float() @ gather_fsdp(params["table"]).float().t()

@@ -34,6 +34,8 @@ from repro_torch.configs import torch_dtype
 from repro_torch.kernels import ref as kref
 from repro_torch.models import layers as nn
 from repro_torch.models.transformer import _n_stacked, layer_slices
+from repro_torch.sharding.context import (constrain_batch, gather_fsdp,
+                                          pointwise)
 
 SSM_HEAD_DIM = 64  # Mamba2 P (head dim)
 
@@ -264,8 +266,8 @@ def _mlstm_qkv_gates(params, xi, h, p):
     v = (xi @ params["wv"].to(dt)).reshape(*shp, h, p)
     gates = (xi @ params["w_gates"].to(dt)).float()
     logf, logi_raw = torch.chunk(gates, 2, dim=-1)
-    log_f = F.logsigmoid(logf)              # (..., h) decay in (0,1)
-    i_gate = torch.exp(F.logsigmoid(logi_raw))
+    log_f = pointwise(F.logsigmoid, logf)   # (..., h) decay in (0,1)
+    i_gate = torch.exp(pointwise(F.logsigmoid, logi_raw))
     return q, k, v, log_f, i_gate
 
 
@@ -359,7 +361,7 @@ def _slstm_cell(params, pre, carry, cfg):
     pre = (pre.reshape(b, 4, h, p)
            + rec.reshape(b, h, 4, p).transpose(1, 2))
     ig, fg, zg, og = pre[:, 0], pre[:, 1], pre[:, 2], pre[:, 3]
-    i_t = torch.exp(F.logsigmoid(ig))
+    i_t = torch.exp(pointwise(F.logsigmoid, ig))
     f_t = torch.sigmoid(fg)
     z_t = torch.tanh(zg)
     o_t = torch.sigmoid(og)
@@ -437,6 +439,8 @@ def init_params(cfg, generator: torch.Generator, device="cuda"):
 
 
 def apply_layer(cfg, gp, x, **_):
+    gp = gather_fsdp(gp)
+    x = constrain_batch(x, seq_parallel=False)
     x = x + mlstm_forward(gp["mlstm"], nn.rms_norm(gp["m_norm"], x), cfg)
     x = x + slstm_forward(gp["slstm"], nn.rms_norm(gp["s_norm"], x), cfg)
     return x
@@ -453,6 +457,7 @@ def apply_layer_range(cfg, stacked_slice, x, *, remat=None, **_):
                            use_reentrant=False)
         else:
             x = apply_layer(cfg, gp, x)
+        x = constrain_batch(x)
     return x
 
 

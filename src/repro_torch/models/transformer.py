@@ -21,6 +21,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import resolve_device
 from repro_torch.configs import torch_dtype
 from repro_torch.models import layers as nn
+from repro_torch.sharding.context import constrain_batch, gather_fsdp
 
 
 def init_params(cfg, generator: torch.Generator, device="cuda"):
@@ -70,13 +71,26 @@ def _n_stacked(stacked: dict) -> int:
 
 
 def apply_layer(cfg, lp, x, *, window=None, positions=None, impl=None):
-    """One pre-norm transformer block (cache-free). x: (b, s, d)."""
-    h, _ = nn.attention(lp["attn"], _norm(cfg, lp["attn_norm"], x), cfg,
+    """One pre-norm transformer block (cache-free). x: (b, s, d).
+
+    Over a mesh (``sharding.context``) the residual stream between layers
+    is seq-sharded over 'model', as in the JAX package, so the layer
+    inputs remat keeps are; inside the layer it is re-gathered (seq
+    whole) and tensor parallelism owns the model axis.  The JAX package
+    runs the norms seq-sharded and gathers their outputs; gathering the
+    residual first keeps the residual add, and so every product's
+    gradient, batch-sharded only — a product flattens (b, s), which some
+    DTensor versions cannot do with both dims sharded."""
+    lp = gather_fsdp(lp)
+    x = constrain_batch(x, seq_parallel=False)
+    xn = constrain_batch(_norm(cfg, lp["attn_norm"], x), seq_parallel=False)
+    h, _ = nn.attention(lp["attn"], xn, cfg,
                         positions=positions, causal=cfg.causal,
                         window=window if window is not None else cfg.window,
                         impl=impl or cfg.attn_impl)
     x = x + h
-    return x + _mlp(cfg, lp["mlp"], _norm(cfg, lp["mlp_norm"], x))
+    hn = constrain_batch(_norm(cfg, lp["mlp_norm"], x), seq_parallel=False)
+    return x + _mlp(cfg, lp["mlp"], hn)
 
 
 def embed_inputs(cfg, params, batch):
@@ -93,6 +107,7 @@ def apply_layer_range(cfg, stacked_slice, x, *, window=None, remat=None):
     autograd records: its activations are recomputed in the backward
     instead of kept, which changes memory, not numbers."""
     remat = cfg.remat if remat is None else remat
+    x = constrain_batch(x)
     for lp in layer_slices(stacked_slice, _n_stacked(stacked_slice)):
         if remat and torch.is_grad_enabled():
             x = checkpoint(lambda lp_, h: apply_layer(cfg, lp_, h,
@@ -100,6 +115,7 @@ def apply_layer_range(cfg, stacked_slice, x, *, window=None, remat=None):
                            lp, x, use_reentrant=False)
         else:
             x = apply_layer(cfg, lp, x, window=window)
+        x = constrain_batch(x)
     return x
 
 
@@ -128,6 +144,7 @@ def _chunk_positions(index, b: int, sq: int, device) -> torch.Tensor:
 def apply_layer_decode(cfg, lp, x, cache, *, window=None):
     """One pre-norm block in decode mode; ``cache`` is one layer's
     {"k","v","index"} and is written in place."""
+    lp = gather_fsdp(lp)
     positions = _chunk_positions(cache["index"], x.shape[0], x.shape[1],
                                  x.device)
     h, new_cache = nn.attention(
@@ -157,6 +174,7 @@ def decode_step(cfg, params, state, tokens, *, window=None):
                             kv["k"], kv["v"]):
         cache = {"k": k_l, "v": v_l, "index": kv["index"]}
         x, _ = apply_layer_decode(cfg, lp, x, cache, window=window)
+        x = constrain_batch(x)
     x = _norm(cfg, params["final_norm"], x)
     logits = nn.unembed(params["embed"], x)
     new_state = {"kv": {"k": kv["k"], "v": kv["v"],

@@ -4,8 +4,9 @@
 ``make_train_step(cfg, opt_cfg)`` returns ``step(params, opt_state,
 batch) -> (params, opt_state, metrics)``: gradients by autograd over the
 whole model, then one optimizer update that returns new tensors;
-``make_grad_step(cfg)`` stops at the gradients.  The
-serving factories run under ``torch.no_grad``.
+``make_grad_step(cfg)`` stops at the gradients; ``make_train_step(...,
+mesh=)`` trains over a device mesh on DTensors.  The serving factories
+run under ``torch.no_grad``.
 """
 
 from __future__ import annotations
@@ -17,18 +18,38 @@ import torch
 from repro_torch.models import api, registry
 from repro_torch.models import moe as moe_mod
 from repro_torch.optim import optimizers as opt
-from repro_torch.training.losses import moe_total_loss, softmax_xent
+from repro_torch.sharding.context import is_dtensor
+from repro_torch.training.losses import (moe_total_loss, softmax_xent,
+                                         vocab_whole)
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten_like
 
 
-def make_loss_fn(cfg, *, window: Optional[int] = None):
-    """``loss_fn(params, batch) -> (loss, metrics)``."""
+def make_loss_fn(cfg, *, window: Optional[int] = None,
+                 cast_layer_weights: bool = False):
+    """``loss_fn(params, batch) -> (loss, metrics)``.
+
+    ``cast_layer_weights``: cast the weight matrices to the compute dtype
+    before use (``api.cast_weights``), so FSDP all-gathers move them in
+    ``cfg.dtype`` rather than the f32 master copy.  The layer code casts
+    per use anyway, so the numbers are the same, gradients included.  The
+    JAX package casts every >= 2-D leaf of the stacked trees, the stacked
+    norm scales too, which rounds their gradients to bf16; the port keeps
+    the rule its serving path uses (norm scales and f32-at-use weights
+    stay as they are), so a step over a mesh equals one without."""
+
+    def maybe_cast(params):
+        return api.cast_weights(cfg, params) if cast_layer_weights \
+            else params
 
     def loss_fn(params, batch):
+        params = maybe_cast(params)
         if cfg.family == "moe":
             logits, aux = moe_mod.forward(cfg, params, batch, window=window,
                                           return_aux=True)
             xent = softmax_xent(logits, batch["labels"])
+            # over a mesh the loss is a plain tensor (``softmax_xent``);
+            # the aux terms join it whole
+            aux = {k: _full(v) for k, v in aux.items()}
             loss = moe_total_loss(xent, aux)
             return loss, {"loss": loss, "xent": xent,
                           "lb_loss": aux["lb_loss"], "z_loss": aux["z_loss"]}
@@ -57,17 +78,44 @@ def make_train_step(cfg, opt_cfg: opt.OptimizerConfig, *,
                     mesh=None):
     """Full train step; with ``accum_steps > 1`` the batch is split into
     micro-batches whose gradients are summed in f32 and averaged (gradient
-    accumulation), as the JAX package's scan does.  ``mesh`` is the JAX
-    package's SPMD placement and has no counterpart here."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "make_train_step(mesh=...): SPMD training over a mesh comes "
-            "with the sharding slice of the port")
-    loss_fn = make_loss_fn(cfg, window=window)
+    accumulation), as the JAX package's scan does.
+
+    ``mesh`` (a ``DeviceMesh``): SPMD training over it.  The params and
+    optimizer state are DTensors laid out by ``sharding.specs`` (the
+    caller distributes them); each micro-batch is pinned to the mesh's
+    batch axes — a plain batch (the same on every rank) is split there
+    without communication, a DTensor batch is redistributed — and the
+    stacked layer matrices are cast to ``cfg.dtype`` before use.  Grads
+    come back in their params' placements (the reductions DTensor
+    inserts), and ``global_norm`` and the optimizer update run on the
+    DTensor leaves.  The returned metrics are plain tensors, the same on
+    every rank."""
+    loss_fn = make_loss_fn(cfg, window=window,
+                           cast_layer_weights=mesh is not None)
 
     def train_step(params, opt_state, batch):
+        if mesh is not None:
+            from torch.distributed.tensor.experimental import \
+                implicit_replication
+            with implicit_replication():
+                return _train_step(params, opt_state, batch)
+        return _train_step(params, opt_state, batch)
+
+    def grads_of(params, batch):
+        (loss, m), g = _value_and_grad(loss_fn, params, pin_batch(batch))
+        if mesh is not None:
+            g = tree_map(_match_placements, g, params)
+        return (loss, m), g
+
+    def pin_batch(batch):
+        if mesh is None:
+            return batch
+        from repro_torch.sharding import specs as sh
+        return sh.distribute(mesh, batch, sh.batch_specs(cfg, batch, mesh))
+
+    def _train_step(params, opt_state, batch):
         if accum_steps == 1:
-            (_, metrics), grads = _value_and_grad(loss_fn, params, batch)
+            (_, metrics), grads = grads_of(params, batch)
         else:
             b = batch["labels"].shape[0]
             if b % accum_steps:
@@ -79,18 +127,35 @@ def make_train_step(cfg, opt_cfg: opt.OptimizerConfig, *,
             ms = []
             for i in range(accum_steps):
                 micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
-                (_, m), g = _value_and_grad(loss_fn, params, micro)
+                (_, m), g = grads_of(params, micro)
                 gsum = tree_map(torch.add, gsum, g)
                 ms.append(m)
             grads = tree_map(lambda g: g / accum_steps, gsum)
-            metrics = {k: torch.stack([m[k] for m in ms]).mean()
+            metrics = {k: torch.stack([_full(m[k]) for m in ms]).mean()
                        for k in ms[0]}
         gnorm = opt.global_norm(grads)
         new_params, new_state = opt.update(opt_cfg, params, grads, opt_state,
                                            grad_norm=gnorm)
-        return new_params, new_state, dict(metrics, grad_norm=gnorm)
+        metrics = {k: _full(v) for k, v in metrics.items()}
+        return new_params, new_state, dict(metrics, grad_norm=_full(gnorm))
 
     return train_step
+
+
+def _full(x):
+    """A DTensor metric as its full (plain) tensor; others unchanged."""
+    from torch.distributed.tensor import DTensor
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
+def _match_placements(g, p):
+    """A gradient in its param's placements (a Partial sum reduced or
+    reduce-scattered by DTensor)."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(p, DTensor) and isinstance(g, DTensor) \
+            and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 def make_grad_step(cfg, *, window: Optional[int] = None):
@@ -224,6 +289,8 @@ def make_decode_step(cfg, *, window: Optional[int] = None):
     def decode_step(params, state, tokens):
         logits, state = api.decode_step(cfg, params, state, tokens,
                                         window=window)
+        if is_dtensor(logits):          # over a mesh: argmax a whole vocab
+            logits = vocab_whole(logits)
         return (torch.argmax(logits[:, -1, :], dim=-1)[:, None]
                 .to(torch.int32), state)
 

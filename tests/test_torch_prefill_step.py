@@ -12,7 +12,9 @@ package's.
 * ``python -m repro_torch.launch.dryrun --plan --smoke`` writes the Plan
   JSON that ``python -m repro.launch.dryrun --plan --smoke`` writes for
   the same arguments (``make plan-smoke``'s), and its round trip holds;
-  the lowering mode raises naming ROADMAP item 9.4.
+  the lowering mode (``launch/dryrun.py``'s other mode) writes an ``ok``
+  record for qwen3-0.6b smoke at ``decode_32k`` on the 256-rank fake
+  mesh.
 """
 
 import _torch_threads  # noqa: F401  (one torch thread per xdist worker)
@@ -105,6 +107,11 @@ def test_plan_dryrun_writes_the_jax_plan(tmp_path, monkeypatch, capsys):
     assert port_lines[1].endswith("round-trip OK)")
 
 
-def test_lowering_dryrun_raises_naming_its_item():
-    with pytest.raises(NotImplementedError, match="9.4"):
-        dryrun.main(["--arch", "qwen3-0.6b"])
+def test_lowering_dryrun_writes_an_ok_record(tmp_path):
+    out = tmp_path / "dryrun.jsonl"
+    dryrun.main(["--arch", "qwen3-0.6b", "--shape", "decode_32k", "--smoke",
+                 "--out", str(out)])
+    (rec,) = [json.loads(line) for line in out.read_text().splitlines()]
+    assert (rec["arch"], rec["shape"], rec["mesh"], rec["status"]) \
+        == ("qwen3-0.6b", "decode_32k", "32x8", "ok")
+    assert rec["smoke"] and rec["collectives"]["n_ops"] > 0
