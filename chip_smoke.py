@@ -320,8 +320,8 @@ Phases (any failure exits non-zero before the result line):
    -m repro_torch.launch.train --arch qwen3-0.6b --steps 10 --ckpt-dir
    TMP`` on its default device: exit 0, its JSON line, the checkpoint
    restored bit for bit; (c) ``python -m repro_torch.launch.dryrun --arch
-   qwen3-0.6b --shape decode_32k`` on the 256-rank fake mesh and ``python
-   -m repro_torch.launch.roofline`` over its record: both ``ok``, the
+   qwen3-0.6b --shape decode_32k`` on the 256-rank fake mesh and the
+   roofline's ``main`` over its record, in this process: both ``ok``, the
    peak per device and the dominant term printed as an analysis of 256
    H100s, not a time on the card.  One card runs one rank: NCCL refuses
    two ranks on one GPU, so the multi-rank paths ((2, 2) training, the
@@ -329,6 +329,26 @@ Phases (any failure exits non-zero before the result line):
    (``tests/test_torch_spmd_train.py``,
    ``tests/test_torch_moe_expert_parallel.py``).  No kernel runs here.
    Alone: ``python3 tools/spmd_phase.py``.
+26. the remaining examples at full width, each model freed before the
+   next — (a) ``examples/large_model_single_device_torch.py`` on
+   bert-large-1b (36 layers, d 1536): 17 GB of params + grads + Adam on
+   one device of 2e9 B, 4 steps of 2 x 512, then the spilled eval at a
+   third of the budget: >= 2 shards, no ledger over its budget, units =
+   steps x 2 x shards, losses and the eval's mean loss equal plain
+   full-model training and a plain forward on the card at 3e-4; (b)
+   ``examples/model_selection_torch.py``: the grid's first three points at
+   full width, 1 step of seq 512 on 4 virtual devices of 11e9 B (SHARP's
+   transfers at the measured host-to-device rate): units
+   = steps x 2 x shards summed, finite losses, task parallelism out of
+   memory, pipeline <= model parallelism, SHARP below model parallelism;
+   (c) ``examples/serve_batched_torch.py``: qwen3-0.6b, mixtral-8x22b
+   cold (2 layers, a 40e9 B budget) and xlstm-350m, 8 tokens for each of three requests,
+   a cold promotion, all three in the schedule, buckets on qwen3-0.6b
+   alone; (d) the dry run of qwen3-0.6b at long_500k (no K/V plane
+   all-gathered, under 1 GB of collectives a device: attention over the
+   sequence-sharded cache merges by log-sum-exp) and at decode_32k (its
+   record unchanged).  No kernel runs here.  Alone: ``python3
+   tools/examples_phase.py``.
 
 Each kernel's launch count is zeroed just before the run of its own path
 (a serve run, the spilled eval, the profiler's ``build_facts`` for
@@ -6760,22 +6780,28 @@ def phase_spmd_lowering(smi):
     import os
     import tempfile
 
+    import contextlib
+    import io
+
+    from repro_torch.launch import roofline
+
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         t0 = time.perf_counter()
-        runs = []
-        for cmd in (["repro_torch.launch.dryrun", "--arch", "qwen3-0.6b",
-                     "--shape", "decode_32k", "--out", f"{tmp}/dry.jsonl"],
-                    ["repro_torch.launch.roofline", "--dryrun",
-                     f"{tmp}/dry.jsonl", "--out", f"{tmp}/roof.json",
-                     "--markdown", f"{tmp}/roof.md"]):
-            proc = subprocess.run([sys.executable, "-m", *cmd],
-                                  capture_output=True, text=True, env=env,
-                                  cwd=str(ROOT), timeout=600)
-            if proc.returncode != 0:
-                fail(f"spmd (c): {cmd[0]} exited {proc.returncode}: "
-                     f"{proc.stderr[-2000:]}")
-            runs.append(proc.stdout)
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             "qwen3-0.6b", "--shape", "decode_32k", "--out",
+             f"{tmp}/dry.jsonl"], capture_output=True, text=True, env=env,
+            cwd=str(ROOT), timeout=600)
+        if proc.returncode != 0:
+            fail(f"spmd (c): repro_torch.launch.dryrun exited "
+                 f"{proc.returncode}: {proc.stderr[-2000:]}")
+        # the roofline's CLI entry point in this process (no process of its
+        # own to start: it reads the record and writes two files)
+        with contextlib.redirect_stdout(io.StringIO()):
+            roofline.main(["--dryrun", f"{tmp}/dry.jsonl", "--out",
+                           f"{tmp}/roof.json", "--markdown",
+                           f"{tmp}/roof.md"])
         wall = time.perf_counter() - t0
         rec = json.loads(Path(f"{tmp}/dry.jsonl").read_text().splitlines()[0])
         (row,) = json.loads(Path(f"{tmp}/roof.json").read_text())
@@ -6810,6 +6836,410 @@ def phase_spmd(smi):
     out["c"] = phase_spmd_lowering(smi)
     out["phase_s"] = time.perf_counter() - t0
     log(f"[spmd] phase wall {out['phase_s']:.2f} s ({smi})")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 26: the three remaining examples at full width, and the mesh decode
+# over a sequence-sharded cache in the dry run
+# ---------------------------------------------------------------------------
+
+LARGE_BUDGET = 2 * 10**9        # ~8x under bert-large-1b's 17 GB of state
+LARGE_STEPS, LARGE_BATCH, LARGE_SEQ = 4, 2, 512
+# three grid points: SHARP's timeline chains each model's transfers and
+# units, so two full-width models on 4 devices finish no sooner than
+# model parallelism runs both one after the other (2.09 against 2.08 s
+# on an H100); a third model is where SHARP's overlap shows.  One step
+# (the example's two): both makespans scale with the steps, and the
+# script stays inside its time limit
+SELECT_POINTS, SELECT_STEPS, SELECT_SEQ = 3, 1, 512
+SELECT_DEVICES, SELECT_BUDGET = 4, 11 * 10**9   # the paper's 11e9 B
+SERVE_BUDGET = 40 * 10**9      # a mixtral-8x22b layer passes 11e9 B
+DECODE_32K_RECORD = ("2.12", "4.484e+09", "0.379")   # GB, FLOPs, GB
+
+
+def load_example(name):
+    """``examples/<name>.py`` as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+class LedgerWatch:
+    """Every ``DeviceMemory`` ledger's high-water mark while the block
+    runs (its ``charge_promotion`` wrapped at class level, so the ledgers
+    of sessions an example makes inside are seen): ``peaks`` maps each
+    ledger to ``[peak used bytes, budget]``."""
+
+    def __enter__(self):
+        from repro_torch.core.spilling import DeviceMemory
+        self.peaks, self._orig = {}, DeviceMemory.charge_promotion
+        orig, peaks = self._orig, self.peaks
+
+        def charge(dm, nbytes, *, into_buffer):
+            orig(dm, nbytes, into_buffer=into_buffer)
+            rec = peaks.setdefault(id(dm), [0, dm.budget])
+            rec[0] = max(rec[0], dm.used_bytes())
+        DeviceMemory.charge_promotion = charge
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core.spilling import DeviceMemory
+        DeviceMemory.charge_promotion = self._orig
+        return False
+
+    def over_budget(self) -> list:
+        return [v for v in self.peaks.values() if v[0] > v[1]]
+
+
+def phase_examples_large(smi, device="cuda"):
+    """(a) ``examples/large_model_single_device_torch.py`` at full width:
+    bert-large-1b (the paper's BERT-Large*-1B) trained on one device of
+    2e9 B, 4 steps of 2 x 512, through spilling, then evaluated at a
+    third of the budget (the least budget that plans where a segment does
+    not fit, and why).  Gates: the model's state exceeds the budget;
+    >= 2 shards; no ledger over its budget; units = steps x 2 x shards;
+    the losses equal plain full-model training on the card, and the
+    eval's mean loss a plain forward's, at 3e-4."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.orchestrator import (ModelTask,
+                                               train_sequential_reference)
+    from repro_torch.data.pipeline import as_tensors
+    from repro_torch.models import api
+    from repro_torch.training.losses import softmax_xent
+    from repro_torch.tree import tree_map
+
+    ex = load_example("large_model_single_device_torch")
+    cfg = get_config("bert-large-1b")
+    budget, why = LARGE_BUDGET, None
+    while True:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            with LedgerWatch() as watch:
+                out = ex.main(device=device, cfg=cfg, budget=budget,
+                              steps=LARGE_STEPS, batch=LARGE_BATCH,
+                              seq=LARGE_SEQ)
+        except MemoryError as e:
+            if "alone exceeds" not in str(e) or budget >= 4 * LARGE_BUDGET:
+                fail(f"examples (a): {e}")
+            why, budget = str(e), int(budget * 1.25)
+            continue
+        break
+    wall = time.perf_counter() - t0
+    peak_alloc = torch.cuda.max_memory_allocated()
+    ev = out["eval"]
+    n_shards = len(out["shards"])
+
+    # the eval's batch through a plain forward of the trained weights
+    trained = tree_map(lambda v: v.to(device),
+                       out.pop("train_exec").store.model_params())
+    batch = as_tensors(next(iter(ex.loader(cfg, 7, LARGE_BATCH,
+                                           LARGE_SEQ))), device)
+    with torch.no_grad():
+        plain_eval = float(softmax_xent(api.forward(cfg, trained, batch),
+                                        batch["labels"]))
+    del trained, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    empty_host_cache()
+    _, ref = train_sequential_reference(ModelTask(
+        cfg, ex.loader(cfg, 0, LARGE_BATCH, LARGE_SEQ), lr=1e-3, epochs=1,
+        steps_per_epoch=LARGE_STEPS, batch=LARGE_BATCH, seq=LARGE_SEQ),
+        device=device)
+    torch.cuda.empty_cache()
+    loss_diff = float(np.abs(np.subtract(out["losses"], ref)).max())
+    eval_diff = abs(ev["mean_loss"] - plain_eval)
+    res = {"budget": budget, "budget_raised_because": why,
+           "model_bytes": out["model_bytes"], "shards": out["shards"],
+           "losses": out["losses"], "reference_losses": ref,
+           "max_abs_loss_diff": loss_diff,
+           "units_executed": out["units_executed"],
+           "promoted_bytes": out["promoted_bytes"],
+           "demoted_bytes": out["demoted_bytes"],
+           "ledger_peaks": sorted(watch.peaks.values()),
+           "max_memory_allocated": peak_alloc, "wall_s": wall,
+           "eval": {k: ev[k] for k in ("n_shards", "bytes_moved",
+                                       "mean_loss", "perplexity")},
+           "eval_budget": out["eval_budget"], "plain_eval_loss": plain_eval,
+           "eval_abs_diff": eval_diff}
+    log(f"[examples (a)] large_model_single_device_torch: bert-large-1b "
+        f"full width ({cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{cfg.n_params} params), {out['model_bytes']} B of params + grads "
+        f"+ Adam on one device of {budget} B"
+        + (f" (raised from {LARGE_BUDGET}: {why})" if why else "")
+        + f": {n_shards} shards, {out['units_executed']} units, "
+        f"{LARGE_STEPS} steps of {LARGE_BATCH} x {LARGE_SEQ}, losses "
+        f"{[round(x, 4) for x in out['losses']]} vs plain full-model "
+        f"training on the card {[round(x, 4) for x in ref]}: max |diff| "
+        f"{loss_diff:.3g} (tol {SHARP_TOL}); promoted "
+        f"{out['promoted_bytes']} B, demoted {out['demoted_bytes']} B; "
+        f"ledger peak {max(p for p, _ in watch.peaks.values())} B; spilled "
+        f"eval at {out['eval_budget']} B: {ev['n_shards']} shards, "
+        f"{ev['bytes_moved']} B moved, mean loss {ev['mean_loss']:.6f} vs "
+        f"plain forward {plain_eval:.6f} (|diff| {eval_diff:.3g}), "
+        f"perplexity {ev['perplexity']:.2f}; wall {wall:.1f} s, max "
+        f"memory allocated {peak_alloc / 1e9:.2f} GB ({smi})")
+    if not out["model_bytes"] > budget:
+        fail(f"examples (a): the model's {out['model_bytes']} B fit the "
+             f"budget {budget}")
+    if n_shards < 2:
+        fail(f"examples (a): {n_shards} shard(s); a spilled model needs 2+")
+    if watch.over_budget():
+        fail(f"examples (a): a ledger went over its budget: "
+             f"{watch.over_budget()}")
+    if out["units_executed"] != LARGE_STEPS * 2 * n_shards:
+        fail(f"examples (a): {out['units_executed']} units; expected steps "
+             f"x 2 x shards = {LARGE_STEPS * 2 * n_shards}")
+    if not np.allclose(out["losses"], ref, rtol=SHARP_TOL, atol=SHARP_TOL):
+        fail(f"examples (a): the spilled losses {out['losses']} differ from "
+             f"plain training's {ref}")
+    if not eval_diff <= SHARP_TOL + SHARP_TOL * abs(plain_eval):
+        fail(f"examples (a): the spilled eval's mean loss {ev['mean_loss']} "
+             f"differs from a plain forward's {plain_eval}")
+    return res
+
+
+def phase_examples_selection(smi, device="cuda"):
+    """(b) ``examples/model_selection_torch.py`` at full width: the grid's
+    first three points (lr 1e-3 at batch 2 and 4, 1e-4 at batch 2) of
+    bert-large-1b, 1 step of seq 512, on 4 virtual devices of 11e9 B,
+    SHARP's transfers at the measured host-to-device rate as in phase 18
+    (fewer points where their host stores do not fit in half of
+    ``MemAvailable``, phase 18's rule).
+    Gates: units = the sum over models of steps x 2 x shards; finite
+    losses; task parallelism runs out of memory at 11e9 B; pipeline <=
+    model parallelism; SHARP's makespan below model parallelism's."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.partitioner import tree_bytes
+    from repro_torch.models import api
+
+    ex = load_example("model_selection_torch")
+    cfg = get_config("bert-large-1b")
+    store_bytes = 3 * tree_bytes(api.init_params(cfg, torch.Generator(),
+                                                 "meta"))
+    empty_host_cache()
+    avail = settled_mem_available()
+    n = SELECT_POINTS
+    while n >= 1 and n * store_bytes > avail // 2:
+        n -= 1
+    if n == 0:
+        fail(f"examples (b): one bert-large-1b host store ({store_bytes} B) "
+             f"does not fit in half of MemAvailable ({avail} B)")
+    grid = ex.GRID[:n]
+    # SHARP's timeline charges transfers at the card's measured pinned
+    # host-to-device rate, as phase 18's does
+    link = h2d_gb_per_s() * 1e9 if device == "cuda" else None
+    t0 = time.perf_counter()
+    with LedgerWatch() as watch:
+        out = ex.main(device=device, cfg=cfg, grid=grid,
+                      budget=SELECT_BUDGET, n_devices=SELECT_DEVICES,
+                      steps=SELECT_STEPS, seq=SELECT_SEQ, link_bw=link)
+    wall = time.perf_counter() - t0
+    session = out.pop("session")
+    shards = [len(m.partition.shards) for m in session.train_execs]
+    del session
+    gc.collect()
+    torch.cuda.empty_cache()
+    empty_host_cache()
+    ms = out["makespan"]
+    expect = sum(SELECT_STEPS * 2 * s for s in shards)
+    res = {**{k: v for k, v in out.items()}, "points": n, "grid": grid,
+           "shards": shards, "mem_available": avail,
+           "store_bytes_per_model": store_bytes, "link_bw": link,
+           "wall_s": wall,
+           "ledger_peaks": sorted(watch.peaks.values()),
+           "speedup_vs_mp": ms["model_parallel"] / ms["sharp"]}
+    log(f"[examples (b)] model_selection_torch: {n} grid point(s) {grid} "
+        f"of bert-large-1b full width"
+        + ("" if n == SELECT_POINTS else
+           f" (not {SELECT_POINTS}: {SELECT_POINTS} host stores of "
+           f"{store_bytes} B exceed half of MemAvailable {avail} B)")
+        + f", {SELECT_STEPS} step(s) of seq {SELECT_SEQ}, {SELECT_DEVICES} "
+        f"virtual devices of {SELECT_BUDGET} B, link_bw "
+        f"{(link or 16e9) / 1e9:.2f} GB/s"
+        + (" (measured h2d)" if link else "")
+        + f": shards {shards}, units "
+        f"{out['units_executed']}; makespan SHARP {ms['sharp']:.4f} s, "
+        f"model parallel {ms['model_parallel']:.4f} s, pipeline "
+        f"{ms['pipeline']:.4f} s (SHARP {res['speedup_vs_mp']:.2f}x model "
+        f"parallelism); task parallel at {SELECT_BUDGET} B: "
+        + ("CRASH (OOM)" if ms["task_parallel"] is None
+           else f"{ms['task_parallel']:.4f} s")
+        + f"; losses {out['losses']}; best {out['best']}; wall "
+        f"{wall:.1f} s ({smi})")
+    if out["units_executed"] != expect:
+        fail(f"examples (b): {out['units_executed']} units; expected "
+             f"steps x 2 x shards summed = {expect}")
+    if not all(np.isfinite(v).all() and len(v) == SELECT_STEPS
+               for v in out["losses"].values()):
+        fail(f"examples (b): losses not finite or missing: {out['losses']}")
+    if ms["task_parallel"] is not None:
+        fail(f"examples (b): task parallelism fit a bert-large-1b with its "
+             f"optimizer state in {SELECT_BUDGET} B")
+    if watch.over_budget():
+        fail(f"examples (b): a ledger went over its budget: "
+             f"{watch.over_budget()}")
+    if ms["pipeline"] > ms["model_parallel"]:
+        fail(f"examples (b): pipeline makespan {ms['pipeline']} above model "
+             f"parallelism's {ms['model_parallel']}")
+    if not ms["sharp"] < ms["model_parallel"]:
+        fail(f"examples (b): SHARP's makespan {ms['sharp']} is not below "
+             f"model parallelism's {ms['model_parallel']}")
+    return res
+
+
+def phase_examples_serve(smi, device="cuda"):
+    """(c) ``examples/serve_batched_torch.py`` at full width: qwen3-0.6b,
+    mixtral-8x22b cold (cut to 2 layers for device memory; its shards cut
+    for a 40e9 B device, since one of its layers alone passes the default
+    11e9 B) and xlstm-350m under LRTF, three prompts each (11, 13, 15
+    tokens), 8 new tokens.  Gates: every request gets its 8 tokens; the cold model's
+    ``promote_bytes`` > 0; the schedule names all three; only qwen3-0.6b
+    keeps its power-of-two buckets.  Decode tok/s printed, not gated."""
+    import torch
+
+    from repro_torch.configs import get_config
+
+    ex = load_example("serve_batched_torch")
+    full = get_config("mixtral-8x22b")
+    cfgs = [get_config("qwen3-0.6b"), full.replace(n_layers=2),
+            get_config("xlstm-350m")]
+    t0 = time.perf_counter()
+    out = ex.main(device=device, cfgs=cfgs, budget=SERVE_BUDGET)
+    wall = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    empty_host_cache()
+    recs = {r["model"]: r for r in out["serve"].values()}
+    res = {"serve": {m: {k: r.get(k) for k in (
+        "n_completed", "prefill_calls", "bucket_sizes", "cold",
+        "promote_bytes", "promote_s", "decode_tok_per_s")}
+        for m, r in recs.items()},
+        "schedule_len": len(out["schedule"]),
+        "schedule_head": out["schedule"][:12], "tokens": out["tokens"],
+        "wall_s": wall}
+    log(f"[examples (c)] serve_batched_torch at full width (mixtral-8x22b "
+        f"cut {full.n_layers} -> 2 layers for device memory; widths as "
+        f"published; device budget {SERVE_BUDGET} B): "
+        + "; ".join(f"{m} {r['n_completed']} done, prefill_calls "
+                    f"{r['prefill_calls']}, buckets "
+                    f"{'pow2' if r['bucket_sizes'] else None}, decode "
+                    f"{r['decode_tok_per_s'] or 0:.1f} tok/s"
+                    + (f", cold: promoted {r['promote_bytes']} B in "
+                       f"{r['promote_s'] * 1e3:.0f} ms" if r.get("cold")
+                       else "")
+                    for m, r in recs.items())
+        + f"; {len(out['schedule'])} ticks, schedule head "
+        f"{out['schedule'][:12]}; wall {wall:.1f} s ({smi})")
+    for m, toks in out["tokens"].items():
+        if [len(t) for t in toks] != [ex.GEN] * 3:
+            fail(f"examples (c): {m}'s requests got {[len(t) for t in toks]}"
+                 f" tokens, not {ex.GEN} each")
+    if set(recs) != set(ex.ARCHS) or set(out["schedule"]) != set(ex.ARCHS):
+        fail(f"examples (c): the schedule names {set(out['schedule'])}, "
+             f"not the three models {ex.ARCHS}")
+    cold = recs[ex.COLD]
+    if not (cold.get("cold") and cold["promote_bytes"] > 0):
+        fail(f"examples (c): the cold model promoted nothing: {cold}")
+    if [m for m, r in recs.items() if r["bucket_sizes"]] != ["qwen3-0.6b"]:
+        fail(f"examples (c): power-of-two buckets on "
+             f"{[m for m, r in recs.items() if r['bucket_sizes']]}, not on "
+             f"qwen3-0.6b alone")
+    return res
+
+
+def phase_examples_dryrun(smi):
+    """(d) the lowering dry run of qwen3-0.6b at long_500k (the cache's
+    sequence sharded over every rank) and decode_32k on the 256-rank fake
+    mesh, on this machine's torch — an analysis of 256 H100s, not a time
+    on the card.  Gates: long_500k moves no K/V plane by all-gather and
+    under 1 GB of collectives a device; decode_32k keeps its record
+    (2.12 GB peak, 4.484e9 FLOPs, 0.379 GB of collectives a device)."""
+    import os
+    import tempfile
+
+    from repro_torch.launch.dryrun import kv_plane_gathers
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    shapes = ("long_500k", "decode_32k")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        # the dry run's CLI once a shape, in one process (one start-up)
+        proc = subprocess.run(
+            [sys.executable, "-c",
+             "import sys\n"
+             "from repro_torch.launch.dryrun import main\n"
+             "for shape in sys.argv[2:]:\n"
+             "    main(['--arch', 'qwen3-0.6b', '--shape', shape, '--out', "
+             "sys.argv[1]])", f"{tmp}/dry.jsonl", *shapes],
+            capture_output=True, text=True, env=env, cwd=str(ROOT),
+            timeout=600)
+        if proc.returncode != 0:
+            fail(f"examples (d): the dry runs exited {proc.returncode}: "
+                 f"{proc.stderr[-2000:]}")
+        lines = Path(f"{tmp}/dry.jsonl").read_text().splitlines()
+    recs = {rec["shape"]: rec for rec in map(json.loads, lines)}
+    wall = time.perf_counter() - t0
+    res = {}
+    for shape, rec in recs.items():
+        if rec["status"] != "ok":
+            fail(f"examples (d): the dry run at {shape} failed: {rec}")
+        res[shape] = {"peak_gb": rec["bytes_per_device"]["peak"] / 1e9,
+                      "flops": rec["hlo_flops_per_device"],
+                      "collectives": rec["collectives"],
+                      "kv_plane_gathers": kv_plane_gathers(rec),
+                      "trace_s": rec["compile_s"]}
+        r = res[shape]
+        log(f"[examples (d)] dry run qwen3-0.6b {shape} on {rec['mesh']} "
+            f"(an analysis of 256 H100s, not a time on the card): peak "
+            f"{r['peak_gb']:.2f} GB, {r['flops']:.3e} FLOPs, "
+            f"{rec['collectives']['total'] / 1e9:.3f} GB of collectives a "
+            f"device ({rec['collectives']['n_ops']} ops: "
+            f"{ {k: v for k, v in rec['collectives'].items() if '-' in k} }"
+            f"), K/V-plane all-gathers {r['kv_plane_gathers'] or 'none'} "
+            f"({smi})")
+    res["wall_s"] = wall
+    log(f"[examples (d)] both dry runs in one process: {wall:.1f} s")
+    long = recs["long_500k"]
+    if res["long_500k"]["kv_plane_gathers"] \
+            or not long["collectives"]["total"] < 1e9:
+        fail(f"examples (d): long_500k still gathers the cache: "
+             f"{res['long_500k']}")
+    d = recs["decode_32k"]
+    got = (f"{d['bytes_per_device']['peak'] / 1e9:.2f}",
+           f"{d['hlo_flops_per_device']:.3e}",
+           f"{d['collectives']['total'] / 1e9:.3f}")
+    if got != DECODE_32K_RECORD:
+        fail(f"examples (d): decode_32k's record moved: {got} against "
+             f"{DECODE_32K_RECORD}")
+    return res
+
+
+def phase_examples(smi):
+    """Phase 26: the three remaining examples at full width (a)-(c), each
+    model freed before the next, and the mesh decode's dry runs (d)."""
+    import torch
+
+    t0 = time.perf_counter()
+    out = {"a": phase_examples_large(smi)}
+    torch.cuda.empty_cache()
+    out["b"] = phase_examples_selection(smi)
+    torch.cuda.empty_cache()
+    out["c"] = phase_examples_serve(smi)
+    torch.cuda.empty_cache()
+    out["d"] = phase_examples_dryrun(smi)
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"[examples] phase wall {out['phase_s']:.2f} s ({smi})")
     return out
 
 
@@ -7118,6 +7548,12 @@ def main() -> None:
     #     NCCL mesh, the training CLI and its checkpoint, the lowering dry
     #     run and the roofline
     report["spmd"] = phase_spmd(smi)
+    torch.cuda.empty_cache()
+
+    # 26. the remaining examples at full width — large-model training and
+    #     eval through spilling, model selection against the baselines,
+    #     three families served — and the mesh decode's dry runs
+    report["examples"] = phase_examples(smi)
     torch.cuda.empty_cache()
     report["total_s"] = time.perf_counter() - t_start
     vlm = report["item8b"]["vlm_launches"]

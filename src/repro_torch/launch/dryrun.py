@@ -44,6 +44,9 @@ either package reads it:
   (``all-gather``, ``all-reduce``, ``reduce-scatter``, ``all-to-all``,
   ``collective-permute``), their ``total`` and ``n_ops``, over the whole
   step (nothing to scale by a trip count).
+* ``collective_shapes``: per kind, the count of collectives by output
+  shape (``"8x1x2x128": 28``), which says what moved: a gathered K/V
+  plane shows as a 4-D all-gather as large as a layer's key rows.
 * ``scan_trip``: the layer count (the JAX package's key; informational).
 * ``compile_s``: the wall time of building and tracing the step.
 
@@ -65,6 +68,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import time
 import traceback
@@ -119,6 +123,7 @@ class DeviceCounter(TorchDispatchMode):
         self.flops = 0
         self.bytes_accessed = 0
         self.collectives: dict[str, int] = {}
+        self.shapes: dict[str, dict[str, int]] = {}
         self.n_collectives = 0
         self.live = 0
         self.peak = 0
@@ -161,6 +166,10 @@ class DeviceCounter(TorchDispatchMode):
                 self.collectives[kind] = self.collectives.get(kind, 0) \
                     + nbytes
                 self.n_collectives += 1
+                by_shape = self.shapes.setdefault(kind, {})
+                for t in outs:
+                    key = "x".join(map(str, t.shape))
+                    by_shape[key] = by_shape.get(key, 0) + 1
         elif func.overloadpacket in self._flops_of:
             self.flops += self._flops_of[func.overloadpacket](
                 *args, **kwargs, out_val=out)
@@ -323,6 +332,7 @@ def run_one(arch: str, shape_name: str, *, multi_pod: bool = False,
             hlo_flops_per_device=float(counter.flops),
             hlo_bytes_per_device=float(counter.bytes_accessed),
             collectives=coll,
+            collective_shapes=counter.shapes,
             scan_trip=meta["layers"])
         if "accum" in meta:
             rec["accum"] = meta["accum"]
@@ -339,6 +349,21 @@ def run_one(arch: str, shape_name: str, *, multi_pod: bool = False,
         if started:
             dist.destroy_process_group()
     return rec
+
+
+def kv_plane_gathers(rec: dict) -> dict:
+    """The all-gathers of a decode record that move a K/V plane: 4-D
+    outputs at least as large as one rank's share of a layer's cache
+    (``seq_len / ranks`` rows of every KV head), by output shape.  Empty
+    where attention reads a sequence-sharded cache where it lies."""
+    cfg = get_config(rec["arch"], smoke=rec.get("smoke", False))
+    ranks = math.prod(int(d) for d in rec["mesh"].split("x"))
+    least = (INPUT_SHAPES[rec["shape"]].seq_len // ranks
+             * cfg.n_kv_heads * cfg.head_dim)
+    gathers = rec["collective_shapes"].get("all-gather", {})
+    return {key: n for key, n in gathers.items()
+            if key.count("x") == 3
+            and math.prod(int(d) for d in key.split("x")) >= least}
 
 
 def lowering_dryrun(args) -> list[dict]:

@@ -3,6 +3,7 @@ registry (port of ``repro.models.api``)."""
 
 from __future__ import annotations
 
+import warnings
 from typing import Optional
 
 import torch
@@ -215,9 +216,57 @@ def paged_verify_step(cfg, params, pages, tables, lengths, tokens, *,
         impl=impl)
 
 
+def decode_state_spec(cfg, batch: int, max_seq: int):
+    """The decode state's tree on the ``meta`` device: its shapes and
+    dtypes with no allocation (the JAX package's ``eval_shape``)."""
+    return init_decode_state(cfg, batch, max_seq, device="meta")
+
+
 def decode_state_bytes(cfg, batch: int, max_seq: int) -> int:
     """Residency cost of one decode state (KV-budget admission control)."""
     return registry.spec(cfg).decode_state_bytes(cfg, batch, max_seq)
+
+
+# ---------------------------------------------------------------------------
+# deprecated predicate shims (the registry replaced the predicate zoo)
+# ---------------------------------------------------------------------------
+
+def _deprecated(old: str, new: str) -> None:
+    warnings.warn(
+        f"{__name__}.{old} is deprecated: capability decisions now "
+        f"live in the FamilySpec registry; use {new} "
+        "(see docs/api.md#backends--capabilities)",
+        DeprecationWarning, stacklevel=3)
+
+
+def is_attention_family(cfg) -> bool:
+    """Deprecated: use ``family_spec(cfg).batched_prefill``."""
+    _deprecated("is_attention_family", "family_spec(cfg).batched_prefill")
+    return registry.spec(cfg).batched_prefill
+
+
+def supports_padded_prefill(cfg) -> bool:
+    """Deprecated: use ``family_spec(cfg).padded_prefill``."""
+    _deprecated("supports_padded_prefill", "family_spec(cfg).padded_prefill")
+    return registry.spec(cfg).padded_prefill
+
+
+def supports_paging(cfg) -> bool:
+    """Deprecated: use ``family_spec(cfg).paging``."""
+    _deprecated("supports_paging", "family_spec(cfg).paging")
+    return registry.spec(cfg).paging
+
+
+def __getattr__(name: str):
+    # PEP 562 shims: the old capability tuples are now registry queries
+    if name == "ATTENTION_FAMILIES":
+        _deprecated("ATTENTION_FAMILIES",
+                    "registry.families_with('batched_prefill')")
+        return registry.families_with("batched_prefill")
+    if name == "PAGED_FAMILIES":
+        _deprecated("PAGED_FAMILIES", "registry.families_with('paging')")
+        return registry.families_with("paging")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 # ---------------------------------------------------------------------------

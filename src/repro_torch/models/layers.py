@@ -201,21 +201,66 @@ _SDPA_CHUNK_ELEMS = 4096 * 4096
 _SDPA_Q_CHUNK = 1024
 
 
-def _sdpa_dense(q, k, v, scale, qpos, kpos, causal, window):
-    """q: (b, sq, nkv, g, hd) grouped; k/v: (b, skv, nkv, hd); qpos: (sq,)
-    shared by the batch, or (b, sq) per lane."""
-    logits = torch.einsum("bqkgh,bskh->bkgqs", q.float(), k.float()) * scale
+def _attn_mask(qpos, kpos, causal, window, device):
+    """(1|b, sq, skv) bool: which keys each query row sees."""
     qp = qpos if qpos.dim() == 2 else qpos[None]              # (1|b, sq)
     mask = torch.ones((qp.shape[0], qp.shape[1], kpos.shape[0]),
-                      dtype=torch.bool, device=q.device)
+                      dtype=torch.bool, device=device)
     if causal:
         mask &= kpos[None, None, :] <= qp[:, :, None]
     if window is not None:
         mask &= kpos[None, None, :] > qp[:, :, None] - window
+    return mask
+
+
+def _sdpa_dense(q, k, v, scale, qpos, kpos, causal, window):
+    """q: (b, sq, nkv, g, hd) grouped; k/v: (b, skv, nkv, hd); qpos: (sq,)
+    shared by the batch, or (b, sq) per lane."""
+    logits = torch.einsum("bqkgh,bskh->bkgqs", q.float(), k.float()) * scale
+    mask = _attn_mask(qpos, kpos, causal, window, q.device)
     logits = torch.where(mask[:, None, None], logits,
                          torch.full_like(logits, NEG_INF))
     probs = torch.softmax(logits, dim=-1)
     return torch.einsum("bkgqs,bskh->bqkgh", probs, v.float())
+
+
+def _sdpa_dense_lse(q, k, v, scale, qpos, kpos, causal, window):
+    """``_sdpa_dense`` over a slice of the keys, also returning each query
+    row's log-sum-exp: ``(out (b, sq, nkv, g, hd), lse (b, nkv, g, sq))``,
+    both f32 — one split of a split-KV attention, for
+    ``_merge_key_splits``.  A row that sees no key of the slice gives out
+    0 and lse ``NEG_INF``: weight 0 in the merge, never NaN."""
+    logits = torch.einsum("bqkgh,bskh->bkgqs", q.float(), k.float()) * scale
+    mask = _attn_mask(qpos, kpos, causal, window, q.device)
+    logits = torch.where(mask[:, None, None], logits,
+                         torch.full_like(logits, NEG_INF))
+    live = mask.any(dim=-1)[:, None, None]                   # (1|b,1,1,sq)
+    lse = torch.where(live, torch.logsumexp(logits, dim=-1),
+                      torch.full_like(logits[..., 0], NEG_INF))
+    probs = torch.where(live[..., None], torch.softmax(logits, dim=-1), 0.0)
+    return torch.einsum("bkgqs,bskh->bqkgh", probs, v.float()), lse
+
+
+def _merge_key_splits(out, lse, groups):
+    """Merge split-KV partials across ranks, in f32: each rank holds the
+    attention over its own keys (``_sdpa_dense_lse``); the result is
+    ``sum_r(o_r e^(lse_r - m)) / sum_r(e^(lse_r - m))`` with ``m`` the
+    rows' largest lse — what ``kernels/csrc/split_kv.cuh`` does across
+    splits on one card.  ``groups``: the process groups of the mesh dims
+    the keys are split over, reduced one after another (max and sum are
+    associative); one max and one sum all-reduce a group."""
+    import torch.distributed._functional_collectives as funcol
+    m = lse
+    for g in groups:
+        m = funcol.wait_tensor(funcol.all_reduce(m, "max", g))
+    w = torch.exp(lse - m)                                   # (b, nkv, g, sq)
+    wq = w.permute(0, 3, 1, 2)[..., None]                    # (b, sq, nkv, g, 1)
+    packed = torch.cat([(out * wq).reshape(-1), w.reshape(-1)])
+    for g in groups:
+        packed = funcol.wait_tensor(funcol.all_reduce(packed, "sum", g))
+    num = packed[:out.numel()].reshape(out.shape)
+    den = packed[out.numel():].reshape(w.shape).permute(0, 3, 1, 2)
+    return num / den[..., None]
 
 
 def sdpa(q, k, v, *, causal: bool, window: Optional[int] = None,
@@ -263,12 +308,18 @@ def _sdpa_over_mesh(q, k, v, *, causal, window, q_positions, kv_positions):
     the KV heads divide it (a rank then holds whole GQA groups); else the
     query sequence over 'model' (``constrain_q_seq``: context
     parallelism, K/V whole).  Each (row, head, query) still reads whole
-    K/V rows, so the result is the unsharded one.  Running the products
+    K/V rows, so the result is the unsharded one.  A K/V whose sequence
+    is sharded (a decode cache) stays where it lies: see
+    ``_sdpa_over_key_shards``.  Running the products
     on local tensors also keeps DTensor from searching placements for the
     grouped 5-D einsums."""
     from torch.distributed.tensor import DTensor, Shard
     from repro_torch.sharding import specs as sh
 
+    if _key_sharded(k):
+        return _sdpa_over_key_shards(q, k, v, causal=causal, window=window,
+                                     q_positions=q_positions,
+                                     kv_positions=kv_positions)
     mesh = q.device_mesh
     names = sh.axis_names(mesh)
     b, sq = q.shape[:2]
@@ -306,6 +357,105 @@ def _sdpa_over_mesh(q, k, v, *, causal, window, q_positions, kv_positions):
         # (b, s), which some DTensor versions cannot do with both sharded
         out = out.redistribute(mesh, kv_pl)
     return out
+
+
+def _kv_query_placements(kv_pl):
+    """The placements a query or a new K/V row takes beside K/V laid out
+    ``kv_pl``: the same batch (dim 0) and head (dim 2) shards, and whole
+    on every mesh dim that splits the K/V sequence (dim 1)."""
+    from torch.distributed.tensor import Replicate, Shard
+    return tuple(p if isinstance(p, Shard) and p.dim in (0, 2)
+                 else Replicate() for p in kv_pl)
+
+
+def _sdpa_over_key_shards(q, k, v, *, causal, window, q_positions,
+                          kv_positions):
+    """``sdpa`` over a K/V whose *sequence* is sharded (a decode cache laid
+    out by ``decode_state_specs``'s sequence candidates: flash-decode
+    context parallelism).  Nothing of K/V moves: each rank attends its
+    queries, whole over the sequence's mesh dims, to its own key rows at
+    their own positions, and the partials are merged by their
+    log-sum-exp (``_merge_key_splits``) — a few (b, sq, nh, hd) all-reduces
+    a layer where gathering K/V would move the whole cache.  Batch rows
+    and heads keep the shards K/V have (a rank holds whole GQA groups)."""
+    from torch.distributed.tensor import DTensor, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    from repro_torch.sharding import specs as sh
+
+    mesh = k.device_mesh
+    kv_pl = tuple(k.placements)
+    q_pl = _kv_query_placements(kv_pl)
+    seq_dims = [i for i, p in enumerate(kv_pl)
+                if isinstance(p, Shard) and p.dim == 1]
+    ql = q.redistribute(mesh, q_pl).to_local()
+    kl = k.to_local()
+    vl = v.redistribute(mesh, kv_pl).to_local()
+    # this rank's first batch row and key row, in DTensor's own shard order
+    _, off = compute_local_shape_and_global_offset(k.shape, mesh, kv_pl)
+
+    b, sq, nh_l, hd = ql.shape
+    skv, nkv_l = kl.shape[1], kl.shape[2]
+    qg = ql.reshape(b, sq, nkv_l, nh_l // nkv_l, hd)
+    qpos = (q_positions if q_positions is not None
+            else torch.arange(sq, device=ql.device))
+    if qpos.dim() == 2 and qpos.shape[0] != b:            # one row per lane
+        qpos = qpos[off[0]:off[0] + b]
+    kpos = (kv_positions if kv_positions is not None
+            else torch.arange(k.shape[1], device=ql.device))
+    kpos = kpos[off[1]:off[1] + skv]
+    scale = 1.0 / math.sqrt(hd)
+    step = (sq if sq * skv <= _SDPA_CHUNK_ELEMS or sq % _SDPA_Q_CHUNK
+            else _SDPA_Q_CHUNK)
+    parts = [_sdpa_dense_lse(qg[:, i:i + step], kl, vl, scale,
+                             qpos[..., i:i + step], kpos, causal, window)
+             for i in range(0, sq, step)]
+    out = _merge_key_splits(torch.cat([o for o, _ in parts], dim=1),
+                            torch.cat([l for _, l in parts], dim=-1),
+                            [mesh.get_group(i) for i in seq_dims])
+    out = out.reshape(b, sq, nh_l, hd).to(q.dtype)
+    return DTensor.from_local(out.contiguous(), mesh, q_pl, run_check=False,
+                              shape=q.shape,
+                              stride=sh.contiguous_stride(q.shape))
+
+
+def _store_rows_over_key_shards(plane, start, rows) -> None:
+    """``store_rows`` into a DTensor plane whose sequence (dim 1) is
+    sharded: each rank writes, into its own shard, the rows that fall in
+    its key range, and no rank's shard moves.  ``start``: the int write
+    row shared by the batch, or (b,) per-lane write rows (already
+    clamped); ``rows``: the chunk (b, sq, nkv, hd)."""
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    mesh = plane.device_mesh
+    pl = tuple(plane.placements)
+    rl = rows.redistribute(mesh, _kv_query_placements(pl)).to_local() \
+        if is_dtensor(rows) else rows
+    local = plane.to_local()
+    _, off = compute_local_shape_and_global_offset(plane.shape, mesh, pl)
+    lo, n = off[1], local.shape[1]
+    sq = rl.shape[1]
+    if not isinstance(start, torch.Tensor):
+        a, b = max(start, lo), min(start + sq, lo + n)
+        if a < b:
+            store_rows(local, (slice(None), slice(a - lo, b - lo)),
+                       rl[:, a - start:b - start])
+        return
+    start = start[off[0]:off[0] + local.shape[0]] \
+        if start.shape[0] != local.shape[0] else start
+    at = start[:, None] + torch.arange(sq, device=start.device) - lo
+    mine = (at >= 0) & (at < n)
+    lane = torch.arange(at.shape[0], device=at.device)[:, None].expand_as(at)
+    store_rows(local, (lane[mine], at[mine]), rl[mine])
+
+
+def _key_sharded(t) -> bool:
+    """Whether ``t`` is a DTensor with its dim 1 (a K/V sequence)
+    sharded."""
+    if not is_dtensor(t):
+        return False
+    from torch.distributed.tensor import Shard
+    return any(isinstance(p, Shard) and p.dim == 1 for p in t.placements)
 
 
 def attention(params: Params, x: torch.Tensor, cfg,
@@ -354,16 +504,19 @@ def attention(params: Params, x: torch.Tensor, cfg,
     ck, cv = kv_cache["k"], kv_cache["v"]
     steps = torch.arange(sq, device=x.device)
     if isinstance(idx, torch.Tensor):
-        rows = torch.clamp(idx, max=ck.shape[1] - sq)[:, None] + steps
-        lane = torch.arange(b, device=x.device)[:, None]
-        store_rows(ck, (lane, rows), k)
-        store_rows(cv, (lane, rows), v)
+        start = torch.clamp(idx, max=ck.shape[1] - sq)
+        where = (torch.arange(b, device=x.device)[:, None],
+                 start[:, None] + steps)
         qpos = idx[:, None] + steps                          # (b, sq)
     else:
-        idx = int(idx)
-        store_rows(ck, (slice(None), slice(idx, idx + sq)), k)
-        store_rows(cv, (slice(None), slice(idx, idx + sq)), v)
+        idx = start = int(idx)
+        where = (slice(None), slice(idx, idx + sq))
         qpos = idx + steps                                   # (sq,)
+    for plane, new in ((ck, k), (cv, v)):
+        if _key_sharded(plane):       # the rank owning each row writes it
+            _store_rows_over_key_shards(plane, start, new)
+        else:
+            store_rows(plane, where, new)
     kvpos = torch.arange(ck.shape[1], device=x.device)
     # unwritten slots are masked by the causal predicate (kvpos <= qpos)
     out = sdpa(q, ck, cv, causal=True, window=window,

@@ -146,6 +146,8 @@ def test_hydra_torch_exports_equal_hydra():
 
 @pytest.mark.parametrize("path", [
     "src/hydra_torch/__init__.py", "examples/quickstart_torch.py",
+    "examples/large_model_single_device_torch.py",
+    "examples/model_selection_torch.py", "examples/serve_batched_torch.py",
     *sorted(str(p.relative_to(REPO)) for p in (REPO / "tools").glob(
         "*.py"))])
 def test_new_entry_points_import_no_jax(path):

@@ -9,12 +9,18 @@ tests run under, and DTensor differs between versions).
     python3 tools/mesh_ranks_check.py [--out-dir DIR]
     torchrun --nproc-per-node 4 tools/mesh_ranks_check.py --cuda
 
-``--cuda`` (under ``torchrun``, four GPUs): the (2, 2) train step alone,
-one GPU a rank over NCCL, against the unmeshed step on each rank's GPU.
+``--cuda`` (under ``torchrun``, four GPUs): the (2, 2) train step and
+the sequence-sharded decode, one GPU a rank over NCCL, against the
+unmeshed steps on each rank's GPU.
 
 * four ranks on a (2, 2) mesh: one qwen3-0.6b smoke train step (f32,
   accum 2) against the unmeshed step, bound 2e-4 (loss, grad norm,
   every param);
+* four ranks on a (2, 2) mesh: three qwen3-0.6b smoke decode steps (f32)
+  over a KV cache whose sequence is sharded, in every layout of
+  ``SEQ_DECODE_CASES``, against the unmeshed steps: logits within 2e-4,
+  the same tokens, each rank's shard holding the new rows where it owns
+  them and nothing else changed;
 * eight ranks on a (2, 4) mesh: mixtral-8x22b smoke's expert-parallel
   layer against the local path (1e-5; lb_loss 1e-6), the end-to-end
   softmax against the unmeshed forward (5e-3), at least one all-to-all.
@@ -43,11 +49,36 @@ def _flat(tree, prefix="p"):
     return out
 
 
+def _seq_decode_summary(out_dir) -> dict:
+    """Per case of the four ranks' ``seq_decode_<rank>.pt``: the largest
+    logit and new-row differences, whether every rank's tokens equal the
+    unmeshed ones and every other row stayed as it was; ``ok`` when all
+    cases hold (2e-4)."""
+    import torch
+    ranks = [torch.load(Path(out_dir) / f"seq_decode_{r}.pt")
+             for r in range(4)]
+    out = {}
+    for case in ranks[0]:
+        rs = [r[case] for r in ranks]
+        out[case] = {
+            "logit_diff": max(o["logit_diff"] for o in rs),
+            "new_rows_diff": max(o[f"{n}_new_rows_diff"] for o in rs
+                                 for n in ("k", "v")),
+            "tokens_equal": all(o["tokens"] == o["ref_tokens"] for o in rs),
+            "others_unchanged": all(o[f"{n}_others_unchanged"] for o in rs
+                                    for n in ("k", "v"))}
+    out["ok"] = all(c["logit_diff"] <= 2e-4 and c["new_rows_diff"] <= 2e-4
+                    and c["tokens_equal"] and c["others_unchanged"]
+                    for c in out.values())
+    return out
+
+
 def main() -> None:
     import numpy as np
     import torch
 
-    from _torch_mesh_ranks import moe_ep_rank, run_ranks, spmd_step_rank
+    from _torch_mesh_ranks import (moe_ep_rank, run_ranks,
+                                   seq_sharded_decode_rank, spmd_step_rank)
     from repro_torch.checkpoint.convert import params_to_numpy
     from repro_torch.configs import get_config
     from repro_torch.models import api
@@ -69,12 +100,16 @@ def main() -> None:
         rank = int(os.environ["RANK"])
         torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
         spmd_step_rank(rank, str(out_dir), "qwen3-0.6b", 2, device="cuda")
+        seq_sharded_decode_rank(rank, str(out_dir), device="cuda")
+        dist.barrier()
         if rank == 0:
             step = torch.load(out_dir / "spmd_step.pt")
             res["spmd_step_cuda"] = {k: step[k] for k in
                                      ("loss", "grad_norm", "params")}
+            res["seq_decode_cuda"] = _seq_decode_summary(out_dir)
             res["device"] = torch.cuda.get_device_name(0)
-            res["ok"] = max(res["spmd_step_cuda"].values()) <= 2e-4
+            res["ok"] = (max(res["spmd_step_cuda"].values()) <= 2e-4
+                         and res["seq_decode_cuda"]["ok"])
             print(json.dumps(res))
         dist.destroy_process_group()
         sys.exit(0 if rank or res["ok"] else 1)
@@ -83,6 +118,8 @@ def main() -> None:
         step = torch.load(Path(tmp) / "spmd_step.pt")
         res["spmd_step"] = {k: step[k] for k in ("loss", "grad_norm",
                                                  "params")}
+        run_ranks(seq_sharded_decode_rank, 4, tmp, timeout=600)
+        res["seq_decode"] = _seq_decode_summary(Path(tmp))
         cfg = get_config("mixtral-8x22b", smoke=True)
         params = api.init_params(cfg, torch.Generator().manual_seed(0),
                                  "cpu")
@@ -101,6 +138,7 @@ def main() -> None:
             "softmax_diff": float(out["softmax_diff"]),
             "n_all_to_all": int(out["n_a2a"])}
     ok = (max(res["spmd_step"].values()) <= 2e-4
+          and res["seq_decode"]["ok"]
           and res["moe_ep"]["max_abs_diff"] <= 1e-5
           and res["moe_ep"]["lb_rel_diff"] <= 1e-6
           and res["moe_ep"]["softmax_diff"] < 5e-3
