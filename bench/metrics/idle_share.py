@@ -1,0 +1,9 @@
+"""Share of the traced window in which no kernel, copy or memset ran on
+the card (device trace), in %."""
+
+
+def read(ctx):
+    tr = ctx.get("trace")
+    if tr is None or tr["window_s"] <= 0:
+        return None
+    return 100.0 * (1.0 - tr["busy_s"] / tr["window_s"])
