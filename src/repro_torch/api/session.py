@@ -49,7 +49,7 @@ from typing import Any, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, tracing
 from repro_torch.api.jobs import (EvalJob, JobSpec, ServeJob, SpmdTrainJob,
                                   TrainJob)
 from repro_torch.api.plan import JobPlan, Plan, cfg_to_dict, partition_to_dict
@@ -619,12 +619,15 @@ class Session:
                 f"pages, leaving no shard headroom in the "
                 f"{self.hc.device_budget_bytes} B device budget — shrink "
                 "ServeJob capacity/max_seq or give them kv_budget_bytes")
-        partition = planned if planned is not None else pt.partition(
-            cfg, sg.prepare_host_params(cfg, params), shard_plan,
-            budget_bytes=budget,
-            batch=batch, seq=seq, oracle=self.hc.partition_oracle,
-            buffer_frac=self.hc.buffer_frac, train=train,
-            cost_model=self.cost, device=self.device)
+        if planned is not None:
+            return shard_plan, planned
+        with tracing.span("hydra.partition", model=cfg.name):
+            partition = pt.partition(
+                cfg, sg.prepare_host_params(cfg, params), shard_plan,
+                budget_bytes=budget,
+                batch=batch, seq=seq, oracle=self.hc.partition_oracle,
+                buffer_frac=self.hc.buffer_frac, train=train,
+                cost_model=self.cost, device=self.device)
         return shard_plan, partition
 
     def _build_train(self, job: TrainJob, planned) -> ModelExec:
@@ -990,19 +993,22 @@ class Session:
         for _ in range(job.n_batches):
             if self._state[jid] is JobState.CANCELLED:
                 break
-            try:
-                raw = next(it)
-            except StopIteration:
-                # a short dataloader ends the job with partial results
-                ev.exhausted = True
-                break
-            batch = as_tensors(raw, self.device)
-            logits, moved = spilled_forward(
-                ev.store, ev.fns, ev.partition, batch,
-                on_shard=lambda _s: self.serve_tick())
-            ev.bytes_moved += moved
-            ev.losses.append(float(softmax_xent(logits, batch["labels"])))
-            ev.batches_done += 1
+            with tracing.span("hydra.eval_batch", batch=ev.batches_done):
+                try:
+                    with tracing.span("hydra.data"):
+                        batch = as_tensors(next(it), self.device)
+                except StopIteration:
+                    # a short dataloader ends the job with partial results
+                    ev.exhausted = True
+                    break
+                logits, moved = spilled_forward(
+                    ev.store, ev.fns, ev.partition, batch,
+                    on_shard=lambda _s: self.serve_tick())
+                ev.bytes_moved += moved
+                with tracing.span("hydra.loss"):
+                    ev.losses.append(
+                        float(softmax_xent(logits, batch["labels"])))
+                ev.batches_done += 1
         mean = float(np.mean(ev.losses)) if ev.losses else None
         return {"losses": ev.losses,
                 "mean_loss": mean,

@@ -19,7 +19,7 @@ from typing import Any, Callable, Iterator, Optional
 
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, tracing
 from repro_torch.core import partitioner as pt
 from repro_torch.core import shard_graph as sg
 from repro_torch.core.sharp import HydraConfig, RunReport, ShardFunctions
@@ -91,7 +91,8 @@ def spilled_forward(store, fns, partition, batch, *, on_shard=None):
     for shard in partition.shards:
         own, shared = store.promote_shard_params(shard)
         moved += store.shard_transfer_bytes(shard, train=False)
-        act, _ = fns.fwd(shard)(own, shared, act, batch)
+        with tracing.span("hydra.fwd", shard=shard.index):
+            act, _ = fns.fwd(shard)(own, shared, act, batch)
         if on_shard is not None:
             on_shard(shard)
     return act["logits"], moved

@@ -39,6 +39,7 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core import scheduler as sched
 from repro_torch.core import shard_graph as sg
 from repro_torch.core.partitioner import PartitionResult, Shard
@@ -235,8 +236,9 @@ class ModelExec:
                   for s in reversed(shards)]
         self.queue = units
         self.cursor = 0
-        self.current_batch = as_tensors(next(self.data_iter),
-                                        self.store.device)
+        with tracing.span("hydra.data"):
+            self.current_batch = as_tensors(next(self.data_iter),
+                                            self.store.device)
 
     def next_unit(self) -> Optional[Unit]:
         if self.done:
@@ -326,44 +328,46 @@ class SharpExecutor:
         and nothing is stepped or demoted, so training state is untouched.
         """
         for m in self.models:
-            dev = m.store.device
-            batch = m.pilot_batch
-            acts = {}
-            act = {}
-            cot = None
+            with tracing.span("hydra.pilot", model=m.model_id):
+                dev = m.store.device
+                batch = m.pilot_batch
+                acts = {}
+                act = {}
+                cot = None
 
-            def timed(fn, *args):
-                fn(*args)
-                _sync(dev)
-                t0 = time.perf_counter()
-                res = fn(*args)
-                _sync(dev)
-                return res, max(time.perf_counter() - t0, 1e-7)
+                def timed(fn, *args):
+                    fn(*args)
+                    _sync(dev)
+                    t0 = time.perf_counter()
+                    res = fn(*args)
+                    _sync(dev)
+                    return res, max(time.perf_counter() - t0, 1e-7)
 
-            # each loop drops a shard's promoted copies and gradients
-            # before promoting the next, as the units do
-            for shard in m.partition.shards:
-                acts[shard.index] = act
-                (act, _), shard.fwd_runtime = timed(
-                    m.fns.fwd(shard), *m.store.promote_shard_params(shard),
-                    act, batch)
-            del act                  # the logits: no backward reads them
-            for shard in reversed(m.partition.shards):
-                args = (*m.store.promote_shard_params(shard),
-                        acts[shard.index])
-                if shard.index != len(m.partition.shards) - 1:
-                    args += (cot,)
-                res, shard.bwd_runtime = timed(m.fns.bwd(shard), *args,
-                                               batch)
-                cot = res[-1]
-                del args, res
-            for shard in m.partition.shards:
-                shard.est_runtime = shard.fwd_runtime + shard.bwd_runtime
+                # each loop drops a shard's promoted copies and gradients
+                # before promoting the next, as the units do
+                for shard in m.partition.shards:
+                    acts[shard.index] = act
+                    (act, _), shard.fwd_runtime = timed(
+                        m.fns.fwd(shard), *m.store.promote_shard_params(shard),
+                        act, batch)
+                del act                  # the logits: no backward reads them
+                for shard in reversed(m.partition.shards):
+                    args = (*m.store.promote_shard_params(shard),
+                            acts[shard.index])
+                    if shard.index != len(m.partition.shards) - 1:
+                        args += (cot,)
+                    res, shard.bwd_runtime = timed(m.fns.bwd(shard), *args,
+                                                   batch)
+                    cot = res[-1]
+                    del args, res
+                for shard in m.partition.shards:
+                    shard.est_runtime = shard.fwd_runtime + shard.bwd_runtime
 
     # -- real unit execution -------------------------------------------------
     def _execute_unit(self, m: ModelExec, unit: Unit) -> None:
         shard = unit.shard
         batch = m.current_batch
+        last = shard.index == len(m.partition.shards) - 1
         if unit.direction == "fwd":
             # the ledger charges the whole shard (opt state included) to
             # every unit, as the JAX package does; a forward unit copies
@@ -373,24 +377,25 @@ class SharpExecutor:
                 else m.saved_acts[("exit", shard.index - 1)]
             # entry activation is the checkpoint this shard's backward reuses
             m.saved_acts[("entry", shard.index)] = act_in
-            out, loss = m.fns.fwd(shard)(own, shared, act_in, batch)
-            if shard.index == len(m.partition.shards) - 1:
-                # the last exit (the logits) is no shard's entry, and its
-                # backward recomputes it: keeping it would hold a
-                # logits-sized tensor through that backward unit
-                m.losses.append(float(loss))
-            else:
+            with tracing.span("hydra.fwd", shard=shard.index):
+                out, loss = m.fns.fwd(shard)(own, shared, act_in, batch)
+                if last:
+                    # the last exit (the logits) is no shard's entry, and
+                    # its backward recomputes it: keeping it would hold a
+                    # logits-sized tensor through that backward unit
+                    m.losses.append(float(loss))
+            if not last:
                 m.saved_acts[("exit", shard.index)] = out
         else:
             own, shared, opt_state = m.store.promote_shard(shard)
             act_in = m.saved_acts[("entry", shard.index)]
-            last = shard.index == len(m.partition.shards) - 1
-            if last:
-                loss, g_own, g_shared, g_act = m.fns.bwd(shard)(
-                    own, shared, act_in, batch)
-            else:
-                g_own, g_shared, g_act = m.fns.bwd(shard)(
-                    own, shared, act_in, m.saved_cot, batch)
+            with tracing.span("hydra.bwd", shard=shard.index):
+                if last:
+                    loss, g_own, g_shared, g_act = m.fns.bwd(shard)(
+                        own, shared, act_in, batch)
+                else:
+                    g_own, g_shared, g_act = m.fns.bwd(shard)(
+                        own, shared, act_in, m.saved_cot, batch)
             m.saved_cot = g_act
             shared_names = m.store.shard_shared_names(shard)
             if shared_names:
@@ -442,49 +447,58 @@ class SharpExecutor:
             until = windows.get(d, (0.0, None))[1]
             if until is not None and t >= until:
                 continue    # device retired (fault / elasticity shrink)
-            eligible = self._eligible()
-            if not eligible:
-                future = [m.ready_at for m in live if m.next_unit() is not None]
-                if not future:
-                    break
-                heapq.heappush(dev_heap, (max(min(future), t + 1e-9), d))
-                continue
-            progress = [m.progress() for m in eligible]
-            m = eligible[self.pick(progress)]
-            unit = m.next_unit()
-            m.reserved = True
+            with tracing.span("hydra.schedule"):
+                eligible = self._eligible()
+                if not eligible:
+                    future = [m.ready_at for m in live
+                              if m.next_unit() is not None]
+                    if not future:
+                        break
+                    heapq.heappush(dev_heap, (max(min(future), t + 1e-9), d))
+                    continue
+                progress = [m.progress() for m in eligible]
+                m = eligible[self.pick(progress)]
+                unit = m.next_unit()
+                m.reserved = True
 
-            # ---- timing model -------------------------------------------
-            shard_bytes = m.store.shard_transfer_bytes(unit.shard)
-            act_bytes = unit.shard.act_bytes // 4   # boundary act only
-            move_act = m.act_location is not None and m.act_location != d
-            tx_bytes = shard_bytes + (act_bytes if move_act else 0)
-            tx_time = tx_bytes / self.hc.link_bw
-            if self.hc.enable_double_buffer:
-                # transfer began when this device started its previous unit
-                tx_start = max(dev_prev_start[d], m.ready_at)
-                tx_end = tx_start + tx_time
-                start = max(t, m.ready_at, tx_end)
-                self.hidden_transfer += min(tx_time, max(0.0, t - tx_start))
-                self.exposed_transfer += max(0.0, tx_end - max(t, m.ready_at))
-            else:
-                tx_start = max(t, m.ready_at)
-                tx_end = tx_start + tx_time
-                start = tx_end
-                self.exposed_transfer += tx_time
-            duration = unit.shard.fwd_runtime if unit.direction == "fwd" \
-                else unit.shard.bwd_runtime
-            end = start + duration
+                # ---- timing model ---------------------------------------
+                shard_bytes = m.store.shard_transfer_bytes(unit.shard)
+                act_bytes = unit.shard.act_bytes // 4   # boundary act only
+                move_act = m.act_location is not None and m.act_location != d
+                tx_bytes = shard_bytes + (act_bytes if move_act else 0)
+                tx_time = tx_bytes / self.hc.link_bw
+                if self.hc.enable_double_buffer:
+                    # transfer began when this device started its previous
+                    # unit
+                    tx_start = max(dev_prev_start[d], m.ready_at)
+                    tx_end = tx_start + tx_time
+                    start = max(t, m.ready_at, tx_end)
+                    self.hidden_transfer += min(tx_time,
+                                                max(0.0, t - tx_start))
+                    self.exposed_transfer += max(
+                        0.0, tx_end - max(t, m.ready_at))
+                else:
+                    tx_start = max(t, m.ready_at)
+                    tx_end = tx_start + tx_time
+                    start = tx_end
+                    self.exposed_transfer += tx_time
+                duration = unit.shard.fwd_runtime if unit.direction == "fwd" \
+                    else unit.shard.bwd_runtime
+                end = start + duration
 
-            # ---- memory accounting --------------------------------------
-            dev = self.devices[d]
-            dev.promote_through_buffer(
-                shard_bytes, double_buffer=self.hc.enable_double_buffer)
-            if move_act:
-                dev.charge_act(act_bytes)
+                # ---- memory accounting ----------------------------------
+                dev = self.devices[d]
+                dev.promote_through_buffer(
+                    shard_bytes, double_buffer=self.hc.enable_double_buffer)
+                if move_act:
+                    dev.charge_act(act_bytes)
 
             # ---- real compute --------------------------------------------
-            self._execute_unit(m, unit)
+            with tracing.span("hydra.unit", model=m.model_id,
+                              shard=unit.shard.index,
+                              direction=unit.direction,
+                              minibatch=unit.minibatch):
+                self._execute_unit(m, unit)
             self.units_executed += 1
             dev.charge_demotion(shard_bytes)
             if on_unit is not None:
@@ -535,24 +549,30 @@ class SharpExecutor:
         return [m for m in live if m.model_id == self.active_model]
 
     def _finish_minibatch(self, m: ModelExec):
-        m.store.step_shared()
-        m.saved_acts.clear()
-        m.saved_cot = None
-        m.act_location = None
-        m.minibatch += 1
-        if m.minibatch >= m.steps_per_epoch:
-            m.minibatch = 0
-            m.epoch += 1
-        # AutoML early stopping (Hyperband-class): underperformers leave the
-        # workload — the case-1 -> case-2 degradation Sharded-LRTF handles
-        # (paper §4.7.2)
-        if m.early_stop is not None and m.early_stop(m.losses):
-            m.stopped_early = True
-            m.done = True
-        if m.epoch >= m.epochs:
-            m.done = True
-        if m.done:
-            if not self.hc.enable_sharp and self.active_model == m.model_id:
-                self.active_model = None
-            return
-        m.build_minibatch_queue()
+        with tracing.span("hydra.minibatch_end", model=m.model_id,
+                          minibatch=m.minibatch):
+            m.store.step_shared()
+            m.saved_acts.clear()
+            m.saved_cot = None
+            m.act_location = None
+            m.minibatch += 1
+            if m.minibatch >= m.steps_per_epoch:
+                m.minibatch = 0
+                m.epoch += 1
+            # AutoML early stopping (Hyperband-class): underperformers leave
+            # the workload — the case-1 -> case-2 degradation Sharded-LRTF
+            # handles (paper §4.7.2)
+            if m.early_stop is not None:
+                with tracing.span("hydra.early_stop", model=m.model_id):
+                    stop = m.early_stop(m.losses)
+                if stop:
+                    m.stopped_early = True
+                    m.done = True
+            if m.epoch >= m.epochs:
+                m.done = True
+            if m.done:
+                if not self.hc.enable_sharp \
+                        and self.active_model == m.model_id:
+                    self.active_model = None
+                return
+            m.build_minibatch_queue()

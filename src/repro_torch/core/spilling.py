@@ -31,7 +31,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, tracing
 from repro_torch.core import shard_graph as sg
 from repro_torch.core.partitioner import PartitionResult, Shard, tree_bytes
 from repro_torch.tree import tree_map
@@ -85,22 +85,27 @@ class HostModelStore:
         self.cfg = cfg
         self.plan = plan
         self.partition = partition
-        self.params = sg.prepare_host_params(cfg, to_host(params, pin))
         self.opt_cfg = opt_cfg
         self.train = train
         self.opt: dict[int, Any] = {}
         self.shared_opt: dict[str, Any] = {}
-        if not train:
-            return
-        for shard in partition.shards:
-            own = self._own_params(shard)
-            self.opt[shard.index] = to_host(opt.init_state(opt_cfg, own), pin)
-        self.shared_opt = {
-            name: to_host(opt.init_state(
-                opt_cfg, sg.resolve_ref(self.params, ref)), pin)
-            for name, ref in plan.shared_refs.items()}
-        # accumulated grads for shared params within the current mini-batch
-        self.shared_grad_acc: dict[str, Any] = {}
+        with tracing.span("hydra.store_build", model=cfg.name) as sp:
+            self.params = sg.prepare_host_params(cfg, to_host(params, pin))
+            if train:
+                for shard in partition.shards:
+                    own = self._own_params(shard)
+                    self.opt[shard.index] = to_host(
+                        opt.init_state(opt_cfg, own), pin)
+                self.shared_opt = {
+                    name: to_host(opt.init_state(
+                        opt_cfg, sg.resolve_ref(self.params, ref)), pin)
+                    for name, ref in plan.shared_refs.items()}
+                # accumulated grads for shared params within the current
+                # mini-batch
+                self.shared_grad_acc: dict[str, Any] = {}
+            if sp:
+                sp.set(bytes=tree_bytes((self.params, self.opt,
+                                         self.shared_opt)))
 
     # -- own (spillable) ---------------------------------------------------
     def _own_params(self, shard: Shard):
@@ -119,23 +124,34 @@ class HostModelStore:
         if not self.train:
             raise ValueError("a forward-only host store holds no optimizer "
                              "state: promote_shard_params")
-        own = to_device(self._own_params(shard), self.device)
-        opt_state = to_device(self.opt[shard.index], self.device)
-        return own, self._shared_params(shard), opt_state
+        with tracing.span("hydra.promote", shard=shard.index) as sp:
+            own = to_device(self._own_params(shard), self.device)
+            opt_state = to_device(self.opt[shard.index], self.device)
+            shared = self._shared_params(shard)
+            if sp:
+                sp.set(bytes=tree_bytes((own, shared, opt_state)))
+        return own, shared, opt_state
 
     def promote_shard_params(self, shard: Shard):
         """Host -> device, weights only (no optimizer state)."""
-        return to_device(self._own_params(shard), self.device), \
-            self._shared_params(shard)
+        with tracing.span("hydra.promote", shard=shard.index) as sp:
+            own = to_device(self._own_params(shard), self.device)
+            shared = self._shared_params(shard)
+            if sp:
+                sp.set(bytes=tree_bytes((own, shared)))
+        return own, shared
 
     def demote_shard(self, shard: Shard, own, opt_state):
         """Device -> host: write back possibly-updated params + opt state."""
-        for k, i in enumerate(range(shard.seg_lo, shard.seg_hi)):
-            ref = self.plan.segments[i].param_ref
-            if ref is not None and own[k] is not None:
-                sg.update_with_ref(self.params, ref, own[k])
-        tree_map(lambda dst, src: dst.copy_(src), self.opt[shard.index],
-                 opt_state)
+        with tracing.span("hydra.demote", shard=shard.index) as sp:
+            for k, i in enumerate(range(shard.seg_lo, shard.seg_hi)):
+                ref = self.plan.segments[i].param_ref
+                if ref is not None and own[k] is not None:
+                    sg.update_with_ref(self.params, ref, own[k])
+            tree_map(lambda dst, src: dst.copy_(src), self.opt[shard.index],
+                     opt_state)
+            if sp:
+                sp.set(bytes=tree_bytes((own, opt_state)))
 
     def shard_shared_names(self, shard: Shard) -> list[str]:
         names: list[str] = []
@@ -149,31 +165,33 @@ class HostModelStore:
     def accumulate_shared_grads(self, grads: dict[str, Any]):
         """Sum shared-param grads on the host across the mini-batch's
         backward units."""
-        for name, g in grads.items():
-            if g is None:
-                continue
-            if name in self.shared_grad_acc:
-                self.shared_grad_acc[name] = tree_map(
-                    lambda a, b: a + b.to("cpu"),
-                    self.shared_grad_acc[name], g)
-            else:
-                self.shared_grad_acc[name] = to_host(g)
+        with tracing.span("hydra.shared_grads"):
+            for name, g in grads.items():
+                if g is None:
+                    continue
+                if name in self.shared_grad_acc:
+                    self.shared_grad_acc[name] = tree_map(
+                        lambda a, b: a + b.to("cpu"),
+                        self.shared_grad_acc[name], g)
+                else:
+                    self.shared_grad_acc[name] = to_host(g)
 
     def step_shared(self):
         """Apply accumulated shared-param grads (mini-batch boundary)."""
         from repro_torch.optim import optimizers as opt
-        for name, g in self.shared_grad_acc.items():
-            ref = self.plan.shared_refs[name]
-            p = to_device(sg.resolve_ref(self.params, ref), self.device)
-            s = to_device(self.shared_opt[name], self.device)
-            # in place on the promoted copies (the shared table is the
-            # largest tensor a step touches)
-            new_p, new_s = opt.update_(self.opt_cfg, p,
-                                       to_device(g, self.device), s)
-            sg.update_with_ref(self.params, ref, new_p)
-            tree_map(lambda dst, src: dst.copy_(src), self.shared_opt[name],
-                     new_s)
-        self.shared_grad_acc = {}
+        with tracing.span("hydra.step_shared"):
+            for name, g in self.shared_grad_acc.items():
+                ref = self.plan.shared_refs[name]
+                p = to_device(sg.resolve_ref(self.params, ref), self.device)
+                s = to_device(self.shared_opt[name], self.device)
+                # in place on the promoted copies (the shared table is the
+                # largest tensor a step touches)
+                new_p, new_s = opt.update_(self.opt_cfg, p,
+                                           to_device(g, self.device), s)
+                sg.update_with_ref(self.params, ref, new_p)
+                tree_map(lambda dst, src: dst.copy_(src),
+                         self.shared_opt[name], new_s)
+            self.shared_grad_acc = {}
 
     # -- sizes --------------------------------------------------------------
     def shard_transfer_bytes(self, shard: Shard, *, train: bool = True) -> int:

@@ -19,6 +19,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -108,37 +109,38 @@ def update_(cfg: OptimizerConfig, params, grads, state, *,
     tensors of ``params`` and ``state``, leaf by leaf, and returned.  A
     step holds one leaf's temporaries.  For tensors the caller owns:
     SHARP's promoted copies, never a master copy."""
-    if cfg.grad_clip > 0:
-        grads, _ = clip_by_global_norm(grads, cfg.grad_clip, grad_norm)
-    step = state["step"] + 1
-    lr = schedule_lr(cfg, step)
-    ps, gs = tree_leaves(params), tree_leaves(grads)
+    with tracing.span("hydra.opt_step"):
+        if cfg.grad_clip > 0:
+            grads, _ = clip_by_global_norm(grads, cfg.grad_clip, grad_norm)
+        step = state["step"] + 1
+        lr = schedule_lr(cfg, step)
+        ps, gs = tree_leaves(params), tree_leaves(grads)
 
-    if cfg.kind == "adamw":
-        b1, b2 = cfg.b1, cfg.b2
-        t = step.float()
-        bc1 = 1 - torch.pow(b1, t)
-        bc2 = 1 - torch.pow(b2, t)
-        for p, m, v, g in zip(ps, tree_leaves(state["mu"]),
-                              tree_leaves(state["nu"]), gs):
-            m.mul_(b1).add_((1 - b1) * g)
-            v.mul_(b2).add_((1 - b2) * torch.square(g))
-            denom = torch.div(v, bc2).sqrt_().add_(cfg.eps)
-            upd = torch.div(m, bc1).div_(denom)
-            del denom
-            upd.add_(cfg.weight_decay * p).mul_(lr)
-            p.sub_(upd)
-    elif cfg.kind == "sgd":
-        for p, m, g in zip(ps, tree_leaves(state["mom"]), gs):
-            m.mul_(cfg.momentum).add_(g)
-            p.sub_(torch.add(m, cfg.weight_decay * p).mul_(lr))
-    elif cfg.kind == "lion":
-        b1, b2 = cfg.b1, cfg.b2
-        for p, m, g in zip(ps, tree_leaves(state["mu"]), gs):
-            direction = torch.sign(b1 * m + (1 - b1) * g)
-            p.sub_(direction.add_(cfg.weight_decay * p).mul_(lr))
-            m.mul_(b2).add_((1 - b2) * g)
-    else:
-        raise ValueError(cfg.kind)
-    state["step"].copy_(step)
+        if cfg.kind == "adamw":
+            b1, b2 = cfg.b1, cfg.b2
+            t = step.float()
+            bc1 = 1 - torch.pow(b1, t)
+            bc2 = 1 - torch.pow(b2, t)
+            for p, m, v, g in zip(ps, tree_leaves(state["mu"]),
+                                  tree_leaves(state["nu"]), gs):
+                m.mul_(b1).add_((1 - b1) * g)
+                v.mul_(b2).add_((1 - b2) * torch.square(g))
+                denom = torch.div(v, bc2).sqrt_().add_(cfg.eps)
+                upd = torch.div(m, bc1).div_(denom)
+                del denom
+                upd.add_(cfg.weight_decay * p).mul_(lr)
+                p.sub_(upd)
+        elif cfg.kind == "sgd":
+            for p, m, g in zip(ps, tree_leaves(state["mom"]), gs):
+                m.mul_(cfg.momentum).add_(g)
+                p.sub_(torch.add(m, cfg.weight_decay * p).mul_(lr))
+        elif cfg.kind == "lion":
+            b1, b2 = cfg.b1, cfg.b2
+            for p, m, g in zip(ps, tree_leaves(state["mu"]), gs):
+                direction = torch.sign(b1 * m + (1 - b1) * g)
+                p.sub_(direction.add_(cfg.weight_decay * p).mul_(lr))
+                m.mul_(b2).add_((1 - b2) * g)
+        else:
+            raise ValueError(cfg.kind)
+        state["step"].copy_(step)
     return params, state
