@@ -82,6 +82,40 @@ def resolve_ref(params: ParamTree, ref: Optional[tuple]):
     return node
 
 
+def merge_stack_slices(refs: list) -> list[tuple]:
+    """``refs`` in order, each run of ``stack_slice`` refs to neighbouring
+    rows of one stacked tree merged into one: ``[(ref, rows)]``, where
+    ``rows`` lists each merged ref's rows of the merged slice (``None``
+    for a ref that is no stack slice).  ``unmerge`` undoes it."""
+    runs: list[tuple] = []
+    for ref in refs:
+        if ref is None or len(ref) != 4 or ref[0] != "stack_slice":
+            runs.append((ref, None))
+            continue
+        _, key, lo, hi = ref
+        last = runs[-1][0] if runs and runs[-1][1] is not None else None
+        if last is not None and last[1] == key and last[3] == lo:
+            rows = runs[-1][1] + [(lo - last[2], hi - last[2])]
+            runs[-1] = (("stack_slice", key, last[2], hi), rows)
+        else:
+            runs.append((ref, [(0, hi - lo)]))
+    return runs
+
+
+def unmerge(runs: list[tuple], values) -> tuple:
+    """The values of the refs ``merge_stack_slices`` merged, in their
+    order, from the values of the merged refs: each merged ref's rows of
+    a merged slice are views of it."""
+    out = []
+    for (_, rows), value in zip(runs, values):
+        if rows is None:
+            out.append(value)
+        else:
+            out.extend(tree_map(lambda t: t[lo:hi], value)
+                       for lo, hi in rows)
+    return tuple(out)
+
+
 def _copy_into(dst: torch.Tensor, src: torch.Tensor) -> None:
     # a blocking copy: the host tensor is final when this returns
     dst.copy_(src)

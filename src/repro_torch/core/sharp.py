@@ -22,6 +22,20 @@ immediately picks that device's next unit and begins promoting its shard
 into the reserved buffer region — the transfer overlaps compute and is
 hidden iff transfer_time <= compute_time.  If the next unit is the same
 model's successor on the same device, the boundary activation never moves.
+The virtual clock charges that; the real loop does it too.  At the start
+of each unit it asks the loop's own selection (``_pick_next``) which unit
+the next iteration runs if this one completes as timed, and starts
+promoting that unit's shard (``HostModelStore.prefetch_shard``): on a
+CUDA device on a copy stream, overlapping this unit's kernels; on the
+CPU at once.  The next unit takes the copy only if it is the unit
+predicted and the host store took no write to what was copied since;
+else the copy is dropped and the shard promoted in place.  The loop
+prefetches only where the pick is a pure function of the progress list
+(LRTF, SRTF, FIFO: asking it changes no later pick), where this unit's
+shard and activations and the next shard fit the device's budget, and
+with ``enable_double_buffer``.  Nothing is prefetched across a model's
+minibatch end, where the user's hook runs first.  Demotion stays a
+blocking copy on the compute stream.
 
 Unit runtimes are measured by the pilot pass on the wall clock, around a
 ``torch.cuda.synchronize()`` on a CUDA device; schedules are reproducible
@@ -43,7 +57,8 @@ from repro_torch import tracing
 from repro_torch.core import scheduler as sched
 from repro_torch.core import shard_graph as sg
 from repro_torch.core.partitioner import PartitionResult, Shard
-from repro_torch.core.spilling import DeviceMemory, HostModelStore
+from repro_torch.core.spilling import (DeviceMemory, HostModelStore,
+                                       Prefetch)
 from repro_torch.data.pipeline import as_tensors
 from repro_torch.optim import optimizers as opt
 from repro_torch.tree import tree_leaves, tree_unflatten_like
@@ -315,6 +330,12 @@ class SharpExecutor:
                 f"{hydra_cfg.n_devices} devices")
         self.pick = sched.get_scheduler(hydra_cfg.scheduler,
                                         seed=hydra_cfg.seed)
+        # a pick that reads nothing but the progress list can be asked
+        # ahead (a random pick would consume its RNG)
+        self._pure_pick = self.pick in (sched.sharded_lrtf,
+                                        sched.sharded_srtf, sched.fifo)
+        self._ahead: Optional[tuple[Unit, Prefetch]] = None
+        self._copy_streams: dict = {}
         self.exposed_transfer = 0.0
         self.hidden_transfer = 0.0
         self.units_executed = 0
@@ -364,15 +385,77 @@ class SharpExecutor:
                     shard.est_runtime = shard.fwd_runtime + shard.bwd_runtime
 
     # -- real unit execution -------------------------------------------------
-    def _execute_unit(self, m: ModelExec, unit: Unit) -> None:
+    def _promote(self, m: ModelExec, unit: Unit) -> tuple[tuple, bool]:
+        """The unit's shard on the device, ``(own, shared, opt_state)``
+        (no optimizer state for a forward), and whether it came from the
+        prefetch made for it.  A prefetch for another unit, or one the
+        host store took a write to since, is dropped, and the shard is
+        promoted in place, on the current stream."""
+        ahead, self._ahead = self._ahead, None
+        if ahead is not None and ahead[0] is unit:
+            got = m.store.claim(ahead[1], unit.shard)
+            if got is not None:
+                return got, True
+        # the ledger charges the whole shard (opt state included) to every
+        # unit, as the JAX package does; a forward unit copies only the
+        # weights it reads
+        return m.store.promote_shard(
+            unit.shard, opt_state=unit.direction == "bwd"), False
+
+    def _prefetch_next(self, m: ModelExec, unit: Unit, d: int, end: float,
+                       dev_heap: list, windows: dict,
+                       shard_bytes: int) -> None:
+        """Start promoting the shard of the unit the next iteration picks
+        if ``unit`` (on device ``d``, to end at virtual ``end``, its shard
+        ``shard_bytes``) completes as timed, where this unit's shard and
+        activations and that shard fit the device's budget."""
+        if not (self.hc.enable_double_buffer and self._pure_pick):
+            return
+        nxt = self._speculate(m, d, end, dev_heap, windows)
+        if nxt is None:
+            return
+        nm, nu = nxt
+        if (shard_bytes + unit.shard.act_bytes
+                + nm.store.shard_transfer_bytes(nu.shard)) \
+                > self.devices[d].budget:
+            return
+        where = nm.store.device
+        stream = None
+        if where.type == "cuda":
+            stream = self._copy_streams.get(where)
+            if stream is None:
+                stream = self._copy_streams[where] = torch.cuda.Stream(where)
+        self._ahead = (nu, nm.store.prefetch_shard(
+            nu.shard, opt_state=nu.direction == "bwd", stream=stream))
+
+    def _speculate(self, m: ModelExec, d: int, end: float, dev_heap: list,
+                   windows: dict) -> Optional[tuple[ModelExec, Unit]]:
+        """The model and unit that ``_pick_next`` gives the next iteration
+        if ``m``'s running unit completes as timed, asked on the state that
+        unit leaves: ``m`` one unit on, not reserved, ready at ``end``, and
+        device ``d`` back on the heap at ``end``.  None where it picks
+        nothing, which includes a unit that ends ``m``'s minibatch (the
+        hook that runs there may stop the model)."""
+        saved = m.cursor, m.reserved, m.ready_at, self.active_model
+        m.cursor, m.reserved, m.ready_at = m.cursor + 1, False, end
+        heap = dev_heap + [(end, d)]
+        heapq.heapify(heap)
+        try:
+            picked = self._pick_next(heap, windows)
+            if picked is None or picked[2] is None:
+                return None
+            return picked[2], picked[2].next_unit()
+        finally:
+            m.cursor, m.reserved, m.ready_at, self.active_model = saved
+
+    def _execute_unit(self, m: ModelExec, unit: Unit, own, shared,
+                      opt_state) -> None:
+        """Run ``unit`` on its promoted shard (``opt_state`` None for a
+        forward)."""
         shard = unit.shard
         batch = m.current_batch
         last = shard.index == len(m.partition.shards) - 1
         if unit.direction == "fwd":
-            # the ledger charges the whole shard (opt state included) to
-            # every unit, as the JAX package does; a forward unit copies
-            # only the weights it reads
-            own, shared = m.store.promote_shard_params(shard)
             act_in = {} if shard.index == 0 \
                 else m.saved_acts[("exit", shard.index - 1)]
             # entry activation is the checkpoint this shard's backward reuses
@@ -387,7 +470,6 @@ class SharpExecutor:
             if not last:
                 m.saved_acts[("exit", shard.index)] = out
         else:
-            own, shared, opt_state = m.store.promote_shard(shard)
             act_in = m.saved_acts[("entry", shard.index)]
             with tracing.span("hydra.bwd", shard=shard.index):
                 if last:
@@ -439,25 +521,20 @@ class SharpExecutor:
             live = [m for m in self.models if not m.done]
             if not live:
                 break
-            if not dev_heap:
-                raise RuntimeError(
-                    "all devices retired with models unfinished "
-                    f"({len(live)} remaining) — widen device_windows")
-            t, d = heapq.heappop(dev_heap)
-            until = windows.get(d, (0.0, None))[1]
-            if until is not None and t >= until:
-                continue    # device retired (fault / elasticity shrink)
             with tracing.span("hydra.schedule"):
-                eligible = self._eligible()
-                if not eligible:
+                picked = self._pick_next(dev_heap, windows)
+                if picked is None:
+                    raise RuntimeError(
+                        "all devices retired with models unfinished "
+                        f"({len(live)} remaining) — widen device_windows")
+                t, d, m = picked
+                if m is None:
                     future = [m.ready_at for m in live
                               if m.next_unit() is not None]
                     if not future:
                         break
                     heapq.heappush(dev_heap, (max(min(future), t + 1e-9), d))
                     continue
-                progress = [m.progress() for m in eligible]
-                m = eligible[self.pick(progress)]
                 unit = m.next_unit()
                 m.reserved = True
 
@@ -497,8 +574,14 @@ class SharpExecutor:
             with tracing.span("hydra.unit", model=m.model_id,
                               shard=unit.shard.index,
                               direction=unit.direction,
-                              minibatch=unit.minibatch):
-                self._execute_unit(m, unit)
+                              minibatch=unit.minibatch) as sp:
+                promoted, prefetched = self._promote(m, unit)
+                if sp:
+                    sp.set(prefetched=prefetched)
+                self._prefetch_next(m, unit, d, end, dev_heap, windows,
+                                    shard_bytes)
+                self._execute_unit(m, unit, *promoted)
+                del promoted        # not held through the hooks below
             self.units_executed += 1
             dev.charge_demotion(shard_bytes)
             if on_unit is not None:
@@ -525,6 +608,7 @@ class SharpExecutor:
             if max_units is not None and self.units_executed >= max_units:
                 break
 
+        self._ahead = None          # a prefetch no unit of this run takes
         util = {d: (dev_busy[d] / makespan if makespan > 0 else 0.0)
                 for d in dev_busy}
         return RunReport(
@@ -537,6 +621,24 @@ class SharpExecutor:
             hidden_transfer_time=self.hidden_transfer,
             units_executed=self.units_executed,
             wall_time=time.perf_counter() - wall0)
+
+    def _pick_next(self, dev_heap: list, windows: dict
+                   ) -> Optional[tuple[float, int, Optional[ModelExec]]]:
+        """Pop the next device that has not retired off ``dev_heap``, and
+        pick the model whose next unit it runs: ``(t, d, model)``, the
+        model None where none is eligible, or None where every device
+        retired.  The loop's selection, and its speculation's."""
+        while dev_heap:
+            t, d = heapq.heappop(dev_heap)
+            until = windows.get(d, (0.0, None))[1]
+            if until is not None and t >= until:
+                continue    # device retired (fault / elasticity shrink)
+            eligible = self._eligible()
+            if not eligible:
+                return t, d, None
+            return t, d, eligible[self.pick([m.progress()
+                                             for m in eligible])]
+        return None
 
     def _eligible(self) -> list[ModelExec]:
         live = [m for m in self.models

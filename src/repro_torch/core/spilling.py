@@ -11,9 +11,19 @@ tensors.  Promotion always makes new tensors, on the CPU too, where
 ``.to("cpu")`` alone would return the host tensor itself: nothing a unit
 does to its promoted shard can reach the master copy except ``demote``.
 
+A training shard is promoted one copy a merged slice of stacked rows.
+A prefetch (``prefetch_shard``) is that promotion made ahead of the unit
+that needs it, on a copy stream, while another unit computes (the SHARP
+executor's double buffering).  The store counts the writes its host copy
+takes (a generation per shard, one for the shared leaves), and ``claim``
+hands a prefetch out only if nothing it copied was written since: a
+dropped prefetch costs bytes, never a stale shard.
+
 Layout of the host store per model:
     params:      family host tree (prepare_host_params applied)
-    opt:         {shard_index: opt-state tree}  (own params)
+    opt:         {shard_index: opt-state tree}  (own params; its leaves
+                 are views of the state over the shard's stacked rows,
+                 which a promotion copies one tensor a stacked leaf)
     shared_opt:  {name: opt-state tree}         (shared params)
 A forward-only store (``train=False``: eval, spilled inference, cold
 serving) holds params only: no unit of its model steps an optimizer, so
@@ -28,13 +38,17 @@ transfer time = bytes / ``link_bw`` against the device timeline.
 
 from __future__ import annotations
 
+import contextlib
+from collections import Counter
 from dataclasses import dataclass
-from typing import Any
+from typing import Any, Optional
+
+import torch
 
 from repro_torch import resolve_device, tracing
 from repro_torch.core import shard_graph as sg
 from repro_torch.core.partitioner import PartitionResult, Shard, tree_bytes
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map
 
 
 def to_host(tree, pin: bool = False):
@@ -51,6 +65,17 @@ def to_device(tree, device):
     fresh tensor on the CPU as well."""
     return tree_map(lambda t: t.to(device, non_blocking=True, copy=True),
                     tree)
+
+
+@dataclass
+class Prefetch:
+    """One shard copied to the device ahead of its unit
+    (``HostModelStore.prefetch_shard``)."""
+    shard: int
+    generation: tuple           # the store's write generation when copied
+    tensors: tuple              # (own, shared, opt_state or None)
+    copies: list                # the tensors the copies made (views above)
+    done: Optional[Any] = None  # CUDA event after the copies, on their stream
 
 
 @dataclass
@@ -89,13 +114,23 @@ class HostModelStore:
         self.train = train
         self.opt: dict[int, Any] = {}
         self.shared_opt: dict[str, Any] = {}
+        # writes taken by the host copy: a shard's index counts its own
+        # leaves and moments, None the shared leaves
+        self._writes: Counter = Counter()
+        # a shard's own refs with neighbouring stacked rows merged, and its
+        # optimizer state over the merged slices (``opt`` holds views)
+        self._runs: dict[int, list] = {}
+        self._opt_runs: dict[int, Any] = {}
         with tracing.span("hydra.store_build", model=cfg.name) as sp:
             self.params = sg.prepare_host_params(cfg, to_host(params, pin))
             if train:
                 for shard in partition.shards:
-                    own = self._own_params(shard)
-                    self.opt[shard.index] = to_host(
-                        opt.init_state(opt_cfg, own), pin)
+                    runs = self._runs[shard.index] = sg.merge_stack_slices(
+                        [plan.segments[i].param_ref
+                         for i in range(shard.seg_lo, shard.seg_hi)])
+                    state = self._opt_runs[shard.index] = to_host(
+                        opt.init_state(opt_cfg, self._merged(runs)), pin)
+                    self.opt[shard.index] = self._unmerge_state(runs, state)
                 self.shared_opt = {
                     name: to_host(opt.init_state(
                         opt_cfg, sg.resolve_ref(self.params, ref)), pin)
@@ -113,24 +148,27 @@ class HostModelStore:
                                     self.plan.segments[i].param_ref)
                      for i in range(shard.seg_lo, shard.seg_hi))
 
+    def _merged(self, runs: list):
+        return tuple(sg.resolve_ref(self.params, ref) for ref, _ in runs)
+
+    @staticmethod
+    def _unmerge_state(runs: list, state: dict) -> dict:
+        # per-leaf entries are tuples over the merged slices; the step
+        # count is one tensor
+        return {k: sg.unmerge(runs, v) if isinstance(v, tuple) else v
+                for k, v in state.items()}
+
     def _shared_params(self, shard: Shard) -> dict:
         return {n: to_device(sg.resolve_ref(self.params,
                                             self.plan.shared_refs[n]),
                              self.device)
                 for n in self.shard_shared_names(shard)}
 
-    def promote_shard(self, shard: Shard):
-        """Host -> device: (own_params, shared_params, opt_state)."""
-        if not self.train:
-            raise ValueError("a forward-only host store holds no optimizer "
-                             "state: promote_shard_params")
+    def promote_shard(self, shard: Shard, *, opt_state: bool = True):
+        """Host -> device on the current stream: (own_params,
+        shared_params, opt_state), the last None without ``opt_state``."""
         with tracing.span("hydra.promote", shard=shard.index) as sp:
-            own = to_device(self._own_params(shard), self.device)
-            opt_state = to_device(self.opt[shard.index], self.device)
-            shared = self._shared_params(shard)
-            if sp:
-                sp.set(bytes=tree_bytes((own, shared, opt_state)))
-        return own, shared, opt_state
+            return self._copy_shard(shard, opt_state, sp)[0]
 
     def promote_shard_params(self, shard: Shard):
         """Host -> device, weights only (no optimizer state)."""
@@ -141,8 +179,70 @@ class HostModelStore:
                 sp.set(bytes=tree_bytes((own, shared)))
         return own, shared
 
+    def _generation(self, shard: Shard) -> tuple[int, int]:
+        """The writes taken so far by the host copy of ``shard``'s own
+        leaves and moments, and of the shared leaves: a device copy made
+        from them is current while this is unchanged."""
+        return self._writes[shard.index], self._writes[None]
+
+    def _copy_shard(self, shard: Shard, opt_state: bool, sp):
+        """A training shard's own and shared leaves, and its optimizer
+        state when ``opt_state``, queued to the device on the current
+        stream: ``((own, shared, opt_state or None), copies)``, the trees
+        views of ``copies``.  One copy a merged slice of stacked rows, not
+        one a layer: past about a thousand queued copies CUDA makes the
+        host wait for the oldest, and a whole shard's leaves and moments
+        are more."""
+        if not self.train:
+            raise ValueError("a forward-only host store holds no optimizer "
+                             "state: promote_shard_params")
+        runs = self._runs[shard.index]
+        copies = [to_device(self._merged(runs), self.device),
+                  self._shared_params(shard)]
+        if opt_state:
+            copies.append(to_device(self._opt_runs[shard.index], self.device))
+        if sp:
+            sp.set(bytes=tree_bytes(copies))
+        moments = self._unmerge_state(runs, copies[2]) if opt_state else None
+        return (sg.unmerge(runs, copies[0]), copies[1], moments), copies
+
+    def prefetch_shard(self, shard: Shard, *, opt_state: bool,
+                       stream=None) -> Prefetch:
+        """``promote_shard`` ahead of the unit that needs it, handed out by
+        ``claim``: with a CUDA ``stream`` the copies are queued on it and
+        an event marks their end; without one (the CPU) they are made at
+        once."""
+        generation = self._generation(shard)
+        on = contextlib.nullcontext() if stream is None \
+            else torch.cuda.stream(stream)
+        with on:
+            with tracing.span("hydra.promote", shard=shard.index,
+                              prefetch=True) as sp:
+                tensors, copies = self._copy_shard(shard, opt_state, sp)
+            done = None
+            if stream is not None:
+                done = torch.cuda.Event()
+                done.record(stream)
+        return Prefetch(shard.index, generation, tensors, copies, done)
+
+    def claim(self, pf: Prefetch, shard: Shard) -> Optional[tuple]:
+        """``pf``'s ``(own, shared, opt_state)`` for use on the current
+        stream, or None where they may be stale: copied for another shard,
+        or the host copy took a write since.  The current stream waits for
+        the copies, and the allocator keeps their blocks until its work on
+        them is done."""
+        if pf.shard != shard.index or pf.generation != self._generation(shard):
+            return None
+        if pf.done is not None:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(pf.done)
+            for t in tree_leaves(pf.copies):
+                t.record_stream(stream)
+        return pf.tensors
+
     def demote_shard(self, shard: Shard, own, opt_state):
         """Device -> host: write back possibly-updated params + opt state."""
+        self._writes[shard.index] += 1
         with tracing.span("hydra.demote", shard=shard.index) as sp:
             for k, i in enumerate(range(shard.seg_lo, shard.seg_hi)):
                 ref = self.plan.segments[i].param_ref
@@ -179,6 +279,7 @@ class HostModelStore:
     def step_shared(self):
         """Apply accumulated shared-param grads (mini-batch boundary)."""
         from repro_torch.optim import optimizers as opt
+        self._writes[None] += 1
         with tracing.span("hydra.step_shared"):
             for name, g in self.shared_grad_acc.items():
                 ref = self.plan.shared_refs[name]

@@ -111,7 +111,8 @@ def test_training_spans_tree_attributes_and_bytes():
     n_shards = len(stores[0].partition.shards)
     assert n_shards >= 2
     for u in units:
-        assert set(u.attrs) == {"model", "shard", "direction", "minibatch"}
+        assert set(u.attrs) == {"model", "shard", "direction", "minibatch",
+                                "prefetched"}
         assert u.parent is None
     for s in spans:
         up = _ancestors(s, by_id)
@@ -126,12 +127,23 @@ def test_training_spans_tree_attributes_and_bytes():
             assert up[0] == "hydra.minibatch_end"
         if s.name == "hydra.store_build":
             assert s.attrs["bytes"] > 0 and s.attrs["model"] == ARCH
-    # the bytes a promotion really copies, not the ledger's charge
+    # the bytes a promotion really copies, not the ledger's charge: the
+    # unit's own, or the prefetch that the unit before it made for it
+    ahead = None
     for u in units:
         store = stores[u.attrs["model"]]
         shard = store.partition.shards[u.attrs["shard"]]
         kids = [s for s in spans if s.parent == u.id]
-        (promote,) = [s for s in kids if s.name == "hydra.promote"]
+        promotes = [s for s in kids if s.name == "hydra.promote"]
+        mine = [s for s in promotes if "prefetch" not in s.attrs]
+        if u.attrs["prefetched"]:
+            assert mine == [] and ahead.attrs["shard"] == shard.index
+            promote = ahead
+        else:
+            (promote,) = mine
+        made = [s for s in promotes if s.attrs.get("prefetch")]
+        assert len(made) <= 1
+        ahead = made[0] if made else None
         weights = tree_bytes(store._own_params(shard)) + sum(
             tree_bytes(t) for t in store._shared_params(shard).values())
         moments = tree_bytes(store.opt[shard.index])
